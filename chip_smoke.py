@@ -20,9 +20,23 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
 (b) row conversion — the RowConversionTest schema (SURVEY.md §4) at
     2^22 rows through the plan [to_rows, from_rows]; the round trip must
     give back the uploaded bytes.
+(d) exchange — the map side of a shuffle on the same 2^23-row batch:
+    from_rows -> partition (Spark's hash partitioning on ss_item_sk and
+    the nullable ss_customer_sk, 200 partitions: Spark's default
+    spark.sql.shuffle.partitions) -> to_rows. The result is held against
+    a numpy Murmur3 oracle: pmod 200, stable argsort, the row bytes.
+(e) sort — the SortExec of a sort-merge join on ss_item_sk over the same
+    batch: from_rows -> sort_by item_sk -> to_rows, held against a stable
+    numpy argsort of the row bytes.
 (c) kernels — each kernel against its plain version on the card, at the
-    shapes of (a) and (b), by exact equality (tolerance 0: all four
-    compute integers and bytes), with CUDA-event times and the bound.
+    shapes of (a), (b), (d) and (e), by exact equality (tolerance 0:
+    every kernel computes integers and bytes), with CUDA-event times, the
+    bound and, where one PyTorch call computes the same function, that
+    call's time.
+
+Every phase sets the kernels' launch counts to 0 just before its first
+plan run and reads them just after; each fails if a kernel of its path
+was never launched.
 
 Output: progress lines, then one JSON line of kernel records, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -63,6 +77,17 @@ PLAN = [
      "aggs": [{"column": 3, "agg": a} for a in ("sum", "count", "min", "max")]},
     {"op": "to_rows"},
 ]
+QUERY_KERNELS = ("unpack_rows", "build_table", "probe_table", "pack_rows")
+FROM_FACT_ROWS = PLAN[0]
+EXCHANGE_PARTITIONS = 200  # Spark's default spark.sql.shuffle.partitions
+EXCHANGE_PLAN = [
+    FROM_FACT_ROWS,
+    {"op": "partition", "kind": "hash", "keys": [0, 1],
+     "num": EXCHANGE_PARTITIONS},
+    {"op": "to_rows"},
+]
+SORT_PLAN = [FROM_FACT_ROWS, {"op": "sort_by", "keys": [{"column": 0}]},
+             {"op": "to_rows"}]
 # RowConversionTest: INT64, FLOAT64, INT32, BOOL8, FLOAT32, INT8,
 # DECIMAL32(-3), DECIMAL64(-8)
 ROWCONV_TYPES = [4, 10, 3, 11, 9, 1, 25, 26]
@@ -166,6 +191,64 @@ def check_query_result(wire, want: dict) -> int:
     return g
 
 
+def _rotl32(x, r: int):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def _mix_k1(k1):
+    return _rotl32(k1 * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+
+
+def _mix_h1(h1, k1):
+    return _rotl32(h1 ^ k1, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def murmur3_long_np(values: np.ndarray, valid, h: np.ndarray) -> np.ndarray:
+    """Spark's Murmur3_x86_32.hashLong of int64 ``values`` with the running
+    hash ``h`` as seed, in numpy uint32; null rows keep ``h``."""
+    u = values.view(np.uint64)
+    h1 = _mix_h1(h, _mix_k1((u & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+    h1 = _mix_h1(h1, _mix_k1((u >> np.uint64(32)).astype(np.uint32)))
+    h1 = h1 ^ np.uint32(8)
+    h1 = h1 ^ (h1 >> np.uint32(16))
+    h1 = h1 * np.uint32(0x85EBCA6B)
+    h1 = h1 ^ (h1 >> np.uint32(13))
+    h1 = h1 * np.uint32(0xC2B2AE35)
+    h1 = h1 ^ (h1 >> np.uint32(16))
+    return h1 if valid is None else np.where(valid, h1, h)
+
+
+def exchange_oracle(d: dict) -> np.ndarray:
+    """Rows of (d): Spark's Pmod(Murmur3Hash(item_sk, customer_sk), 200)
+    with seed 42, then a stable argsort by partition id."""
+    h = np.full(d["item_sk"].shape[0], 42, np.uint32)
+    h = murmur3_long_np(d["item_sk"], None, h)
+    h = murmur3_long_np(d["customer_sk"], d["customer_ok"], h)
+    pid = np.mod(h.view(np.int32).astype(np.int64), EXCHANGE_PARTITIONS)
+    return d["rows"][np.argsort(pid, kind="stable")]
+
+
+def sort_oracle(d: dict) -> np.ndarray:
+    """Rows of (e): a stable argsort by item_sk."""
+    return d["rows"][np.argsort(d["item_sk"], kind="stable")]
+
+
+def check_rows(wire, want: np.ndarray) -> None:
+    """The downloaded LIST<UINT8> packed rows must equal ``want`` byte for
+    byte."""
+    type_ids, scales, datas, valids, nrows = wire
+    n, size = want.shape
+    if type_ids != [24] or scales != [5] or valids != [None] or nrows != n:
+        raise AssertionError(f"unexpected result {type_ids} {scales} {nrows}")
+    offs = (np.arange(n + 1, dtype=np.int64) * size).astype(np.int32)
+    if datas[0] != offs.tobytes() + want.tobytes():
+        got = np.frombuffer(datas[0], np.uint8, offset=4 * (n + 1))
+        bad = np.flatnonzero(got != want.reshape(-1))
+        raise AssertionError(
+            f"rows differ from the oracle at {bad.shape[0]} bytes, first "
+            f"at row {bad[0] // size if bad.shape[0] else 'offsets'}")
+
+
 def make_rowconv_wire(rng, n: int):
     cols = [
         rng.integers(-2**62, 2**62, n).astype(np.int64),
@@ -218,7 +301,8 @@ def max_abs_err(got, want) -> int:
                                  f"{tuple(w.shape)} {w.dtype}")
         if g.numel():
             d = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
-            err = max(err, int(d))
+            # a difference of 2^63 wraps to a negative abs: count it as 1
+            err = max(err, int(d), int(bool((g != w).any())))
     return err
 
 
@@ -230,15 +314,19 @@ def transpose_bytes(layout, n: int) -> int:
 
 
 def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
-                  plain_fn, nbytes: int, nops: int, reps: int = 20) -> dict:
+                  plain_fn, nbytes: int, nops: int, reps: int = 20,
+                  library_fn=None, note: str = "") -> dict:
     """Compare a kernel with its plain version on the same inputs, time
-    both, and return its record for the kernels line."""
+    both (and ``library_fn``, one PyTorch call computing the same
+    function, where there is one), and return its record for the kernels
+    line."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, 3)
+    library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / INT_OPS_PER_S * 1e3
     rec = {
@@ -247,10 +335,13 @@ def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None, "shape": shape, "bytes": nbytes,
+        "library_ms": library_ms, "shape": shape, "bytes": nbytes,
     }
+    if note:
+        rec["note"] = note
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     log(f"(c) {rec['name']} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms{lib}")
     if err:
         raise AssertionError(f"{rec['name']} disagrees with its plain version")
     return rec
@@ -284,18 +375,20 @@ def phase_query(rb, kernels, d: dict) -> dict:
         f"rows match the numpy oracle; plan median {statistics.median(times):.2f} ms "
         f"over {len(times)} runs (all: {[round(t, 2) for t in times]}); "
         f"launches {launches}")
-    profile = profile_plan(rb, plan, [fid, iid], statistics.median(times))
+    profile = profile_plan(rb, plan, [fid, iid], statistics.median(times),
+                           "(a)")
     rb.table_free(fid)
     rb.table_free(iid)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in QUERY_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"the query never launched {missing}")
     return {"launches": launches, "groups": groups,
             "filtered_rows": want["filtered_rows"],
             "plan_ms": statistics.median(times), "profile": profile}
 
 
-def profile_plan(rb, plan: str, ids, wall_ms: float, runs: int = 5) -> dict:
+def profile_plan(rb, plan: str, ids, wall_ms: float, tag: str,
+                 runs: int = 5) -> dict:
     """A steady window of ``runs`` plan runs under ``torch.profiler``, each
     timed as the unprofiled runs are: device time by kernel name per run,
     and the device's busy share. The profiler adds host time to every
@@ -323,7 +416,7 @@ def profile_plan(rb, plan: str, ids, wall_ms: float, runs: int = 5) -> dict:
             "device_ms_per_run": e.self_device_time_total / 1e3 / runs}
            for e in top[:12]]
     profiled_ms = statistics.median(walls)
-    log(f"(a) profiled window of {runs} runs: device busy {device_ms:.3f} ms "
+    log(f"{tag} profiled window of {runs} runs: device busy {device_ms:.3f} ms "
         f"a run = {100 * device_ms / wall_ms:.1f} % of the unprofiled "
         f"{wall_ms:.2f} ms wall ({100 * device_ms / profiled_ms:.1f} % of the "
         f"profiled {profiled_ms:.2f} ms)")
@@ -366,11 +459,46 @@ def phase_rowconv(rb, kernels, wire) -> dict:
     return {"launches": launches, "plan_ms": statistics.median(times)}
 
 
-def phase_kernels(d: dict, qa: dict, qb: dict) -> list:
+def phase_rows_plan(rb, kernels, tag: str, plan_ops, wire, want: np.ndarray,
+                    needs) -> dict:
+    """Phases (d) and (e): one plan over the uploaded fact batch whose
+    packed-row result must equal ``want``; ``needs`` names the kernels
+    the run must have launched."""
+    tid = rb.table_upload_wire(*wire, device=DEVICE)
+    plan = json.dumps(plan_ops)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = rb.table_plan_resident(plan, [tid])
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    check_rows(rb.table_download_wire(out), want)
+    rb.table_free(out)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = rb.table_plan_resident(plan, [tid])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rb.table_free(out)
+    median = statistics.median(times)
+    log(f"{tag} {want.shape[0]} rows match the numpy oracle; plan median "
+        f"{median:.2f} ms over {len(times)} runs (all: "
+        f"{[round(t, 2) for t in times]}); launches {launches}")
+    profile = profile_plan(rb, plan, [tid], median, tag)
+    rb.table_free(tid)
+    missing = [k for k in needs if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag} never launched {missing}")
+    return {"launches": launches, "plan_ms": median, "profile": profile}
+
+
+def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict) -> list:
     from spark_rapids_jni_tpu_torch import dtype as dt
     from spark_rapids_jni_tpu_torch import rows
     from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
     from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+    from spark_rapids_jni_tpu_torch.kernels import hashing as kh
     from spark_rapids_jni_tpu_torch.kernels import registry
     from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
     from spark_rapids_jni_tpu_torch.ops import keys
@@ -471,6 +599,58 @@ def phase_kernels(d: dict, qa: dict, qb: dict) -> list:
                       dtype=torch.uint8, device=dev, generator=gen),
         rc_layout)
     recs.append(unpack_record("rowconv", rc_layout, src, lb))
+
+    # K5 at the exchange's keys: item_sk, and customer_sk with its nulls.
+    # Bytes: the keys, one validity byte, 4 B of output a row. Operations:
+    # 11 a u32 word (mix_k1 + mix_h1) and 10 a column (finalizer, select).
+    def on_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    n = FACT_ROWS
+    hcols = [Column(on_dev(d["item_sk"]), dt.INT64),
+             Column(on_dev(d["customer_sk"]), dt.INT64,
+                    on_dev(d["customer_ok"]))]
+    recs.append(kernel_record(
+        kh.MURMUR3, "exchange", f"{n} rows x 2 INT64 keys (1 nullable)",
+        qd["launches"]["murmur3_table_fused"],
+        lambda: [kh.murmur3_columns(hcols)], lambda: [kh.murmur3_plain(hcols)],
+        n * (8 + 8 + 1 + 4), n * 2 * (2 * 11 + 10)))
+
+    # K3 at the sort's shape: the item_sk key bits and every 1-D buffer of
+    # the from_rows table as payloads (five data columns, two validities).
+    # Bytes: one read of key and payloads, one write of key, perm and
+    # payloads. Operations: n log2 n compares of ~5 integer operations.
+    # The library yardstick is torch.sort of the int64 order carrier
+    # (stable): the sorted key and the perm, without the payload gather.
+    def sort_record(tag, key_bits, pays, launches, note=""):
+        c, t = key_bits.shape
+        pbytes = sum(p.element_size() for p in pays)
+        carrier = keys.to_unsigned_bits(key_bits)  # the flip is its own inverse
+        return kernel_record(
+            bs.SORT, tag, f"{c}x{t}, {len(pays)} payloads ({pbytes} B a row)",
+            launches, lambda: list(bs.batched_sort_u64_looped(key_bits, *pays)),
+            lambda: list(bs.batched_sort_plain(key_bits, *pays)),
+            c * t * (8 + pbytes) + c * t * (12 + pbytes),
+            5 * c * t * max(t.bit_length() - 1, 1),
+            library_fn=lambda: torch.sort(carrier, dim=1, stable=True),
+            note=note)
+
+    item = on_dev(d["item_sk"])
+    sort_pays = [item, on_dev(d["customer_sk"]), on_dev(d["date_sk"]),
+                 on_dev(d["quantity"]), on_dev(d["keep"]),
+                 on_dev(d["customer_ok"]), on_dev(d["quantity_ok"])]
+    recs.append(sort_record(
+        "sort", keys.to_unsigned_bits(item)[None, :],
+        [p[None, :] for p in sort_pays],
+        qe["launches"]["batched_sort_u64_looped"]))
+    small = torch.randint(0, 64, (1, 1024), dtype=torch.int64, device=dev,
+                          generator=gen)
+    recs.append(sort_record(
+        "one_block", keys.to_unsigned_bits(small),
+        [small, small.to(torch.int32), small > 31], 0,
+        note="the one-block regime (T <= 4096: the whole network in one "
+             "shared-memory launch); no main-path phase sorts 1024 rows, "
+             "so its main-path launch count is 0"))
     return recs
 
 
@@ -492,10 +672,13 @@ def main(argv=None) -> int:
         return 2
     from spark_rapids_jni_tpu_torch import kernels
     from spark_rapids_jni_tpu_torch import runtime_bridge as rb
-    from spark_rapids_jni_tpu_torch.kernels import hash_table, row_transpose
+    from spark_rapids_jni_tpu_torch.kernels import (
+        bitonic_sort, hash_table, hashing, row_transpose,
+    )
 
     expected = {i.name for i in (row_transpose.PACK, row_transpose.UNPACK,
-                                 hash_table.BUILD, hash_table.PROBE)}
+                                 hash_table.BUILD, hash_table.PROBE,
+                                 hashing.MURMUR3, bitonic_sort.SORT)}
     if set(kernels.KERNELS) != expected:
         raise RuntimeError(f"kernel registry {set(kernels.KERNELS)} != {expected}")
 
@@ -505,26 +688,32 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(args.seed)
     failed = []
-    qa = qb = None
     t0 = time.perf_counter()
     d = make_query_data(rng, FACT_ROWS, ITEM_ROWS)
     rc_wire = make_rowconv_wire(rng, ROWCONV_ROWS)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
-    for name, fn in (("query", lambda: phase_query(rb, kernels, d)),
-                     ("rowconv", lambda: phase_rowconv(rb, kernels, rc_wire))):
+    phases = {
+        "query": lambda: phase_query(rb, kernels, d),
+        "rowconv": lambda: phase_rowconv(rb, kernels, rc_wire),
+        "exchange": lambda: phase_rows_plan(
+            rb, kernels, "(d) exchange:", EXCHANGE_PLAN, d["fact_wire"],
+            exchange_oracle(d), [hashing.MURMUR3.name]),
+        "sort": lambda: phase_rows_plan(
+            rb, kernels, "(e) sort:", SORT_PLAN, d["fact_wire"],
+            sort_oracle(d), [bitonic_sort.SORT.name]),
+    }
+    res = {}
+    for name, fn in phases.items():
         try:
-            res = fn()
-            if name == "query":
-                qa = res
-            else:
-                qb = res
+            res[name] = fn()
         except Exception:  # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
     recs = []
-    if qa is not None and qb is not None:
+    if len(res) == len(phases):
         try:
-            recs = phase_kernels(d, qa, qb)
+            recs = phase_kernels(d, res["query"], res["rowconv"],
+                                 res["exchange"], res["sort"])
         except Exception:
             traceback.print_exc()
             failed.append("kernels")
@@ -538,9 +727,14 @@ def main(argv=None) -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": recs, "query_plan_ms": qa["plan_ms"],
-                      "query_profile": qa["profile"],
-                      "rowconv_plan_ms": qb["plan_ms"]}))
+    print(json.dumps({
+        "kernels": recs, "query_plan_ms": res["query"]["plan_ms"],
+        "query_profile": res["query"]["profile"],
+        "rowconv_plan_ms": res["rowconv"]["plan_ms"],
+        "exchange_plan_ms": res["exchange"]["plan_ms"],
+        "exchange_profile": res["exchange"]["profile"],
+        "sort_plan_ms": res["sort"]["plan_ms"],
+        "sort_profile": res["sort"]["profile"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,150 @@
+"""Batched stable sort of u64 keys: kernel K3 and its plain version (port
+of ``kernels/bitonic_sort.py`` ``batched_sort_u64_looped``).
+
+The contract is the JAX package's: each row of a ``(C, T)`` u64 key (T a
+power of two) is sorted ascending, stably, with payloads carried along;
+the result is ``(sorted_key, perm int32, *sorted_payloads)`` where perm is
+each output's source index within its row. torch has no unsigned 64-bit
+order on the CPU, so the key travels as an int64 tensor holding the u64
+bit pattern (``ops.keys.to_unsigned_bits`` of an order word). Payloads
+keep their bits:
+the JAX package splits 8-byte payloads into two u32 words, bitcasts
+4-byte ones and widens narrower integers, all of which round-trip exactly;
+a narrow float raises there and here.
+
+The CUDA kernel lives in ``csrc/bitonic_sort.cu`` (design notes there).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import check_status, library, ptr, register, require_cuda, stream_of
+
+SORT = register(
+    "batched_sort_u64_looped",
+    "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu",
+    "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401",
+)
+
+#: the kernel's launch geometry: rows ride gridDim.y, and the perm is int32
+MAX_ROWS = 65535
+MAX_T = 1 << 30
+
+_M32 = 0xFFFFFFFF
+# same-width signed views: torch on the CPU gathers no unsigned dtype
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_DECLARED = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _DECLARED
+    lib = library("bitonic_sort")
+    if not _DECLARED:
+        lib.srt_error_string.argtypes = [_I]
+        lib.srt_error_string.restype = ctypes.c_char_p
+        u64s = ctypes.POINTER(ctypes.c_uint64)
+        lib.srt_bitonic_sort.argtypes = [
+            _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I, _P,
+        ]
+        lib.srt_bitonic_sort.restype = _I
+        _DECLARED = True
+    return lib
+
+
+def _check(key: torch.Tensor, payloads) -> None:
+    if key.dtype != torch.int64:
+        raise TypeError(f"key must hold u64 bits in int64, got {key.dtype}")
+    if key.dim() != 2:
+        raise ValueError(f"key must be (C, T), got {tuple(key.shape)}")
+    c, t = key.shape
+    if t < 2 or t & (t - 1):
+        raise ValueError(f"chunk length must be a power of two, got {t}")
+    if t > MAX_T:
+        raise ValueError(f"chunk length {t} over the int32 perm bound {MAX_T}")
+    for p in payloads:
+        if tuple(p.shape) != (c, t):
+            raise ValueError(f"payload {tuple(p.shape)} != key {(c, t)}")
+        if p.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"payload {p.dtype} is not 1, 2, 4 or 8 bytes")
+        if p.dtype.is_floating_point and p.element_size() < 4:
+            raise TypeError(
+                f"narrow float payload {p.dtype} would lose bits "
+                "through the u32 widening; cast it to float32 first"
+            )
+
+
+def batched_sort_plain(key: torch.Tensor, *payloads: torch.Tensor):
+    """Reference for K3: the JAX loop form's bitonic network in torch ops
+    (partner ``i ^ j``, lexicographic compare of (hi, lo, idx) as u32
+    values held in int64, select), then the payloads gathered through the
+    perm. The riding index makes every key distinct, so gathering after
+    the network equals carrying the payloads through it."""
+    _check(key, payloads)
+    c, t = key.shape
+    hi, lo = (key >> 32) & _M32, key & _M32
+    i = torch.arange(t, device=key.device)
+    idx = i.expand(c, t)
+    k = 2
+    while k <= t:
+        j = k // 2
+        while j >= 1:
+            p = i ^ j
+            ph, pl, pi = hi[:, p], lo[:, p], idx[:, p]
+            p_lt = ((ph < hi) | ((ph == hi) & (pl < lo))
+                    | ((ph == hi) & (pl == lo) & (pi < idx)))
+            keep_min = ((i & j) == 0) == ((i & k) == 0)
+            take = torch.where(keep_min, p_lt, ~p_lt)
+            hi = torch.where(take, ph, hi)
+            lo = torch.where(take, pl, lo)
+            idx = torch.where(take, pi, idx)
+            j //= 2
+        k *= 2
+    sorted_key = (hi << 32) | lo
+    outs = []
+    for pay in payloads:
+        signed = _SIGNED.get(pay.dtype, pay.dtype)
+        outs.append(torch.gather(pay.view(signed), 1, idx).view(pay.dtype))
+    return (sorted_key, idx.to(torch.int32), *outs)
+
+
+def _sort_cuda(key: torch.Tensor, payloads):
+    c, t = key.shape
+    if c > MAX_ROWS:
+        raise ValueError(f"{c} rows over the kernel's {MAX_ROWS}-row grid")
+    require_cuda(key, "key", key.dtype, (c, t))
+    for n, p in enumerate(payloads):
+        require_cuda(p, f"payloads[{n}]", p.dtype, (c, t))
+    sorted_key = torch.empty_like(key)
+    perm = torch.empty((c, t), dtype=torch.int32, device=key.device)
+    outs = [torch.empty_like(p) for p in payloads]
+    m = len(payloads)
+    u64s = ctypes.c_uint64 * m
+    lib = _lib()
+    rc = lib.srt_bitonic_sort(
+        ptr(key), ptr(sorted_key), ptr(perm), c, t,
+        u64s(*[p.data_ptr() for p in payloads]),
+        u64s(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int * m)(*[p.element_size() for p in payloads]), m,
+        stream_of(key),
+    )
+    check_status(lib, rc, "batched_sort_u64_looped")
+    SORT.launches += 1
+    return (sorted_key, perm, *outs)
+
+
+def batched_sort_u64_looped(key: torch.Tensor, *payloads: torch.Tensor):
+    """Sort each row of ``key`` (C, T) ascending as u64, stably, carrying
+    ``payloads`` (each (C, T)); ``key`` is int64 holding the u64 bits.
+    Returns ``(sorted_key, perm int32, *sorted_payloads)``."""
+    _check(key, payloads)
+    if key.device.type == "cpu":
+        return batched_sort_plain(key, *payloads)
+    return _sort_cuda(key, payloads)

@@ -58,7 +58,7 @@ def _check_pow2(s: int) -> None:
         raise ValueError(f"table_slots must be a power of two, got {s}")
 
 
-def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+def mul32(a: torch.Tensor, b: int) -> torch.Tensor:
     """(a * b) mod 2**32 for u32 ``a`` in int64 and a u32 constant, in
     16-bit halves of ``b`` so no int64 product overflows."""
     lo = a * (b & 0xFFFF)
@@ -69,11 +69,11 @@ def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
 def hash_word(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """fmix32 slot hash of the u64 word (hi << 32 | lo), bit for bit as
     the JAX package's ``hash_word``; u32 values carried in int64."""
-    h = lo ^ _mul32(hi, 0x9E3779B9)
+    h = lo ^ mul32(hi, 0x9E3779B9)
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
+    h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
+    h = mul32(h, 0xC2B2AE35)
     return h ^ (h >> 16)
 
 

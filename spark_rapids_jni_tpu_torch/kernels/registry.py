@@ -29,8 +29,7 @@ import torch
 from .. import dtype as dt
 from ..column import Column, Table
 
-#: Registered kernel entries. ``packed_sort`` (sort_by through the
-#: bitonic network, K3) is not ported yet and declines every op.
+#: Registered kernel entries.
 KERNEL_NAMES = frozenset(
     {"packed_sort", "hash_build_probe", "hash_groupby", "row_pack",
      "row_unpack"}
@@ -93,16 +92,76 @@ def _key_halves(col: Column):
 
 
 # ---------------------------------------------------------------------------
-# packed_sort — not ported yet
+# packed_sort — single-key sort_by through the bitonic network (K3)
 # ---------------------------------------------------------------------------
 
 
+def _payload_buffers(table: Table) -> list:
+    """``(column, attr, tensor)`` of every 1-D buffer that rides the sort
+    as a payload: data, validity, lengths. Matrix data (DECIMAL128 limbs,
+    LIST bytes) gathers through the perm instead."""
+    out = []
+    for i, c in enumerate(table.columns):
+        for attr in ("data", "validity", "lengths"):
+            buf = getattr(c, attr)
+            if buf is not None and buf.dim() == 1:
+                out.append((i, attr, buf))
+    return out
+
+
 def _a_packed_sort(op: dict, table: Table, rest) -> Optional[str]:
-    return "packed_sort (K3) is not ported yet: sort_by runs exact"
+    ks = op.get("keys") or []
+    if len(ks) != 1:
+        return "multi-key sort (one packed word per network)"
+    col = _resolve_col(table, ks[0].get("column"))
+    if col is None:
+        return "unresolvable sort key column"
+    r = _order_word_reason(col)
+    if r is not None:
+        return r
+    from . import bitonic_sort
+
+    n = table.row_count
+    if n == 0:
+        return "empty input"
+    # the rows pad to T = next_pow2(n), which the int32 perm bounds
+    if _next_pow2(max(n, 2)) > bitonic_sort.MAX_T:
+        return f"{n} rows over the int32 perm bound"
+    return None
 
 
 def _r_packed_sort(op: dict, table: Table, rest) -> Table:
-    raise KernelDecline("packed_sort is not ported yet")
+    from ..ops import keys as keys_mod
+    from . import bitonic_sort
+
+    kspec = op["keys"][0]
+    w = keys_mod.column_order_keys(table.column(kspec["column"]))[0]
+    if not bool(kspec.get("ascending", True)):
+        w = ~w
+    n = table.row_count
+    pad = _next_pow2(max(n, 2)) - n
+    # padding rows take the all-ones key at the tail indices, so the index
+    # tiebreak keeps a real all-ones key (INT64 max ascending, INT64 min
+    # descending) ahead of them
+    u = keys_mod.to_unsigned_bits(w)
+    key = torch.cat([u, u.new_full((pad,), -1)]) if pad else u
+    bufs = _payload_buffers(table)
+    pays = [torch.cat([b, b.new_zeros(pad)]) if pad else b.contiguous()
+            for _, _, b in bufs]
+    out = bitonic_sort.batched_sort_u64_looped(
+        key[None, :], *[p[None, :] for p in pays])
+    perm = out[1][0, :n]
+    got = {}
+    for (i, attr, _), sorted_buf in zip(bufs, out[2:]):
+        got[(i, attr)] = sorted_buf[0, :n]
+    cols = []
+    for i, c in enumerate(table.columns):
+        data = got.get((i, "data"))
+        if data is None:
+            data = c.data[perm.to(torch.int64)]
+        cols.append(Column(data, c.dtype, got.get((i, "validity")),
+                           got.get((i, "lengths"))))
+    return Table(cols, table.names)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +398,7 @@ class KernelSpec:
 _REGISTRY = {
     "packed_sort": KernelSpec(
         "packed_sort", ("sort_by",), _a_packed_sort, _r_packed_sort,
-        "single-key ORDER BY through the bitonic network (not ported yet)",
+        "single-key ORDER BY through the bitonic network (K3)",
     ),
     "hash_build_probe": KernelSpec(
         "hash_build_probe", ("join",), _a_hash_join, _r_hash_join,

@@ -1,6 +1,6 @@
 """The port's op library: the fixed-width slice of the JAX package's
-``ops/`` that the main path runs (keys, gather, filter, sort, groupby,
-inner join)."""
+``ops/`` that the ported paths run (keys, gather, filter, sort, groupby,
+inner join, Murmur3 hashing, partitioning)."""
 
 from .filter import filter_table, filter_table_capped
 from .gather import gather_column, gather_table

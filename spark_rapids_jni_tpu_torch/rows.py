@@ -166,12 +166,14 @@ def from_rows(
     valid = torch.cat([p[1] for p in parts]) if len(parts) > 1 else parts[0][1]
     valid = valid != 0
     all_valid = valid.all(dim=0).cpu().tolist()  # one host sync
+    # one transpose gives every nullable column a contiguous validity
+    valid_t = None if all(all_valid) else valid.t().contiguous()
     columns = []
     for i, d in enumerate(layout.dtypes):
         raw = [p[0][i] for p in parts]
         raw = torch.cat(raw) if len(raw) > 1 else raw[0]
         columns.append(Column(column_bytes_to_storage(raw, d), d,
-                              None if all_valid[i] else valid[:, i]))
+                              None if all_valid[i] else valid_t[i]))
     return Table(columns, names)
 
 

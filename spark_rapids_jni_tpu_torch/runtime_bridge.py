@@ -10,9 +10,9 @@ child type id in the scale slot.
 Tables stay resident on the device between calls: ``table_upload_wire``
 returns an id, ``table_plan_resident`` runs a plan over ids and returns
 a new id, ``table_download_wire`` serializes one, ``table_free`` drops
-it. Only ``from_rows``, ``filter``, ``join`` (inner), ``groupby`` and
-``to_rows`` are ported; every other op of ``DISPATCH_OPS`` raises
-:class:`UnsupportedOpError`.
+it. Only ``from_rows``, ``filter``, ``join`` (inner), ``groupby``,
+``sort_by``, ``partition`` and ``to_rows`` are ported; every other op of
+``DISPATCH_OPS`` raises :class:`UnsupportedOpError`.
 """
 
 from __future__ import annotations
@@ -169,7 +169,8 @@ DISPATCH_OPS = frozenset({
     "partition", "to_rows", "from_rows",
 })
 #: The ops this slice of the port runs.
-PORTED_OPS = frozenset({"join", "groupby", "filter", "to_rows", "from_rows"})
+PORTED_OPS = frozenset({"join", "groupby", "filter", "sort_by", "partition",
+                        "to_rows", "from_rows"})
 #: Ops whose only route is a kernel of the tier: the row transpose has no
 #: second implementation, so a decline means an input not ported yet.
 _KERNEL_ONLY = {"to_rows": "row_pack", "from_rows": "row_unpack"}
@@ -212,11 +213,39 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
     if name == "groupby":
         aggs = [ops.GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
         return ops.groupby_aggregate(table, op["by"], aggs)
+    if name == "sort_by":
+        keys = [ops.SortKey(k["column"], ascending=k.get("ascending", True))
+                for k in op["keys"]]
+        return ops.sort_table(table, keys)
+    if name == "partition":
+        return _partition(op, table)
     # filter
     mask_idx = op["mask"]
     mask = table.columns[mask_idx]
     keep = [c for i, c in enumerate(table.columns) if i != mask_idx]
     return ops.filter_table(Table(keep), mask)
+
+
+def _partition(op: dict, table: Table) -> Table:
+    """Spark's ShuffleExchangeExec partitioning step as a table op: rows
+    reordered partition-contiguously by Pmod(Murmur3, num) (hash) or by
+    sampled key-range splitters (range); the counts are dropped."""
+    from .ops import partition as partition_mod
+
+    kind = op.get("kind", "hash")
+    num = int(op["num"])
+    if num < 1:
+        raise ValueError(f"partition: num must be >= 1, got {num}")
+    keys = list(op.get("keys", []))
+    if kind == "hash":
+        out, _ = partition_mod.hash_partition(table, keys or None, num)
+    elif kind == "range":
+        if not keys:
+            raise ValueError("partition: range kind needs keys")
+        out, _ = partition_mod.range_partition(table, keys, num)
+    else:
+        raise ValueError(f"unknown partition kind {kind!r}")
+    return out
 
 
 # ---------------------------------------------------------------------------

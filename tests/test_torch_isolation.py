@@ -19,7 +19,9 @@ import torch
 from spark_rapids_jni_tpu_torch import Column, Table, kernels, rows
 from spark_rapids_jni_tpu_torch import dtype as dt
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
 from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+from spark_rapids_jni_tpu_torch.kernels import hashing as kh
 from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -54,7 +56,8 @@ def test_no_jax_imports(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"runtime_bridge.py", "registry.py", "hash_table.py",
-            "row_transpose.py", "rows.py"} <= names
+            "row_transpose.py", "rows.py", "hashing.py", "bitonic_sort.py",
+            "partition.py"} <= names
 
 
 def _fact_wire(n=4):
@@ -86,6 +89,15 @@ def _inputs(device):
     return layout, col_bytes, valid, keys
 
 
+def _hash_and_sort(keys):
+    """One call of each of K5 and K3 on ``keys``' device."""
+    cols = [Column(keys.reshape(-1), dt.INT32),
+            Column(keys.reshape(-1).to(torch.int64), dt.INT64,
+                   keys.reshape(-1) % 3 != 0)]
+    kh.murmur3_columns(cols)
+    bs.batched_sort_u64_looped(keys.to(torch.int64), keys)
+
+
 def _counts():
     return {k: v.launches for k, v in kernels.KERNELS.items()}
 
@@ -97,6 +109,7 @@ def test_cpu_tensors_take_the_plain_version_without_a_build():
     rt.unpack_rows(packed, layout)
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
+    _hash_and_sort(keys)
     assert _counts() == before
     assert not kernels._LIBS, "importing or CPU use must not build kernels"
 
@@ -110,6 +123,10 @@ def test_other_devices_raise_instead_of_falling_back():
                                    device="meta"), layout)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kh.murmur3_columns([Column(keys.reshape(-1), dt.INT32)])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bs.batched_sort_u64_looped(keys.to(torch.int64))
 
 
 @pytest.mark.cuda
@@ -121,7 +138,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     for mod, name in ((rt, "pack_rows_plain"), (rt, "unpack_rows_plain"),
-                      (ht, "build_table_plain"), (ht, "probe_table_plain")):
+                      (ht, "build_table_plain"), (ht, "probe_table_plain"),
+                      (kh, "murmur3_plain"), (bs, "batched_sort_plain")):
         monkeypatch.setattr(mod, name, boom)
     before = _counts()
     layout, col_bytes, valid, keys = _inputs("cuda")
@@ -129,6 +147,7 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     rt.unpack_rows(packed, layout)
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
+    _hash_and_sort(keys)
     torch.cuda.synchronize()
     after = _counts()
     assert all(after[k] == before[k] + 1 for k in after)

@@ -14,12 +14,21 @@ import torch
 
 from spark_rapids_jni_tpu import dtype as jdt
 from spark_rapids_jni_tpu import rows as jrows
+from spark_rapids_jni_tpu.column import Column as JColumn
+from spark_rapids_jni_tpu.column import Table as JTable
+from spark_rapids_jni_tpu.kernels import bitonic_sort as jbs
 from spark_rapids_jni_tpu.kernels import hash_table as jht
+from spark_rapids_jni_tpu.kernels import hashing as jkh
 from spark_rapids_jni_tpu.kernels import row_transpose as jrt
+from spark_rapids_jni_tpu.ops import hashing as jhashing
 from spark_rapids_jni_tpu_torch import dtype as dt
-from spark_rapids_jni_tpu_torch import rows
+from spark_rapids_jni_tpu_torch import interop, rows
+from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
 from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+from spark_rapids_jni_tpu_torch.kernels import hashing as kh
 from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
+from spark_rapids_jni_tpu_torch.ops import hashing as hashing_ops
+from spark_rapids_jni_tpu_torch.runtime_bridge import UnsupportedOpError
 
 _M32 = np.uint64(0xFFFFFFFF)
 
@@ -148,3 +157,139 @@ def test_pack_unpack_match_jax(schema, n):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(gvalid.numpy(), np.asarray(wvalid))
     np.testing.assert_array_equal(gvalid.numpy(), valid)
+
+
+# ---------------------------------------------------------------------------
+# K3: the batched stable sort of u64 keys
+# ---------------------------------------------------------------------------
+
+
+def _sort_payloads(rng, c, t):
+    """int64, float64 (NaN bits included), int32, float32, bool and int8
+    payloads, as numpy arrays both packages take."""
+    f64 = rng.standard_normal((c, t))
+    f64.flat[:2] = [np.nan, -0.0]
+    f32 = rng.standard_normal((c, t)).astype(np.float32)
+    f32.flat[:2] = [np.nan, -0.0]
+    return [
+        rng.integers(-2**62, 2**62, (c, t)),
+        f64,
+        rng.integers(-2**31, 2**31, (c, t)).astype(np.int32),
+        f32,
+        rng.random((c, t)) > 0.5,
+        rng.integers(-128, 128, (c, t)).astype(np.int8),
+    ]
+
+
+@pytest.mark.parametrize("c,t", [(1, 2), (1, 1024), (3, 256)])
+def test_batched_sort_matches_jax(c, t):
+    rng = np.random.default_rng(c * 100 + t)
+    key = rng.integers(0, max(t // 8, 2), (c, t)).astype(np.uint64)  # repeats
+    key[:, ::7] = np.uint64(2**64 - 1)  # all-ones keys among the rest
+    key[:, 1::11] = np.uint64(2**63)  # top bit set
+    pays = _sort_payloads(rng, c, t)
+    want = jbs.batched_sort_u64_looped(
+        jnp.asarray(key), *[jnp.asarray(p) for p in pays], interpret=True)
+    got = bs.batched_sort_u64_looped(
+        torch.from_numpy(key.view(np.int64)),
+        *[torch.from_numpy(p) for p in pays])
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint64),
+                                  np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].dtype == torch.int32
+    for g, w, p in zip(got[2:], want[2:], pays):
+        assert g.numpy().dtype == p.dtype
+        np.testing.assert_array_equal(g.numpy().view(np.uint8),
+                                      np.asarray(w).view(np.uint8))
+
+
+def test_batched_sort_rejects_what_jax_rejects():
+    key = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(TypeError, match="narrow float payload"):
+        bs.batched_sort_u64_looped(key, torch.zeros((1, 8), dtype=torch.float16))
+    with pytest.raises(ValueError, match="power of two"):
+        bs.batched_sort_u64_looped(torch.zeros((1, 12), dtype=torch.int64))
+    with pytest.raises(ValueError, match="payload"):
+        bs.batched_sort_u64_looped(key, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(TypeError, match="u64 bits in int64"):
+        bs.batched_sort_u64_looped(key.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K5: the chained Spark Murmur3 over fixed-width keys
+# ---------------------------------------------------------------------------
+
+# DECIMAL128 is left out: the JAX chain cannot hash its (n, 2) limbs (it
+# raises on the shapes), and the port raises UnsupportedOpError (below)
+_HASH_IDS = sorted(t for t in jdt._WIDTHS if t != jdt.TypeId.DECIMAL128)
+
+
+def _hash_column(rng, tid, n):
+    """A JAX column of type ``tid`` with nulls; floats carry -0.0, +0.0
+    and NaN."""
+    scale = -2 if tid in (jdt.TypeId.DECIMAL32, jdt.TypeId.DECIMAL64) else 0
+    d = jdt.DType(tid, scale)
+    if tid == jdt.TypeId.BOOL8:
+        vals = rng.random(n) > 0.5
+    elif tid in (jdt.TypeId.FLOAT32, jdt.TypeId.FLOAT64):
+        np_t = np.float32 if tid == jdt.TypeId.FLOAT32 else np.float64
+        vals = (rng.standard_normal(n) * 1e3).astype(np_t)
+        vals[:4] = [-0.0, 0.0, np.nan, -np.nan]
+    else:
+        np_t = np.dtype(d.storage_dtype)
+        info = np.iinfo(np_t)
+        vals = rng.integers(info.min, info.max, n, dtype=np_t, endpoint=True)
+        vals[:2] = [info.min, info.max]
+    return JColumn.from_numpy(vals, validity=rng.random(n) > 0.2, dtype=d)
+
+
+def _port_table(jt):
+    return interop.table_from_buffers(
+        [(np.asarray(c.data),
+          None if c.validity is None else np.asarray(c.validity), None,
+          int(c.dtype.id), int(c.dtype.scale)) for c in jt.columns],
+        device="cpu")
+
+
+@pytest.mark.parametrize("tid", _HASH_IDS, ids=lambda t: t.name)
+def test_murmur3_matches_jax(tid):
+    n = 1025
+    rng = np.random.default_rng(int(tid))
+    chain = [_hash_column(rng, tid, n),
+             JColumn.from_numpy(rng.integers(-2**40, 2**40, n),
+                                validity=rng.random(n) > 0.1),
+             _hash_column(rng, jdt.TypeId.FLOAT32, n)]
+    jt = JTable(chain)
+    pt = _port_table(jt)
+    for cols in ([0], [0, 1], [0, 1, 2]):
+        want = np.asarray(jkh.murmur3_table_fused(jt, cols,
+                                                  interpret=True).data)
+        np.testing.assert_array_equal(
+            np.asarray(jhashing.murmur3_table(jt, cols).data), want)
+        np.testing.assert_array_equal(
+            kh.murmur3_columns([pt.columns[i] for i in cols]).numpy(), want)
+        got = hashing_ops.murmur3_table(pt, cols)
+        assert got.validity is None and got.dtype == dt.INT32
+        np.testing.assert_array_equal(got.data.numpy(), want)
+    np.testing.assert_array_equal(
+        hashing_ops.murmur3_column(pt.columns[0], seed=7).data.numpy(),
+        np.asarray(jhashing.murmur3_column(jt.columns[0], seed=7).data))
+
+
+def test_murmur3_spark_golden_values():
+    """Spark's Murmur3Hash(long) at seed 42 (the JAX package pins the
+    same literals from an independent oracle)."""
+    t = interop.table_from_buffers(
+        [(np.array([0, 1, -1], np.int64), None, None, 4, 0)], device="cpu")
+    np.testing.assert_array_equal(
+        kh.murmur3_columns(t.columns).numpy(),
+        np.array([-1670924195, -1712319331, -939490007], np.int32))
+
+
+def test_murmur3_unported_keys_raise():
+    limbs = np.zeros((4, 2), np.uint64)
+    t = interop.table_from_buffers([(limbs, None, None, 27, 0)], device="cpu")
+    with pytest.raises(UnsupportedOpError, match="DECIMAL128"):
+        hashing_ops.murmur3_table(t)
+    with pytest.raises(TypeError, match="no Murmur3 word rule"):
+        kh.murmur3_columns(t.columns)

@@ -214,8 +214,10 @@ def test_rows_lists_match_jax(n):
     jrowcol = jrows.to_rows_list(jt)
     prowcol = rows.to_rows_list(pt)
     _assert_same(JTable([jrowcol]), type(pt)([prowcol]))
-    _assert_same(jrows.from_rows_list(jrowcol, schema),
-                 rows.from_rows_list(prowcol, [c.dtype for c in pt.columns]))
+    back = rows.from_rows_list(prowcol, [c.dtype for c in pt.columns])
+    _assert_same(jrows.from_rows_list(jrowcol, schema), back)
+    # the kernels take dense buffers: every validity is contiguous
+    assert all(c.validity.is_contiguous() for c in back.columns)
     # the split loop and the multi-batch unpack, at a small batch size
     jbatches = jrows.to_rows(jt, batch_rows=300)
     pbatches = rows.to_rows(pt, batch_rows=300)
@@ -330,15 +332,18 @@ def test_kernel_tier_declines_semantically():
     assert "non-decomposable" in registry._a_hash_groupby(gb, left, [])
     gbf = {"op": "groupby", "by": [0], "aggs": [{"column": 4, "agg": "sum"}]}
     assert "DECIMAL64" in registry._a_hash_groupby(gbf, left, [])
-    assert registry._a_packed_sort({"op": "sort_by"}, left, []) is not None
+    multi = {"op": "sort_by", "keys": [{"column": 0}, {"column": 2}]}
+    assert "multi-key" in registry._a_packed_sort(multi, left, [])
+    by_null = {"op": "sort_by", "keys": [{"column": 0}]}
+    assert "nullable key" in registry._a_packed_sort(by_null, nullable, [])
 
 
 def test_unported_ops_raise_typed():
     fact, _ = _slice_wire(n=64)
     fid = rb.table_upload_wire(*fact, device="cpu")
-    with pytest.raises(rb.UnsupportedOpError, match="sort_by"):
+    with pytest.raises(rb.UnsupportedOpError, match="rlike"):
         rb.table_plan_resident(json.dumps(
-            [PLAN[0], {"op": "sort_by", "keys": [{"column": 0}]}]), [fid])
+            [PLAN[0], {"op": "rlike", "column": 0, "pattern": "a"}]), [fid])
     with pytest.raises(ValueError, match="unknown table op"):
         rb.table_plan_resident(json.dumps([{"op": "nope"}]), [fid])
     # a declined row kernel is the only route of from_rows: it raises
