@@ -28,15 +28,22 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
 (e) sort — the SortExec of a sort-merge join on ss_item_sk over the same
     batch: from_rows -> sort_by item_sk -> to_rows, held against a stable
     numpy argsort of the row bytes.
+(f) packed groupby — SUM/COUNT of an int64 value grouped by an int64 key
+    of 10,000 values over 16,000,000 rows (BASELINE config 1), through
+    ``ops.groupby_packed.groupby_aggregate_packed_chunked`` (chunks of
+    2^17 rows, 2^14 partials a chunk) under each phase-1 engine: "lax"
+    (torch.sort), "pallas" (K4a) and "pallas32" (K4b); the three results
+    must equal a numpy oracle and each other byte for byte. The eager
+    router ``groupby_aggregate_packed`` runs once against the same oracle.
 (c) kernels — each kernel against its plain version on the card, at the
-    shapes of (a), (b), (d) and (e), by exact equality (tolerance 0:
+    shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
     bound and, where one PyTorch call computes the same function, that
     call's time.
 
 Every phase sets the kernels' launch counts to 0 just before its first
-plan run and reads them just after; each fails if a kernel of its path
-was never launched.
+run (in (f): before the first run of each engine) and reads them just
+after; each fails if a kernel of its path was never launched.
 
 Output: progress lines, then one JSON line of kernel records, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -92,6 +99,16 @@ SORT_PLAN = [FROM_FACT_ROWS, {"op": "sort_by", "keys": [{"column": 0}]},
 # DECIMAL32(-3), DECIMAL64(-8)
 ROWCONV_TYPES = [4, 10, 3, 11, 9, 1, 25, 26]
 ROWCONV_SCALES = [0, 0, 0, 0, 0, 0, -3, -8]
+# (f): the JAX package's groupby16m_packed_pallas32 shape; the key's
+# value count is also the output capacity (num_segments)
+GROUPBY_ROWS = 16_000_000
+GROUPBY_KEYS = 10_000
+GROUPBY_CHUNK_ROWS = 1 << 17
+GROUPBY_CHUNK_SEGMENTS = 1 << 14
+ROUTER_CHUNK_ROWS = 1 << 18  # groupby_aggregate_packed's default
+# phase-1 engine -> the kernel its run must launch
+GROUPBY_ENGINES = {"lax": None, "pallas": "batched_sort_u64",
+                   "pallas32": "batched_sort_u32"}
 
 
 def log(msg: str) -> None:
@@ -231,6 +248,36 @@ def exchange_oracle(d: dict) -> np.ndarray:
 def sort_oracle(d: dict) -> np.ndarray:
     """Rows of (e): a stable argsort by item_sk."""
     return d["rows"][np.argsort(d["item_sk"], kind="stable")]
+
+
+def make_groupby_data(rng, n: int, n_keys: int) -> dict:
+    """(f)'s table: key uniform on [0, n_keys), value on [-1000, 1000)."""
+    return {"k": rng.integers(0, n_keys, n, dtype=np.int64),
+            "v": rng.integers(-1000, 1000, n, dtype=np.int64)}
+
+
+def groupby_oracle(d: dict) -> dict:
+    """SELECT k, SUM(v), COUNT(v) GROUP BY k ORDER BY k, in numpy (the
+    float64 bincount of int64 weights is exact below 2^53)."""
+    count = np.bincount(d["k"])
+    total = np.bincount(d["k"], weights=d["v"])
+    keys = np.flatnonzero(count)
+    return {"k": keys, "sum": total[keys].astype(np.int64),
+            "count": count[keys].astype(np.int64)}
+
+
+def groupby_rows(table, g: int) -> dict:
+    """The first ``g`` rows of a groupby result, on the host."""
+    return {n: c.data[:g].cpu().numpy() for n, c in zip(table.names,
+                                                         table.columns)}
+
+
+def check_groupby(got: dict, want: dict, what: str) -> None:
+    bad = [n for n, w in (("k", want["k"]), ("sum_v", want["sum"]),
+                          ("count_v", want["count"]))
+           if got[n].dtype != np.int64 or not np.array_equal(got[n], w)]
+    if bad:
+        raise AssertionError(f"{what} differs from the numpy oracle: {bad}")
 
 
 def check_rows(wire, want: np.ndarray) -> None:
@@ -375,8 +422,8 @@ def phase_query(rb, kernels, d: dict) -> dict:
         f"rows match the numpy oracle; plan median {statistics.median(times):.2f} ms "
         f"over {len(times)} runs (all: {[round(t, 2) for t in times]}); "
         f"launches {launches}")
-    profile = profile_plan(rb, plan, [fid, iid], statistics.median(times),
-                           "(a)")
+    profile = profile_plan(plan_runner(rb, plan, [fid, iid]),
+                           statistics.median(times), "(a)")
     rb.table_free(fid)
     rb.table_free(iid)
     missing = [k for k in QUERY_KERNELS if launches[k] == 0]
@@ -387,15 +434,26 @@ def phase_query(rb, kernels, d: dict) -> dict:
             "plan_ms": statistics.median(times), "profile": profile}
 
 
-def profile_plan(rb, plan: str, ids, wall_ms: float, tag: str,
-                 runs: int = 5) -> dict:
-    """A steady window of ``runs`` plan runs under ``torch.profiler``, each
-    timed as the unprofiled runs are: device time by kernel name per run,
-    and the device's busy share. The profiler adds host time to every
-    launch, so the share is taken against ``wall_ms``, the unprofiled
-    median wall of the same plan in this call; the profiled wall is kept
-    beside it. Kernel time is summed, so overlapping kernels would count
-    twice; the plan runs on one stream."""
+def plan_runner(rb, plan: str, ids):
+    """One run of ``plan`` over the resident tables ``ids``: synchronised,
+    its result freed."""
+    def run():
+        out = rb.table_plan_resident(plan, ids)
+        torch.cuda.synchronize()
+        rb.table_free(out)
+
+    return run
+
+
+def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
+    """A steady window of ``runs`` calls of ``run`` (one run that ends in a
+    synchronise) under ``torch.profiler``, each timed as the unprofiled
+    runs are: device time by kernel name per run, and the device's busy
+    share. The profiler adds host time to every launch, so the share is
+    taken against ``wall_ms``, the unprofiled median wall of the same run
+    in this call; the profiled wall is kept beside it. Kernel time is
+    summed, so overlapping kernels would count twice; each run is on one
+    stream."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -403,10 +461,8 @@ def profile_plan(rb, plan: str, ids, wall_ms: float, tag: str,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             t0 = time.perf_counter()
-            out = rb.table_plan_resident(plan, ids)
-            torch.cuda.synchronize()
+            run()
             walls.append((time.perf_counter() - t0) * 1e3)
-            rb.table_free(out)
     # device-side events only: a CPU op's entry repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -484,7 +540,7 @@ def phase_rows_plan(rb, kernels, tag: str, plan_ops, wire, want: np.ndarray,
     log(f"{tag} {want.shape[0]} rows match the numpy oracle; plan median "
         f"{median:.2f} ms over {len(times)} runs (all: "
         f"{[round(t, 2) for t in times]}); launches {launches}")
-    profile = profile_plan(rb, plan, [tid], median, tag)
+    profile = profile_plan(plan_runner(rb, plan, [tid]), median, tag)
     rb.table_free(tid)
     missing = [k for k in needs if launches[k] == 0]
     if missing:
@@ -492,7 +548,74 @@ def phase_rows_plan(rb, kernels, tag: str, plan_ops, wire, want: np.ndarray,
     return {"launches": launches, "plan_ms": median, "profile": profile}
 
 
-def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict) -> list:
+def phase_groupby(kernels, g: dict) -> dict:
+    """(f): the packed two-level groupby under each phase-1 engine, on a
+    table uploaded to the card, against the numpy oracle and each other."""
+    from spark_rapids_jni_tpu_torch.column import Table
+    from spark_rapids_jni_tpu_torch.ops import groupby_packed as gp
+    from spark_rapids_jni_tpu_torch.ops.groupby import GroupbyAgg
+
+    want = groupby_oracle(g)
+    t = Table.from_pydict({"k": g["k"], "v": g["v"]}, device=DEVICE)
+    aggs = [GroupbyAgg("v", "sum"), GroupbyAgg("v", "count")]
+
+    def runner(engine):
+        def run():
+            out = gp.groupby_aggregate_packed_chunked(
+                t, ["k"], aggs, num_segments=GROUPBY_KEYS,
+                chunk_rows=GROUPBY_CHUNK_ROWS,
+                chunk_segments=GROUPBY_CHUNK_SEGMENTS, engine=engine)
+            torch.cuda.synchronize()
+            return out
+
+        return run
+
+    res = {"launches": {}, "plan_ms": {}}
+    first = None
+    for engine, needs in GROUPBY_ENGINES.items():
+        run = runner(engine)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, num_groups, max_chunk, overflow = run()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        ng, mc = int(num_groups), int(max_chunk)
+        if bool(overflow) or mc > GROUPBY_CHUNK_SEGMENTS or ng != want["k"].size:
+            raise AssertionError(
+                f"(f) {engine}: overflow {bool(overflow)}, max_chunk {mc}, "
+                f"{ng} groups for {want['k'].size} distinct keys")
+        rows = groupby_rows(out, ng)
+        check_groupby(rows, want, f"(f) {engine}")
+        if first is None:
+            first = rows
+        elif any(rows[n].tobytes() != first[n].tobytes() for n in first):
+            raise AssertionError(f"(f) {engine} differs from the lax engine")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["launches"][engine] = launches
+        res["plan_ms"][engine] = statistics.median(times)
+        log(f"(f) groupby {engine}: {ng} groups of {GROUPBY_ROWS} rows match "
+            f"the numpy oracle, max_chunk {mc}; median "
+            f"{res['plan_ms'][engine]:.2f} ms over {len(times)} runs (all: "
+            f"{[round(x, 2) for x in times]}); launches {launches}")
+        if needs is not None and launches[needs] == 0:
+            raise AssertionError(f"(f) {engine} never launched {needs}")
+    eager = gp.groupby_aggregate_packed(t, ["k"], aggs,
+                                        chunk_rows=ROUTER_CHUNK_ROWS)
+    if eager is None:
+        raise AssertionError("(f) the eager router declined the shape")
+    check_groupby(groupby_rows(eager, eager.row_count), want, "(f) router")
+    log(f"(f) eager router: {eager.row_count} groups match the numpy oracle")
+    res["profile"] = profile_plan(runner("pallas32"),
+                                  res["plan_ms"]["pallas32"], "(f) pallas32")
+    res["table"] = t
+    return res
+
+
+def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
+                  qf: dict) -> list:
     from spark_rapids_jni_tpu_torch import dtype as dt
     from spark_rapids_jni_tpu_torch import rows
     from spark_rapids_jni_tpu_torch.column import Column
@@ -501,6 +624,7 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict) -> list:
     from spark_rapids_jni_tpu_torch.kernels import hashing as kh
     from spark_rapids_jni_tpu_torch.kernels import registry
     from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
+    from spark_rapids_jni_tpu_torch.ops import groupby_packed as gp
     from spark_rapids_jni_tpu_torch.ops import keys
 
     dev = torch.device(DEVICE)
@@ -651,6 +775,54 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict) -> list:
         note="the one-block regime (T <= 4096: the whole network in one "
              "shared-memory launch); no main-path phase sorts 1024 rows, "
              "so its main-path launch count is 0"))
+
+    # K4a and K4b at (f)'s phase-1 shape: the packed words of the (f)
+    # table, C = ceil(rows / 2^17) chunks of T = 2^17, keys only. Bytes:
+    # K4a reads 8 B and writes 8 + 4 B (key, perm) a word; K4b reads and
+    # writes 4 B. Operations: T log2 T compare-exchanges a row, at 5 each
+    # for K4a (the (hi, lo, idx) compare and its selects, as K3's records
+    # count them) and 2 for K4b (one u32 min and max; no tiebreak). Library:
+    # torch.sort of the order carrier (int64 for K4a, stable; int32 with
+    # its top bit flipped for K4b).
+    kw = keys.column_order_keys(qf["table"]["k"])[0]
+    words, _ = gp.pack_chunks(kw - kw.min(), GROUPBY_CHUNK_ROWS)
+    low = words.view(torch.int32)[:, 0::2].contiguous()  # u32 words
+    c, t = words.shape
+    exchanges = c * t * (t.bit_length() - 1)
+    shape = f"{c}x{t} packed words, keys only"
+    carrier = keys.to_unsigned_bits(words)
+    recs.append(kernel_record(
+        bs.SORT_U64, "groupby", shape,
+        qf["launches"]["pallas"]["batched_sort_u64"],
+        lambda: list(bs.batched_sort_u64(words)),
+        lambda: list(bs.batched_sort_u64_plain(words)), c * t * 20,
+        5 * exchanges,
+        library_fn=lambda: torch.sort(carrier, dim=1, stable=True)))
+    low_carrier = low ^ -2**31
+    recs.append(kernel_record(
+        bs.SORT_U32, "groupby", shape,
+        qf["launches"]["pallas32"]["batched_sort_u32"],
+        lambda: list(bs.batched_sort_u32(low)),
+        lambda: list(bs.batched_sort_u32_plain(low)), c * t * 8,
+        2 * exchanges,
+        library_fn=lambda: torch.sort(low_carrier, dim=1)))
+    # the payload branch of K4b (a riding index, one gather): distinct keys
+    # are its contract, so the padding words become 0xFFFE0000 | iota
+    iota = torch.arange(t, dtype=torch.int32, device=dev)
+    distinct = torch.where(low == -1, iota | -(1 << 17), low)
+    p32 = torch.randint(-2**31, 2**31 - 1, (c, t), dtype=torch.int32,
+                        device=dev, generator=gen)
+    p16 = torch.randint(-2**15, 2**15 - 1, (c, t), dtype=torch.int16,
+                        device=dev, generator=gen)
+    recs.append(kernel_record(
+        bs.SORT_U32, "payloads", f"{c}x{t}, 2 payloads (int32, int16)", 0,
+        lambda: list(bs.batched_sort_u32(distinct, p32, p16)),
+        lambda: list(bs.batched_sort_u32_plain(distinct, p32, p16)),
+        c * t * (8 + 2 * (4 + 2)), 2 * exchanges,
+        library_fn=lambda: torch.sort(distinct ^ -2**31, dim=1),
+        note="the payload branch (2^14-key tiles with a riding index, one "
+             "gather); the groupby sorts keys only, so its main-path launch "
+             "count is 0"))
     return recs
 
 
@@ -678,7 +850,8 @@ def main(argv=None) -> int:
 
     expected = {i.name for i in (row_transpose.PACK, row_transpose.UNPACK,
                                  hash_table.BUILD, hash_table.PROBE,
-                                 hashing.MURMUR3, bitonic_sort.SORT)}
+                                 hashing.MURMUR3, bitonic_sort.SORT,
+                                 bitonic_sort.SORT_U64, bitonic_sort.SORT_U32)}
     if set(kernels.KERNELS) != expected:
         raise RuntimeError(f"kernel registry {set(kernels.KERNELS)} != {expected}")
 
@@ -691,6 +864,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     d = make_query_data(rng, FACT_ROWS, ITEM_ROWS)
     rc_wire = make_rowconv_wire(rng, ROWCONV_ROWS)
+    g = make_groupby_data(rng, GROUPBY_ROWS, GROUPBY_KEYS)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -701,6 +875,7 @@ def main(argv=None) -> int:
         "sort": lambda: phase_rows_plan(
             rb, kernels, "(e) sort:", SORT_PLAN, d["fact_wire"],
             sort_oracle(d), [bitonic_sort.SORT.name]),
+        "groupby": lambda: phase_groupby(kernels, g),
     }
     res = {}
     for name, fn in phases.items():
@@ -713,7 +888,7 @@ def main(argv=None) -> int:
     if len(res) == len(phases):
         try:
             recs = phase_kernels(d, res["query"], res["rowconv"],
-                                 res["exchange"], res["sort"])
+                                 res["exchange"], res["sort"], res["groupby"])
         except Exception:
             traceback.print_exc()
             failed.append("kernels")
@@ -734,7 +909,9 @@ def main(argv=None) -> int:
         "exchange_plan_ms": res["exchange"]["plan_ms"],
         "exchange_profile": res["exchange"]["profile"],
         "sort_plan_ms": res["sort"]["plan_ms"],
-        "sort_profile": res["sort"]["profile"]}))
+        "sort_profile": res["sort"]["profile"],
+        "groupby_ms": res["groupby"]["plan_ms"],
+        "groupby_profile": res["groupby"]["profile"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

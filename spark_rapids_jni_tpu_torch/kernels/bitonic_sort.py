@@ -1,5 +1,12 @@
-"""Batched stable sort of u64 keys: kernel K3 and its plain version (port
-of ``kernels/bitonic_sort.py`` ``batched_sort_u64_looped``).
+"""Batched bitonic sorts: kernels K3, K4a and K4b and their plain versions
+(port of ``kernels/bitonic_sort.py``).
+
+K3 ``batched_sort_u64_looped`` and K4a ``batched_sort_u64`` share one
+contract (the JAX package's ``batched_sort_u64_looped`` docstring says it
+has ``batched_sort_u64``'s semantics) and one CUDA launch sequence; each
+wrapper counts its own launches. K4b ``batched_sort_u32`` sorts u32 keys
+that are distinct within a row (the packed groupby's word), without a
+tiebreak; see the end of this module.
 
 The contract is the JAX package's: each row of a ``(C, T)`` u64 key (T a
 power of two) is sorted ascending, stably, with payloads carried along;
@@ -23,13 +30,15 @@ import torch
 
 from . import check_status, library, ptr, register, require_cuda, stream_of
 
-SORT = register(
-    "batched_sort_u64_looped",
-    "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu",
-    "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401",
-)
+_SOURCE = "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu"
+SORT = register("batched_sort_u64_looped", _SOURCE,
+                "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401")
+SORT_U64 = register("batched_sort_u64", _SOURCE,
+                    "spark_rapids_jni_tpu/kernels/bitonic_sort.py:116")
+SORT_U32 = register("batched_sort_u32", _SOURCE,
+                    "spark_rapids_jni_tpu/kernels/bitonic_sort.py:265")
 
-#: the kernel's launch geometry: rows ride gridDim.y, and the perm is int32
+#: the kernels' launch geometry: rows ride gridDim.y, and the perm is int32
 MAX_ROWS = 65535
 MAX_T = 1 << 30
 
@@ -55,8 +64,22 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I, _P,
         ]
         lib.srt_bitonic_sort.restype = _I
+        lib.srt_bitonic_sort_u32.argtypes = [
+            _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I, _P,
+        ]
+        lib.srt_bitonic_sort_u32.restype = _I
         _DECLARED = True
     return lib
+
+
+def _payload_args(payloads, outs):
+    """The C entries' payload arrays: source and destination pointers and
+    each payload's width in bytes."""
+    m = len(payloads)
+    u64s = ctypes.c_uint64 * m
+    return (u64s(*[p.data_ptr() for p in payloads]),
+            u64s(*[o.data_ptr() for o in outs]),
+            (ctypes.c_int * m)(*[p.element_size() for p in payloads]), m)
 
 
 def _check(key: torch.Tensor, payloads) -> None:
@@ -115,28 +138,29 @@ def batched_sort_plain(key: torch.Tensor, *payloads: torch.Tensor):
     return (sorted_key, idx.to(torch.int32), *outs)
 
 
-def _sort_cuda(key: torch.Tensor, payloads):
+def _require_batch(key: torch.Tensor, payloads) -> None:
     c, t = key.shape
     if c > MAX_ROWS:
         raise ValueError(f"{c} rows over the kernel's {MAX_ROWS}-row grid")
     require_cuda(key, "key", key.dtype, (c, t))
     for n, p in enumerate(payloads):
         require_cuda(p, f"payloads[{n}]", p.dtype, (c, t))
+
+
+def _sort_cuda(info, key: torch.Tensor, payloads):
+    """K3's launch sequence for ``info`` (K3 or K4a), counted there."""
+    _require_batch(key, payloads)
+    c, t = key.shape
     sorted_key = torch.empty_like(key)
     perm = torch.empty((c, t), dtype=torch.int32, device=key.device)
     outs = [torch.empty_like(p) for p in payloads]
-    m = len(payloads)
-    u64s = ctypes.c_uint64 * m
     lib = _lib()
     rc = lib.srt_bitonic_sort(
         ptr(key), ptr(sorted_key), ptr(perm), c, t,
-        u64s(*[p.data_ptr() for p in payloads]),
-        u64s(*[o.data_ptr() for o in outs]),
-        (ctypes.c_int * m)(*[p.element_size() for p in payloads]), m,
-        stream_of(key),
+        *_payload_args(payloads, outs), stream_of(key),
     )
-    check_status(lib, rc, "batched_sort_u64_looped")
-    SORT.launches += 1
+    check_status(lib, rc, info.name)
+    info.launches += 1
     return (sorted_key, perm, *outs)
 
 
@@ -147,4 +171,105 @@ def batched_sort_u64_looped(key: torch.Tensor, *payloads: torch.Tensor):
     _check(key, payloads)
     if key.device.type == "cpu":
         return batched_sort_plain(key, *payloads)
-    return _sort_cuda(key, payloads)
+    return _sort_cuda(SORT, key, payloads)
+
+
+#: K4a's plain version: K3's network, the same function
+batched_sort_u64_plain = batched_sort_plain
+
+
+def batched_sort_u64(key: torch.Tensor, *payloads: torch.Tensor):
+    """K4a: :func:`batched_sort_u64_looped`'s contract on the many-row
+    batches of the packed groupby (the JAX package runs its unrolled
+    network in 8-row blocks, padding C and stripping it, which changes
+    nothing in the result). Counted apart from K3."""
+    _check(key, payloads)
+    if key.device.type == "cpu":
+        return batched_sort_u64_plain(key, *payloads)
+    return _sort_cuda(SORT_U64, key, payloads)
+
+
+# ---------------------------------------------------------------------------
+# K4b: u32 keys distinct within a row, no tiebreak, no perm
+# ---------------------------------------------------------------------------
+
+
+def _check_u32(key: torch.Tensor, payloads) -> None:
+    """The JAX wrapper's checks, in its order, before any work."""
+    if key.dim() != 2:
+        raise ValueError(f"key must be (C, T), got {tuple(key.shape)}")
+    c, t = key.shape
+    if t < 2 or t & (t - 1):
+        raise ValueError(f"chunk length must be a power of two, got {t}")
+    if key.dtype != torch.int32:
+        raise TypeError(
+            f"key must be uint32 bits held in int32, got {key.dtype}")
+    for p in payloads:
+        if p.element_size() > 4 or (
+                p.element_size() < 4 and p.dtype.is_floating_point):
+            raise TypeError(
+                f"u32 network payload must be <=4-byte int or any "
+                f"4-byte dtype, got {p.dtype}")
+        if tuple(p.shape) != (c, t):
+            raise ValueError(f"payload {tuple(p.shape)} != key {(c, t)}")
+    if t > MAX_T:
+        raise ValueError(f"chunk length {t} over the kernel's bound {MAX_T}")
+
+
+def batched_sort_u32_plain(key: torch.Tensor, *payloads: torch.Tensor):
+    """Reference for K4b: the JAX ``_kernel_u32`` network in torch ops
+    (partner ``i ^ j``, unsigned compare of the u32 keys held in int64,
+    select), with an index riding the same selects; payloads are
+    gathered through it, which is carrying them through the network."""
+    _check_u32(key, payloads)
+    c, t = key.shape
+    k32 = key.to(torch.int64) & _M32
+    i = torch.arange(t, device=key.device)
+    idx = i.expand(c, t)
+    k = 2
+    while k <= t:
+        j = k // 2
+        while j >= 1:
+            p = i ^ j
+            pk, pi = k32[:, p], idx[:, p]
+            p_lt = pk < k32
+            keep_min = ((i & j) == 0) == ((i & k) == 0)
+            take = torch.where(keep_min, p_lt, ~p_lt)
+            k32 = torch.where(take, pk, k32)
+            idx = torch.where(take, pi, idx)
+            j //= 2
+        k *= 2
+    outs = []
+    for pay in payloads:
+        signed = _SIGNED.get(pay.dtype, pay.dtype)
+        outs.append(torch.gather(pay.view(signed), 1, idx).view(pay.dtype))
+    return (k32.to(torch.int32), *outs)
+
+
+def _sort_u32_cuda(key: torch.Tensor, payloads):
+    _require_batch(key, payloads)
+    c, t = key.shape
+    sorted_key = torch.empty_like(key)
+    idx = (torch.empty((c, t), dtype=torch.int32, device=key.device)
+           if payloads else None)
+    outs = [torch.empty_like(p) for p in payloads]
+    lib = _lib()
+    rc = lib.srt_bitonic_sort_u32(
+        ptr(key), ptr(sorted_key), None if idx is None else ptr(idx), c, t,
+        *_payload_args(payloads, outs), stream_of(key),
+    )
+    check_status(lib, rc, SORT_U32.name)
+    SORT_U32.launches += 1
+    return (sorted_key, *outs)
+
+
+def batched_sort_u32(key: torch.Tensor, *payloads: torch.Tensor):
+    """K4b: sort each row of ``key`` (C, T) ascending as u32, carrying
+    ``payloads``; ``key`` is int32 holding the u32 bits. Keys within a row
+    must be distinct (the packed-word-with-iota contract): with ties the
+    payloads' order is undefined. Payloads are at most 4 bytes (no narrow
+    floats). Returns ``(sorted_key, *sorted_payloads)``."""
+    _check_u32(key, payloads)
+    if key.device.type == "cpu":
+        return batched_sort_u32_plain(key, *payloads)
+    return _sort_u32_cuda(key, payloads)

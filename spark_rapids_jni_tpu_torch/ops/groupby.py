@@ -12,7 +12,10 @@ Sums are cumsum differences over the sorted rows, as in the JAX package:
 exact for integers even when the running sum wraps.
 
 Only sum/count/min/max are ported in this slice; the other aggregations
-of the JAX module raise :class:`NotImplementedError`.
+of the JAX module raise :class:`NotImplementedError`. The sorted-segment
+helpers ``_segment_sum``, ``_segment_bounds`` and
+``_sorted_segment_extreme`` also serve the packed-key groupby
+(ops/groupby_packed.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,12 +78,55 @@ def _segment_ids(key_cols: Sequence[Column]):
 
 
 def _segment_sum(vals: torch.Tensor, starts, ends) -> torch.Tensor:
-    """Per-segment sums of row-sorted ``vals`` as cumsum differences."""
+    """Per-segment sums of row-sorted ``vals`` as cumsum differences
+    (exact for integers even when the running sum wraps; float sums add
+    in another order than XLA's scan). An empty segment reads garbage (at
+    the front, ``c[-1]``): the packed groupby, whose partial slots can be
+    empty, masks those; the exact path has none."""
     c = torch.cumsum(vals, 0)
     hi = c[ends - 1]
     lo = torch.where(starts > 0, c[(starts - 1).clamp(min=0)],
                      torch.zeros((), dtype=c.dtype, device=c.device))
     return hi - lo
+
+
+def _segment_bounds(seg: torch.Tensor, num_segments: int):
+    """Per-segment [start, end) row ranges of a nondecreasing segment-id
+    vector, by binary search (int32 results, as in the JAX package)."""
+    ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
+    starts = torch.searchsorted(seg, ids).to(torch.int32)
+    ends = torch.searchsorted(seg, ids, right=True).to(torch.int32)
+    return starts, ends
+
+
+def _clip_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return idx.clamp(0, max(n - 1, 0)).to(torch.int64)
+
+
+def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
+    """Per-segment min/max of a row-sorted vector, one value per entry of
+    ``ends``. The JAX package runs a segmented associative scan and reads
+    each segment's last row; torch has no such scan, so one
+    ``scatter_reduce`` over the segment ids gives the same value for every
+    non-empty segment (empty ones hold 0; segment ids past the end land in
+    one dropped slot). Unsigned and bool values reduce as int64 carriers
+    in their order, floats as they are (NaN propagates, as jnp.minimum)."""
+    num_segments = ends.shape[0]
+    dtype = masked_vals.dtype
+    if dtype == torch.uint64:
+        work = masked_vals.view(torch.int64) ^ keys_mod.SIGN64
+    elif dtype == torch.bool or dtype in (torch.uint8, torch.uint16,
+                                           torch.uint32):
+        work = masked_vals.to(torch.int64)
+    else:
+        work = masked_vals
+    idx = seg.clamp(max=num_segments).to(torch.int64)
+    out = torch.zeros(num_segments + 1, dtype=work.dtype, device=work.device)
+    out = out.scatter_reduce(0, idx, work, "amin" if is_min else "amax",
+                             include_self=False)[:num_segments]
+    if dtype == torch.uint64:
+        return (out ^ keys_mod.SIGN64).view(torch.uint64)
+    return out.to(dtype)
 
 
 def _sum_dtype(d: dt.DType) -> dt.DType:

@@ -7,6 +7,10 @@ Signed order of ``s`` equals unsigned order of ``u``, ``~s`` corresponds
 to ``~u``, and :func:`to_unsigned_bits` recovers ``u``'s bit pattern
 (for the hash table's 32-bit halves). For signed integers the word is
 simply the value widened to int64.
+
+The packed-key helpers (:func:`minmax_host`, :func:`fold_fields`,
+:func:`peel_fields`) work on relative words ``carrier - min carrier``,
+which equal the u64 words' differences bit for bit.
 """
 
 from __future__ import annotations
@@ -82,3 +86,35 @@ def table_order_keys(cols: list[Column]) -> list[torch.Tensor]:
     for c in cols:
         out.extend(column_order_keys(c))
     return out
+
+
+def minmax_host(kw: torch.Tensor) -> tuple[int, int]:
+    """Host (int, int) min/max of a carrier word — the eager range probe
+    of the packed-key routers. ``hi - lo`` of the two carriers is the span
+    of the u64 words: the top-bit flip adds the same 2^63 to both."""
+    lo, hi = torch.aminmax(kw)
+    return int(lo), int(hi)
+
+
+def fold_fields(rels, field_bits) -> torch.Tensor:
+    """Pack parallel relative-key words (u64 bits in int64) as bit fields
+    of ONE word, first field in the high bits: lexicographic order of the
+    tuple == unsigned order of the composite. Callers validate that each
+    rel fits its declared width."""
+    out = torch.zeros_like(rels[0])
+    for r, b in zip(rels, field_bits):
+        out = (out << b) | r
+    return out
+
+
+def peel_fields(word: torch.Tensor, field_bits) -> list[torch.Tensor]:
+    """Inverse of :func:`fold_fields`: the per-key relative fields. The
+    mask after each shift drops the bits an arithmetic ``>>`` copies in
+    from the top."""
+    shift = 0
+    fields = []
+    for b in reversed(field_bits):
+        fields.append((word >> shift) & ((1 << b) - 1))
+        shift += b
+    fields.reverse()
+    return fields

@@ -57,7 +57,23 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"runtime_bridge.py", "registry.py", "hash_table.py",
             "row_transpose.py", "rows.py", "hashing.py", "bitonic_sort.py",
-            "partition.py"} <= names
+            "partition.py", "groupby_packed.py", "groupby_chunked.py"} <= names
+
+
+def test_every_tpu_kernel_has_one_registered_counterpart():
+    """Eight functions of the JAX package reach ``pl.pallas_call``; each
+    has one hand-written kernel here, counted apart."""
+    assert {k: v.replaces for k, v in kernels.KERNELS.items()} == {
+        "pack_rows": "spark_rapids_jni_tpu/kernels/row_transpose.py:149",
+        "unpack_rows": "spark_rapids_jni_tpu/kernels/row_transpose.py:219",
+        "build_table": "spark_rapids_jni_tpu/kernels/hash_table.py:134",
+        "probe_table": "spark_rapids_jni_tpu/kernels/hash_table.py:240",
+        "batched_sort_u64_looped":
+            "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401",
+        "batched_sort_u64": "spark_rapids_jni_tpu/kernels/bitonic_sort.py:116",
+        "batched_sort_u32": "spark_rapids_jni_tpu/kernels/bitonic_sort.py:265",
+        "murmur3_table_fused": "spark_rapids_jni_tpu/kernels/hashing.py:158",
+    }
 
 
 def _fact_wire(n=4):
@@ -90,12 +106,14 @@ def _inputs(device):
 
 
 def _hash_and_sort(keys):
-    """One call of each of K5 and K3 on ``keys``' device."""
+    """One call of each of K5, K3, K4a and K4b on ``keys``' device."""
     cols = [Column(keys.reshape(-1), dt.INT32),
             Column(keys.reshape(-1).to(torch.int64), dt.INT64,
                    keys.reshape(-1) % 3 != 0)]
     kh.murmur3_columns(cols)
     bs.batched_sort_u64_looped(keys.to(torch.int64), keys)
+    bs.batched_sort_u64(keys.to(torch.int64), keys)
+    bs.batched_sort_u32(keys, keys)
 
 
 def _counts():
@@ -127,6 +145,10 @@ def test_other_devices_raise_instead_of_falling_back():
         kh.murmur3_columns([Column(keys.reshape(-1), dt.INT32)])
     with pytest.raises(ValueError, match="CUDA tensor"):
         bs.batched_sort_u64_looped(keys.to(torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bs.batched_sort_u64(keys.to(torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bs.batched_sort_u32(keys)
 
 
 @pytest.mark.cuda
@@ -139,7 +161,9 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
 
     for mod, name in ((rt, "pack_rows_plain"), (rt, "unpack_rows_plain"),
                       (ht, "build_table_plain"), (ht, "probe_table_plain"),
-                      (kh, "murmur3_plain"), (bs, "batched_sort_plain")):
+                      (kh, "murmur3_plain"), (bs, "batched_sort_plain"),
+                      (bs, "batched_sort_u64_plain"),
+                      (bs, "batched_sort_u32_plain")):
         monkeypatch.setattr(mod, name, boom)
     before = _counts()
     layout, col_bytes, valid, keys = _inputs("cuda")

@@ -203,16 +203,20 @@ def test_batched_sort_matches_jax(c, t):
                                       np.asarray(w).view(np.uint8))
 
 
-def test_batched_sort_rejects_what_jax_rejects():
+@pytest.mark.parametrize("sort", [bs.batched_sort_u64_looped,
+                                  bs.batched_sort_u64],
+                         ids=["K3", "K4a"])
+def test_batched_sort_rejects_what_jax_rejects(sort):
+    """K3 and K4a share one contract and one set of checks."""
     key = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(TypeError, match="narrow float payload"):
-        bs.batched_sort_u64_looped(key, torch.zeros((1, 8), dtype=torch.float16))
+        sort(key, torch.zeros((1, 8), dtype=torch.float16))
     with pytest.raises(ValueError, match="power of two"):
-        bs.batched_sort_u64_looped(torch.zeros((1, 12), dtype=torch.int64))
+        sort(torch.zeros((1, 12), dtype=torch.int64))
     with pytest.raises(ValueError, match="payload"):
-        bs.batched_sort_u64_looped(key, torch.zeros((1, 4), dtype=torch.int32))
+        sort(key, torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises(TypeError, match="u64 bits in int64"):
-        bs.batched_sort_u64_looped(key.to(torch.int32))
+        sort(key.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
