@@ -33,13 +33,18 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     ``ops.groupby_packed.groupby_aggregate_packed_chunked`` (chunks of
     2^17 rows, 2^14 partials a chunk) under each phase-1 engine: "lax"
     (torch.sort), "pallas" (K4a) and "pallas32" (K4b); the three results
-    must equal a numpy oracle and each other byte for byte. The eager
-    router ``groupby_aggregate_packed`` runs once against the same oracle.
+    must equal a numpy oracle and each other byte for byte, and each
+    engine is profiled. The eager router ``groupby_aggregate_packed`` runs
+    once against the same oracle.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
     bound and, where one PyTorch call computes the same function, that
-    call's time.
+    call's time. K3 also runs keys only at (e)'s key, beside torch.sort
+    of the same carrier, and K3 and K4a are held against their plain
+    version on hard key classes (``sort_key_classes``) at 4 x 2^16 and at
+    the one-block edges 4 x 4096 and 4 x 8192, with the digits each class
+    makes the radix sort run.
 
 Every phase sets the kernels' launch counts to 0 just before its first
 run (in (f): before the first run of each engine) and reads them just
@@ -109,6 +114,9 @@ ROUTER_CHUNK_ROWS = 1 << 18  # groupby_aggregate_packed's default
 # phase-1 engine -> the kernel its run must launch
 GROUPBY_ENGINES = {"lax": None, "pallas": "batched_sort_u64",
                    "pallas32": "batched_sort_u32"}
+# (rows, T) of the key-class checks of K3 and K4a: a many-tile row, and the
+# lengths on either side of the one-block regime (T <= 4096)
+KEY_CLASS_SHAPES = ((4, 1 << 16), (4, 4096), (4, 8192))
 
 
 def log(msg: str) -> None:
@@ -314,6 +322,85 @@ def make_rowconv_wire(rng, n: int):
         valids.append(v.astype(np.uint8).tobytes())
     return (list(ROWCONV_TYPES), list(ROWCONV_SCALES),
             [c.tobytes() for c in cols], valids, n)
+
+
+def sort_key_classes(rng, c: int, t: int) -> dict:
+    """Hard inputs of the u64 sorts K3 and K4a: (c, t) uint64 keys by class
+    name. Each class varies in a known set of bytes (the radix sort's
+    digits) and repeats keys, so a wrong digit plan, a lost pass or an
+    unstable rank shows as a wrong key or perm."""
+    m64 = np.uint64(2**64 - 1)
+
+    def base():
+        return rng.integers(0, 2**64, dtype=np.uint64, endpoint=False)
+
+    def in_byte(byte: int, k=None):
+        k = np.full((c, t), base(), np.uint64) if k is None else k
+        shift = np.uint64(8 * byte)
+        v = rng.integers(0, 256, (c, t)).astype(np.uint64) << shift
+        return (k & (m64 ^ (np.uint64(0xFF) << shift))) | v
+
+    pool = rng.integers(0, 2**64, max(t // 4, 2), dtype=np.uint64)
+    top = np.full((c, t), base() & np.uint64(2**63 - 1), np.uint64)
+    top |= rng.integers(0, 2, (c, t)).astype(np.uint64) << np.uint64(63)
+    # rows whose varying digits differ; the last is packed as (f) packs its
+    # words, (rel << log2 t) | iota, with all-ones words in its tail
+    mixed = np.empty((c, t), np.uint64)
+    bits = np.uint64(t.bit_length() - 1)
+    for r in range(c - 1):
+        kind = r % 3
+        if kind == 0:
+            mixed[r] = in_byte(1)[r]
+        elif kind == 1:
+            mixed[r] = in_byte(6, in_byte(0))[r]
+        else:
+            mixed[r] = base()
+    rel = rng.integers(0, 10_000, t).astype(np.uint64)
+    mixed[c - 1] = (rel << bits) | np.arange(t, dtype=np.uint64)
+    mixed[c - 1, t - t // 3:] = m64
+    return {
+        "all_equal": np.full((c, t), base(), np.uint64),
+        "byte0": in_byte(0), "byte3": in_byte(3), "byte7": in_byte(7),
+        "top_bit": top,
+        "random_repeats": pool[rng.integers(0, pool.shape[0], (c, t))],
+        "mixed_rows_padded": mixed,
+    }
+
+
+def active_digits(key_bits: torch.Tensor) -> torch.Tensor:
+    """(C, 8) bool: the 8-bit digits (byte 0 lowest) in which some key of
+    each row of the int64-held u64 ``key_bits`` differs from the row's
+    first key — the passes the radix sort makes; a row of equal keys makes
+    one, on digit 0."""
+    c, t = key_bits.shape
+    x = (key_bits ^ key_bits[:, :1]).contiguous().view(torch.uint8)
+    act = (x.reshape(c, t, 8) != 0).any(dim=1)
+    act[:, 0] |= ~act.any(dim=1)
+    return act
+
+
+def u64_sort_ops(key_bits: torch.Tensor) -> int:
+    """Integer operations K3 and K4a do on these keys. T <= 4096: the
+    bitonic network, T log2 T compare-exchanges a row at 5 each (the
+    (key, index) compare and its selects). Above: the radix sort's plan, 18
+    a key (the XOR and OR of the varying bits, 8 digit extractions and
+    counts), and 7 a key for each pass a row makes (the digit, its count,
+    its rank, the scatter address)."""
+    c, t = key_bits.shape
+    if t <= 4096:
+        return 5 * c * t * max(t.bit_length() - 1, 1)
+    passes = int(active_digits(key_bits).sum())
+    return 18 * c * t + 7 * t * passes
+
+
+def digits_str(key_bits: torch.Tensor) -> str:
+    """The rows' active digits, as distinct lists with their row counts."""
+    act = active_digits(key_bits).cpu().numpy()
+    rows = {}
+    for a in act:
+        k = str(np.flatnonzero(a).tolist())
+        rows[k] = rows.get(k, 0) + 1
+    return ", ".join(f"{k} x{n}" for k, n in rows.items())
 
 
 # ---------------------------------------------------------------------------
@@ -608,8 +695,8 @@ def phase_groupby(kernels, g: dict) -> dict:
         raise AssertionError("(f) the eager router declined the shape")
     check_groupby(groupby_rows(eager, eager.row_count), want, "(f) router")
     log(f"(f) eager router: {eager.row_count} groups match the numpy oracle")
-    res["profile"] = profile_plan(runner("pallas32"),
-                                  res["plan_ms"]["pallas32"], "(f) pallas32")
+    res["profile"] = {e: profile_plan(runner(e), res["plan_ms"][e], f"(f) {e}")
+                      for e in GROUPBY_ENGINES}
     res["table"] = t
     return res
 
@@ -741,63 +828,67 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
         n * (8 + 8 + 1 + 4), n * 2 * (2 * 11 + 10)))
 
     # K3 at the sort's shape: the item_sk key bits and every 1-D buffer of
-    # the from_rows table as payloads (five data columns, two validities).
-    # Bytes: one read of key and payloads, one write of key, perm and
-    # payloads. Operations: n log2 n compares of ~5 integer operations.
-    # The library yardstick is torch.sort of the int64 order carrier
-    # (stable): the sorted key and the perm, without the payload gather.
-    def sort_record(tag, key_bits, pays, launches, note=""):
+    # the from_rows table as payloads (five data columns, two validities),
+    # and the same key alone. Bytes: one read of key and payloads, one
+    # write of key, perm and payloads. Operations: u64_sort_ops. The
+    # library yardstick is torch.sort of the int64 order carrier (stable):
+    # the sorted key and the perm — the keys-only record's own function;
+    # the payload record adds the gather it leaves out.
+    def sort_record(info, tag, key_bits, pays, launches, fn, note=""):
         c, t = key_bits.shape
         pbytes = sum(p.element_size() for p in pays)
         carrier = keys.to_unsigned_bits(key_bits)  # the flip is its own inverse
+        what = (f"{len(pays)} payloads ({pbytes} B a row)" if pays
+                else "keys only")
+        log(f"(c) {info.name}/{tag}: digits a row {digits_str(key_bits)}")
         return kernel_record(
-            bs.SORT, tag, f"{c}x{t}, {len(pays)} payloads ({pbytes} B a row)",
-            launches, lambda: list(bs.batched_sort_u64_looped(key_bits, *pays)),
+            info, tag, f"{c}x{t}, {what}", launches,
+            lambda: list(fn(key_bits, *pays)),
             lambda: list(bs.batched_sort_plain(key_bits, *pays)),
             c * t * (8 + pbytes) + c * t * (12 + pbytes),
-            5 * c * t * max(t.bit_length() - 1, 1),
+            u64_sort_ops(key_bits),
             library_fn=lambda: torch.sort(carrier, dim=1, stable=True),
             note=note)
 
     item = on_dev(d["item_sk"])
+    item_bits = keys.to_unsigned_bits(item)[None, :]
     sort_pays = [item, on_dev(d["customer_sk"]), on_dev(d["date_sk"]),
                  on_dev(d["quantity"]), on_dev(d["keep"]),
                  on_dev(d["customer_ok"]), on_dev(d["quantity_ok"])]
+    k3 = qe["launches"]["batched_sort_u64_looped"]
+    recs.append(sort_record(bs.SORT, "sort", item_bits,
+                            [p[None, :] for p in sort_pays], k3,
+                            bs.batched_sort_u64_looped))
     recs.append(sort_record(
-        "sort", keys.to_unsigned_bits(item)[None, :],
-        [p[None, :] for p in sort_pays],
-        qe["launches"]["batched_sort_u64_looped"]))
+        bs.SORT, "sort_keys", item_bits, [], k3, bs.batched_sort_u64_looped,
+        note="(e)'s key alone, the function torch.sort computes; the main "
+             "path's launch is the 7-payload sort above"))
     small = torch.randint(0, 64, (1, 1024), dtype=torch.int64, device=dev,
                           generator=gen)
     recs.append(sort_record(
-        "one_block", keys.to_unsigned_bits(small),
+        bs.SORT, "one_block", keys.to_unsigned_bits(small),
         [small, small.to(torch.int32), small > 31], 0,
-        note="the one-block regime (T <= 4096: the whole network in one "
+        bs.batched_sort_u64_looped,
+        note="the one-block regime (T <= 4096: the whole row in one "
              "shared-memory launch); no main-path phase sorts 1024 rows, "
              "so its main-path launch count is 0"))
 
     # K4a and K4b at (f)'s phase-1 shape: the packed words of the (f)
     # table, C = ceil(rows / 2^17) chunks of T = 2^17, keys only. Bytes:
     # K4a reads 8 B and writes 8 + 4 B (key, perm) a word; K4b reads and
-    # writes 4 B. Operations: T log2 T compare-exchanges a row, at 5 each
-    # for K4a (the (hi, lo, idx) compare and its selects, as K3's records
-    # count them) and 2 for K4b (one u32 min and max; no tiebreak). Library:
-    # torch.sort of the order carrier (int64 for K4a, stable; int32 with
-    # its top bit flipped for K4b).
+    # writes 4 B. Operations: u64_sort_ops for K4a; for K4b T log2 T
+    # compare-exchanges a row at 2 each (one u32 min and max; no tiebreak).
+    # Library: torch.sort of the order carrier (int64 for K4a, stable;
+    # int32 with its top bit flipped for K4b).
     kw = keys.column_order_keys(qf["table"]["k"])[0]
     words, _ = gp.pack_chunks(kw - kw.min(), GROUPBY_CHUNK_ROWS)
     low = words.view(torch.int32)[:, 0::2].contiguous()  # u32 words
     c, t = words.shape
     exchanges = c * t * (t.bit_length() - 1)
     shape = f"{c}x{t} packed words, keys only"
-    carrier = keys.to_unsigned_bits(words)
-    recs.append(kernel_record(
-        bs.SORT_U64, "groupby", shape,
-        qf["launches"]["pallas"]["batched_sort_u64"],
-        lambda: list(bs.batched_sort_u64(words)),
-        lambda: list(bs.batched_sort_u64_plain(words)), c * t * 20,
-        5 * exchanges,
-        library_fn=lambda: torch.sort(carrier, dim=1, stable=True)))
+    recs.append(sort_record(bs.SORT_U64, "groupby", words, [],
+                            qf["launches"]["pallas"]["batched_sort_u64"],
+                            bs.batched_sort_u64))
     low_carrier = low ^ -2**31
     recs.append(kernel_record(
         bs.SORT_U32, "groupby", shape,
@@ -824,6 +915,38 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
              "gather); the groupby sorts keys only, so its main-path launch "
              "count is 0"))
     return recs
+
+
+def phase_key_classes(seed: int) -> list:
+    """K3 (with an int32 and a bool payload) and K4a (keys only) against
+    their plain version, exactly, on every class of ``sort_key_classes`` at
+    each of KEY_CLASS_SHAPES; returns one summary a (class, shape)."""
+    from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
+
+    rng = np.random.default_rng(seed + 4)
+    out = []
+    for c, t in KEY_CLASS_SHAPES:
+        for name, key in sort_key_classes(rng, c, t).items():
+            bits = torch.from_numpy(key.view(np.int64)).to(DEVICE)
+            pay = torch.from_numpy(
+                rng.integers(-2**31, 2**31, (c, t)).astype(np.int32)).to(DEVICE)
+            flag = pay > 0
+            want = bs.batched_sort_plain(bits, pay, flag)
+            got3 = bs.batched_sort_u64_looped(bits, pay, flag)
+            got4 = bs.batched_sort_u64(bits)
+            torch.cuda.synchronize()
+            err3 = max_abs_err(got3, want)
+            err4 = max_abs_err(got4, want[:2])
+            digits = digits_str(bits)
+            log(f"(c) key class {name} {c}x{t}: digits a row {digits}; "
+                f"max_abs_err K3 {err3}, K4a {err4}")
+            out.append({"class": name, "shape": f"{c}x{t}", "digits": digits,
+                        "max_abs_err_k3": err3, "max_abs_err_k4a": err4})
+            if err3 or err4:
+                raise AssertionError(
+                    f"key class {name} {c}x{t}: K3 or K4a differs from the "
+                    "plain version")
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -884,7 +1007,7 @@ def main(argv=None) -> int:
         except Exception:  # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
-    recs = []
+    recs, classes = [], []
     if len(res) == len(phases):
         try:
             recs = phase_kernels(d, res["query"], res["rowconv"],
@@ -894,6 +1017,11 @@ def main(argv=None) -> int:
             failed.append("kernels")
     else:
         failed.append("kernels (skipped: an earlier phase failed)")
+    try:
+        classes = phase_key_classes(args.seed)
+    except Exception:
+        traceback.print_exc()
+        failed.append("key classes")
     try:
         smi = nvidia_smi_line()
     except (OSError, subprocess.SubprocessError):
@@ -911,7 +1039,8 @@ def main(argv=None) -> int:
         "sort_plan_ms": res["sort"]["plan_ms"],
         "sort_profile": res["sort"]["profile"],
         "groupby_ms": res["groupby"]["plan_ms"],
-        "groupby_profile": res["groupby"]["profile"]}))
+        "groupby_profile": res["groupby"]["profile"],
+        "key_classes": classes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Batched bitonic sorts: kernels K3, K4a and K4b and their plain versions
-(port of ``kernels/bitonic_sort.py``).
+"""Batched sorts: kernels K3, K4a and K4b and their plain versions (port
+of ``kernels/bitonic_sort.py``, whose name the module keeps).
 
 K3 ``batched_sort_u64_looped`` and K4a ``batched_sort_u64`` share one
 contract (the JAX package's ``batched_sort_u64_looped`` docstring says it
-has ``batched_sort_u64``'s semantics) and one CUDA launch sequence; each
-wrapper counts its own launches. K4b ``batched_sort_u32`` sorts u32 keys
-that are distinct within a row (the packed groupby's word), without a
-tiebreak; see the end of this module.
+has ``batched_sort_u64``'s semantics) and one CUDA entry, the radix sort of
+``csrc/radix_sort.cu``; each wrapper counts its own launches. K4b
+``batched_sort_u32`` sorts u32 keys that are distinct within a row (the
+packed groupby's word), without a tiebreak, on the bitonic network of
+``csrc/bitonic_sort.cu``; see the end of this module. Design notes are in
+the two sources.
 
 The contract is the JAX package's: each row of a ``(C, T)`` u64 key (T a
 power of two) is sorted ascending, stably, with payloads carried along;
@@ -19,7 +21,9 @@ the JAX package splits 8-byte payloads into two u32 words, bitcasts
 4-byte ones and widens narrower integers, all of which round-trip exactly;
 a narrow float raises there and here.
 
-The CUDA kernel lives in ``csrc/bitonic_sort.cu`` (design notes there).
+The plain versions are the JAX networks in torch ops: a different
+algorithm computing the same function, against which the kernels are held
+byte for byte.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ import torch
 
 from . import check_status, library, ptr, register, require_cuda, stream_of
 
-_SOURCE = "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu"
-SORT = register("batched_sort_u64_looped", _SOURCE,
+_RADIX = "spark_rapids_jni_tpu_torch/csrc/radix_sort.cu"
+_BITONIC = "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu"
+SORT = register("batched_sort_u64_looped", _RADIX,
                 "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401")
-SORT_U64 = register("batched_sort_u64", _SOURCE,
+SORT_U64 = register("batched_sort_u64", _RADIX,
                     "spark_rapids_jni_tpu/kernels/bitonic_sort.py:116")
-SORT_U32 = register("batched_sort_u32", _SOURCE,
+SORT_U32 = register("batched_sort_u32", _BITONIC,
                     "spark_rapids_jni_tpu/kernels/bitonic_sort.py:265")
 
 #: the kernels' launch geometry: rows ride gridDim.y, and the perm is int32
@@ -50,25 +55,31 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_DECLARED = False
+_DECLARED = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _DECLARED
-    lib = library("bitonic_sort")
-    if not _DECLARED:
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, its entries declared."""
+    lib = library(name)
+    if name not in _DECLARED:
         lib.srt_error_string.argtypes = [_I]
         lib.srt_error_string.restype = ctypes.c_char_p
         u64s = ctypes.POINTER(ctypes.c_uint64)
-        lib.srt_bitonic_sort.argtypes = [
-            _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I, _P,
-        ]
-        lib.srt_bitonic_sort.restype = _I
-        lib.srt_bitonic_sort_u32.argtypes = [
-            _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I, _P,
-        ]
-        lib.srt_bitonic_sort_u32.restype = _I
-        _DECLARED = True
+        if name == "radix_sort":
+            lib.srt_radix_sort_u64_scratch.argtypes = [_I64, _I64]
+            lib.srt_radix_sort_u64_scratch.restype = _I64
+            lib.srt_radix_sort_u64.argtypes = [
+                _P, _P, _P, _I64, _I64, _P, _I64, u64s, u64s,
+                ctypes.POINTER(_I), _I, _P,
+            ]
+            lib.srt_radix_sort_u64.restype = _I
+        else:
+            lib.srt_bitonic_sort_u32.argtypes = [
+                _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I,
+                _P,
+            ]
+            lib.srt_bitonic_sort_u32.restype = _I
+        _DECLARED.add(name)
     return lib
 
 
@@ -148,15 +159,19 @@ def _require_batch(key: torch.Tensor, payloads) -> None:
 
 
 def _sort_cuda(info, key: torch.Tensor, payloads):
-    """K3's launch sequence for ``info`` (K3 or K4a), counted there."""
+    """The radix sort of ``csrc/radix_sort.cu`` for ``info`` (K3 or K4a),
+    counted there. Its scratch (a second (key, index) buffer and the
+    digit counts) is allocated here, as the C entry sizes it."""
     _require_batch(key, payloads)
     c, t = key.shape
     sorted_key = torch.empty_like(key)
     perm = torch.empty((c, t), dtype=torch.int32, device=key.device)
     outs = [torch.empty_like(p) for p in payloads]
-    lib = _lib()
-    rc = lib.srt_bitonic_sort(
-        ptr(key), ptr(sorted_key), ptr(perm), c, t,
+    lib = _lib("radix_sort")
+    nbytes = lib.srt_radix_sort_u64_scratch(c, t)  # 0 when a row fits a block
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=key.device)
+    rc = lib.srt_radix_sort_u64(
+        ptr(key), ptr(sorted_key), ptr(perm), c, t, ptr(scratch), nbytes,
         *_payload_args(payloads, outs), stream_of(key),
     )
     check_status(lib, rc, info.name)
@@ -174,7 +189,7 @@ def batched_sort_u64_looped(key: torch.Tensor, *payloads: torch.Tensor):
     return _sort_cuda(SORT, key, payloads)
 
 
-#: K4a's plain version: K3's network, the same function
+#: K4a's plain version: K3's, the same function
 batched_sort_u64_plain = batched_sort_plain
 
 
@@ -253,7 +268,7 @@ def _sort_u32_cuda(key: torch.Tensor, payloads):
     idx = (torch.empty((c, t), dtype=torch.int32, device=key.device)
            if payloads else None)
     outs = [torch.empty_like(p) for p in payloads]
-    lib = _lib()
+    lib = _lib("bitonic_sort")
     rc = lib.srt_bitonic_sort_u32(
         ptr(key), ptr(sorted_key), None if idx is None else ptr(idx), c, t,
         *_payload_args(payloads, outs), stream_of(key),

@@ -76,6 +76,35 @@ def test_every_tpu_kernel_has_one_registered_counterpart():
     }
 
 
+def test_every_kernel_names_a_built_source():
+    """Each kernel's source is one the build compiles; K3 and K4a share
+    the radix sort's, K4b keeps the bitonic network's."""
+    for info in kernels.KERNELS.values():
+        path = ROOT / info.source
+        assert path.is_file() and path.stem in kernels.SOURCES, info
+    src = {k: v.source.rsplit("/", 1)[1] for k, v in kernels.KERNELS.items()}
+    assert (src["batched_sort_u64_looped"], src["batched_sort_u64"],
+            src["batched_sort_u32"]) == (
+        "radix_sort.cu", "radix_sort.cu", "bitonic_sort.cu")
+
+
+@pytest.mark.parametrize("name", kernels.SOURCES)
+def test_csrc_includes_resolve(name):
+    """Every quoted include of a source (and of the headers it includes)
+    is a file under csrc/, so the build needs nothing else of the repo."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        seen.add(f)
+        text = (kernels.CSRC / f).read_text()
+        for line in text.splitlines():
+            if line.startswith("#include \""):
+                inc = line.split('"')[1]
+                assert (kernels.CSRC / inc).is_file(), f"{f}: {inc}"
+                if inc not in seen:
+                    todo.append(inc)
+
+
 def _fact_wire(n=4):
     offs = (np.arange(n + 1) * 8).astype(np.int32)
     return [24], [5], [offs.tobytes() + bytes(8 * n)], [None], n

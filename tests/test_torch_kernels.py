@@ -7,6 +7,7 @@ The CUDA kernels themselves run only on a GPU: ``chip_smoke.py`` holds
 each of them against the plain versions tested here.
 """
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,12 +182,30 @@ def _sort_payloads(rng, c, t):
     ]
 
 
-@pytest.mark.parametrize("c,t", [(1, 2), (1, 1024), (3, 256)])
-def test_batched_sort_matches_jax(c, t):
-    rng = np.random.default_rng(c * 100 + t)
+# hard key classes of the u64 sorts (chip_smoke.py holds the CUDA kernels
+# against the plain version on the same classes); "mixed" is this test's
+# own: small repeated keys among all-ones and top-bit keys
+KEY_CLASSES = ("all_equal", "byte0", "byte3", "byte7", "top_bit",
+               "random_repeats", "mixed_rows_padded")
+SORT_CASES = [pytest.param("mixed", c, t, id=f"{c}-{t}")
+              for c, t in ((1, 2), (1, 1024), (3, 256))] + [
+    pytest.param(kind, c, t, id=f"{kind}-{c}-{t}")
+    for kind in KEY_CLASSES for c, t in ((1, 1024), (3, 256))]
+
+
+def _sort_keys(kind, rng, c, t):
+    if kind != "mixed":
+        return chip_smoke.sort_key_classes(rng, c, t)[kind]
     key = rng.integers(0, max(t // 8, 2), (c, t)).astype(np.uint64)  # repeats
     key[:, ::7] = np.uint64(2**64 - 1)  # all-ones keys among the rest
     key[:, 1::11] = np.uint64(2**63)  # top bit set
+    return key
+
+
+@pytest.mark.parametrize("kind,c,t", SORT_CASES)
+def test_batched_sort_matches_jax(kind, c, t):
+    rng = np.random.default_rng(c * 100 + t)
+    key = _sort_keys(kind, rng, c, t)
     pays = _sort_payloads(rng, c, t)
     want = jbs.batched_sort_u64_looped(
         jnp.asarray(key), *[jnp.asarray(p) for p in pays], interpret=True)
@@ -201,6 +220,31 @@ def test_batched_sort_matches_jax(c, t):
         assert g.numpy().dtype == p.dtype
         np.testing.assert_array_equal(g.numpy().view(np.uint8),
                                       np.asarray(w).view(np.uint8))
+    # K4a, keys only: K3's contract
+    k4a = bs.batched_sort_u64(torch.from_numpy(key.view(np.int64)))
+    np.testing.assert_array_equal(k4a[0].numpy(), got[0].numpy())
+    np.testing.assert_array_equal(k4a[1].numpy(), got[1].numpy())
+
+
+# the bytes each class varies in, row by row (at 3 rows of 256 keys)
+CLASS_DIGITS = {
+    "all_equal": [[0]] * 3,  # none varies: the radix sort's one pass
+    "byte0": [[0]] * 3, "byte3": [[3]] * 3, "byte7": [[7]] * 3,
+    "top_bit": [[7]] * 3,
+    "random_repeats": [list(range(8))] * 3,
+    "mixed_rows_padded": [[1], [0, 6], list(range(8))],
+}
+
+
+@pytest.mark.parametrize("kind", KEY_CLASSES)
+def test_sort_key_classes_vary_in_their_digits(kind):
+    """Each hard key class makes the radix sort run the digits it names."""
+    key = chip_smoke.sort_key_classes(np.random.default_rng(5), 3, 256)[kind]
+    assert key.dtype == np.uint64 and key.shape == (3, 256)
+    act = chip_smoke.active_digits(torch.from_numpy(key.view(np.int64)))
+    assert [np.flatnonzero(a).tolist() for a in act.numpy()] == \
+        CLASS_DIGITS[kind]
+    assert np.unique(key).shape[0] < key.size, "keys must repeat"
 
 
 @pytest.mark.parametrize("sort", [bs.batched_sort_u64_looped,
