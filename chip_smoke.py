@@ -44,7 +44,13 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     of the same carrier, and K3 and K4a are held against their plain
     version on hard key classes (``sort_key_classes``) at 4 x 2^16 and at
     the one-block edges 4 x 4096 and 4 x 8192, with the digits each class
-    makes the radix sort run.
+    makes the radix sort run; K4b on rows of distinct keys at 4 x 1024,
+    4096, 8192 and 2^17, keys only and with two payloads; K2a, run twice,
+    on hard builds (one key, (a)'s Zipf brands, one home slot that
+    overflows, max_probes 2, 20 % nulls, slot counts either side of the
+    shared-memory regime, 8192-row chunks, the join's 2^19 slots). The
+    registers, spills and shared memory that ``nvcc -Xptxas -v`` reported
+    for each kernel of the build are printed first.
 
 Every phase sets the kernels' launch counts to 0 just before its first
 run (in (f): before the first run of each engine) and reads them just
@@ -60,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -367,30 +374,72 @@ def sort_key_classes(rng, c: int, t: int) -> dict:
     }
 
 
+def distinct_u32_rows(rng, c: int, t: int) -> np.ndarray:
+    """(c, t) uint32 rows of keys distinct within each row, as the packed
+    groupby makes its words: random high bits over an embedded iota, with
+    the top bit alone and the all-ones word among them."""
+    ib = t.bit_length() - 1
+    high = rng.integers(0, 2 ** (32 - ib), (c, t), dtype=np.uint64)
+    high[:, -1] = 2 ** (32 - ib) - 1
+    high[:, 0] = 2 ** (31 - ib)
+    iota = np.arange(t, dtype=np.uint64)
+    return ((high << np.uint64(ib)) | iota).astype(np.uint32)
+
+
+def hash_word_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The hash table's slot hash of the u64 word (hi << 32 | lo) in numpy
+    uint32: fmix32 of lo ^ hi * 0x9E3779B9."""
+    h = lo ^ (hi * np.uint32(0x9E3779B9))
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def one_home_keys(rng, t: int, s: int):
+    """``t`` distinct u64 keys, as (lo, hi) uint32 arrays, that all hash to
+    home slot 0 of a table of ``s`` slots: a build of them places one key
+    a round and overflows the rest at its probe bound."""
+    found, need = [], t
+    while need > 0:
+        w = rng.integers(0, 2**64, 1 << 22, dtype=np.uint64, endpoint=False)
+        lo = (w & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (w >> np.uint64(32)).astype(np.uint32)
+        w = w[(hash_word_np(lo, hi) & np.uint32(s - 1)) == 0]
+        found.append(w)
+        need -= w.shape[0]
+    w = rng.permutation(np.unique(np.concatenate(found)))[:t]
+    return ((w & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (w >> np.uint64(32)).astype(np.uint32))
+
+
 def active_digits(key_bits: torch.Tensor) -> torch.Tensor:
-    """(C, 8) bool: the 8-bit digits (byte 0 lowest) in which some key of
-    each row of the int64-held u64 ``key_bits`` differs from the row's
-    first key — the passes the radix sort makes; a row of equal keys makes
-    one, on digit 0."""
+    """(C, D) bool: the 8-bit digits (byte 0 lowest) in which some key of
+    each row of ``key_bits`` (u64 bits in int64, D = 8, or u32 bits in
+    int32, D = 4) differs from the row's first key — the passes the radix
+    sort makes; a row of equal keys makes one, on digit 0."""
     c, t = key_bits.shape
     x = (key_bits ^ key_bits[:, :1]).contiguous().view(torch.uint8)
-    act = (x.reshape(c, t, 8) != 0).any(dim=1)
+    act = (x.reshape(c, t, key_bits.element_size()) != 0).any(dim=1)
     act[:, 0] |= ~act.any(dim=1)
     return act
 
 
-def u64_sort_ops(key_bits: torch.Tensor) -> int:
-    """Integer operations K3 and K4a do on these keys. T <= 4096: the
-    bitonic network, T log2 T compare-exchanges a row at 5 each (the
-    (key, index) compare and its selects). Above: the radix sort's plan, 18
-    a key (the XOR and OR of the varying bits, 8 digit extractions and
-    counts), and 7 a key for each pass a row makes (the digit, its count,
-    its rank, the scatter address)."""
+def radix_sort_ops(key_bits: torch.Tensor, index: bool = True) -> int:
+    """Integer operations the radix sort (K3, K4a, K4b) does on these keys.
+    T <= 4096: the bitonic network, T log2 T compare-exchanges a row at 5
+    each where an index rides (the (key, index) compare and its selects),
+    at 2 for K4b keys only (one u32 min and max). Above: the plan, 2 + 2 D
+    a key for D digits (the XOR and OR of the varying bits, D digit
+    extractions and counts: 18 for a u64, 10 for a u32), and 7 a key for
+    each pass a row makes (the digit, its count, its rank, the scatter
+    address)."""
     c, t = key_bits.shape
     if t <= 4096:
-        return 5 * c * t * max(t.bit_length() - 1, 1)
+        return (5 if index else 2) * c * t * max(t.bit_length() - 1, 1)
     passes = int(active_digits(key_bits).sum())
-    return 18 * c * t + 7 * t * passes
+    return (2 + 2 * key_bits.element_size()) * c * t + 7 * t * passes
 
 
 def digits_str(key_bits: torch.Tensor) -> str:
@@ -475,7 +524,8 @@ def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
         rec["note"] = note
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     log(f"(c) {rec['name']} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms{lib}")
+        f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms{lib}"
+        + (f" ({note})" if note else ""))
     if err:
         raise AssertionError(f"{rec['name']} disagrees with its plain version")
     return rec
@@ -701,6 +751,35 @@ def phase_groupby(kernels, g: dict) -> dict:
     return res
 
 
+def key_halves(values: np.ndarray, d_type):
+    """The (1, n) int32 lo/hi halves of a column's order words on the card,
+    as the registry's hash builds take them."""
+    from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.ops import keys
+
+    col = Column(torch.from_numpy(values).to(DEVICE), d_type)
+    lo, hi = keys.split_u32(keys.column_order_keys(col)[0])
+    return lo[None, :].contiguous(), hi[None, :].contiguous()
+
+
+def brand_chunks(d: dict, t: int):
+    """The groupby build of (a): the brand of every filtered row, as (C, t)
+    lo/hi halves and valid flags, the padding rows of the last chunk
+    invalid — the registry's chunked hash groupby's input."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+
+    brand = d["i_brand_id"][d["item_sk"][d["keep"]]]
+    n = brand.shape[0]
+    c = -(-n // t)
+
+    def chunked(x):
+        return torch.nn.functional.pad(x[0], (0, c * t - n)).reshape(c, t)
+
+    lo, hi = key_halves(brand, dt.INT32)
+    ones = torch.ones((1, n), dtype=torch.int32, device=DEVICE)
+    return chunked(lo), chunked(hi), chunked(ones)
+
+
 def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
                   qf: dict) -> list:
     from spark_rapids_jni_tpu_torch import dtype as dt
@@ -719,11 +798,6 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     gen.manual_seed(1)
     la, lb = qa["launches"], qb["launches"]
     recs = []
-
-    def halves(values: np.ndarray, d_type):
-        col = Column(torch.from_numpy(values).to(dev), d_type)
-        lo, hi = keys.split_u32(keys.column_order_keys(col)[0])
-        return lo[None, :].contiguous(), hi[None, :].contiguous()
 
     def pack_record(tag, layout, n, launches):
         col_bytes = [torch.randint(0, 256, (n, w), dtype=torch.uint8,
@@ -760,17 +834,19 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     # K2a + K2b: the join's build over item keys, its probe with the
     # filtered fact keys, and the groupby's chunked build over brands
     m = d["keep"]
-    blo, bhi = halves(d["i_item_sk"], dt.INT64)
+    blo, bhi = key_halves(d["i_item_sk"], dt.INT64)
     bval = torch.ones_like(blo)
     slots = 2 * registry._next_pow2(blo.shape[1])
     built = ht.build_table(blo, bhi, bval, table_slots=slots)
     nb, ns = blo.shape[1], slots
+    rounds = build_rounds(blo, bhi, bval, built, slots, ht.MAX_PROBES)
     recs.append(kernel_record(
         ht.BUILD, "join", f"1x{nb} keys, {ns} slots", la["build_table"],
         lambda: ht.build_table(blo, bhi, bval, table_slots=slots),
         lambda: ht.build_table_plain(blo, bhi, bval, table_slots=slots),
-        12 * nb + 4 * nb + 12 * ns + 8, 20 * nb))
-    plo, phi = halves(d["item_sk"][m], dt.INT64)
+        12 * nb + 4 * nb + 12 * ns + 8, 20 * nb,
+        note=f"regime {ht.build_regime(nb, ns)}, {rounds} probe rounds"))
+    plo, phi = key_halves(d["item_sk"][m], dt.INT64)
     pval = torch.ones_like(plo)
     npb = plo.shape[1]
     tables = built[1:4]
@@ -779,24 +855,20 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
         lambda: ht.probe_table(plo, phi, pval, *tables),
         lambda: ht.probe_table_plain(plo, phi, pval, *tables),
         12 * npb + 12 * ns + 8 * npb + 4, 20 * npb))
-    brand = d["i_brand_id"][d["item_sk"][m]]
-    glo, ghi = halves(brand, dt.INT32)
     t = registry.GROUPBY_CHUNK_ROWS
-    c = -(-brand.shape[0] // t)
-    pad = c * t - brand.shape[0]
-
-    def chunked(x):
-        return torch.nn.functional.pad(x[0], (0, pad)).reshape(c, t)
-
-    glo, ghi = chunked(glo), chunked(ghi)
-    gval = chunked(torch.ones((1, brand.shape[0]), dtype=torch.int32, device=dev))
+    glo, ghi, gval = brand_chunks(d, t)
+    c = glo.shape[0]
     gs = 2 * t
+    gbuilt = ht.build_table(glo, ghi, gval, table_slots=gs)
+    rounds = build_rounds(glo, ghi, gval, gbuilt, gs, ht.MAX_PROBES)
     recs.append(kernel_record(
         ht.BUILD, "groupby", f"{c}x{t} keys, {c}x{gs} slots",
         la["build_table"],
         lambda: ht.build_table(glo, ghi, gval, table_slots=gs),
         lambda: ht.build_table_plain(glo, ghi, gval, table_slots=gs),
-        16 * c * t + 12 * c * gs + 8, 20 * c * t))
+        16 * c * t + 12 * c * gs + 8, 20 * c * t,
+        note=f"regime {ht.build_regime(t, gs)}, {rounds} probe rounds "
+             "(the slowest chunk's)"))
 
     # K1a + K1b at the row-conversion shape
     rc_layout = rows.compute_fixed_width_layout(
@@ -830,7 +902,7 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     # K3 at the sort's shape: the item_sk key bits and every 1-D buffer of
     # the from_rows table as payloads (five data columns, two validities),
     # and the same key alone. Bytes: one read of key and payloads, one
-    # write of key, perm and payloads. Operations: u64_sort_ops. The
+    # write of key, perm and payloads. Operations: radix_sort_ops. The
     # library yardstick is torch.sort of the int64 order carrier (stable):
     # the sorted key and the perm — the keys-only record's own function;
     # the payload record adds the gather it leaves out.
@@ -846,7 +918,7 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
             lambda: list(fn(key_bits, *pays)),
             lambda: list(bs.batched_sort_plain(key_bits, *pays)),
             c * t * (8 + pbytes) + c * t * (12 + pbytes),
-            u64_sort_ops(key_bits),
+            radix_sort_ops(key_bits),
             library_fn=lambda: torch.sort(carrier, dim=1, stable=True),
             note=note)
 
@@ -876,26 +948,25 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     # K4a and K4b at (f)'s phase-1 shape: the packed words of the (f)
     # table, C = ceil(rows / 2^17) chunks of T = 2^17, keys only. Bytes:
     # K4a reads 8 B and writes 8 + 4 B (key, perm) a word; K4b reads and
-    # writes 4 B. Operations: u64_sort_ops for K4a; for K4b T log2 T
-    # compare-exchanges a row at 2 each (one u32 min and max; no tiebreak).
-    # Library: torch.sort of the order carrier (int64 for K4a, stable;
-    # int32 with its top bit flipped for K4b).
+    # writes 4 B. Operations: radix_sort_ops (K4b: no index rides). Library:
+    # torch.sort of the order carrier (int64 for K4a, stable; int32 with its
+    # top bit flipped for K4b).
     kw = keys.column_order_keys(qf["table"]["k"])[0]
     words, _ = gp.pack_chunks(kw - kw.min(), GROUPBY_CHUNK_ROWS)
     low = words.view(torch.int32)[:, 0::2].contiguous()  # u32 words
     c, t = words.shape
-    exchanges = c * t * (t.bit_length() - 1)
     shape = f"{c}x{t} packed words, keys only"
     recs.append(sort_record(bs.SORT_U64, "groupby", words, [],
                             qf["launches"]["pallas"]["batched_sort_u64"],
                             bs.batched_sort_u64))
     low_carrier = low ^ -2**31
+    log(f"(c) {bs.SORT_U32.name}/groupby: digits a row {digits_str(low)}")
     recs.append(kernel_record(
         bs.SORT_U32, "groupby", shape,
         qf["launches"]["pallas32"]["batched_sort_u32"],
         lambda: list(bs.batched_sort_u32(low)),
         lambda: list(bs.batched_sort_u32_plain(low)), c * t * 8,
-        2 * exchanges,
+        radix_sort_ops(low, index=False),
         library_fn=lambda: torch.sort(low_carrier, dim=1)))
     # the payload branch of K4b (a riding index, one gather): distinct keys
     # are its contract, so the padding words become 0xFFFE0000 | iota
@@ -909,11 +980,10 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
         bs.SORT_U32, "payloads", f"{c}x{t}, 2 payloads (int32, int16)", 0,
         lambda: list(bs.batched_sort_u32(distinct, p32, p16)),
         lambda: list(bs.batched_sort_u32_plain(distinct, p32, p16)),
-        c * t * (8 + 2 * (4 + 2)), 2 * exchanges,
+        c * t * (8 + 2 * (4 + 2)), radix_sort_ops(distinct),
         library_fn=lambda: torch.sort(distinct ^ -2**31, dim=1),
-        note="the payload branch (2^14-key tiles with a riding index, one "
-             "gather); the groupby sorts keys only, so its main-path launch "
-             "count is 0"))
+        note="the payload branch (a riding u32 index, one gather); the "
+             "groupby sorts keys only, so its main-path launch count is 0"))
     return recs
 
 
@@ -946,6 +1016,167 @@ def phase_key_classes(seed: int) -> list:
                 raise AssertionError(
                     f"key class {name} {c}x{t}: K3 or K4a differs from the "
                     "plain version")
+    return out
+
+
+def build_rounds(lo, hi, valid, out, s: int, max_probes: int) -> int:
+    """Probe rounds a K2a build ran, from its result ``out``: a live row
+    moves one slot a round, so a row placed ``(slot - home) mod S`` slots
+    from its home placed in that round (counted from 1); the build runs
+    as many rounds as its last row needs, all of them when a row
+    overflows."""
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+
+    if int(out[4]):
+        return max_probes
+    slot = out[0].to(torch.int64)
+    placed = (slot >= 0) & (valid != 0)
+    if not bool(placed.any()):
+        return 0
+    home = ht.hash_word(lo.to(torch.int64) & 0xFFFFFFFF,
+                        hi.to(torch.int64) & 0xFFFFFFFF) & (s - 1)
+    return int(((slot - home) & (s - 1))[placed].max()) + 1
+
+
+def phase_build_cases(d: dict, seed: int) -> list:
+    """K2a against its plain version, exactly, on hard builds, each run
+    twice (no race checker runs on the card: a barrier fault shows as a
+    difference from the plain version in one of the runs). The groupby's
+    chunking of (a) (684 x 4096 rows) with its Zipf brands, one key, keys
+    sharing one home slot, random keys (under max_probes 2 too), 20 %
+    nulls, slot counts either side of the shared-memory regime, 8192-row
+    chunks and 2^19 slots, and the join's item keys; returns one summary a
+    case."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+    from spark_rapids_jni_tpu_torch.kernels import registry
+
+    rng = np.random.default_rng(seed + 6)
+    t = registry.GROUPBY_CHUNK_ROWS
+    glo, ghi, gval = brand_chunks(d, t)
+    c = glo.shape[0]
+
+    def on_dev(a):
+        return torch.from_numpy(
+            np.array(a, np.uint32, order="C").view(np.int32)).to(DEVICE)
+
+    def full(v):
+        return torch.full((c, t), int(v), dtype=torch.int32, device=DEVICE)
+
+    ones = torch.ones((c, t), dtype=torch.int32, device=DEVICE)
+    one = rng.integers(0, 2**31, 2)
+    hlo, hhi = one_home_keys(rng, t, 2 * t)
+    rand = rng.integers(0, 2**32, (2, c, t), dtype=np.uint64).astype(np.uint32)
+    nulls = torch.from_numpy((rng.random((c, t)) >= 0.2).astype(np.int32)).to(DEVICE)
+    big_t = 2 * t  # over build_chunk's 4096 rows
+    c2 = -(-c * t // big_t)
+    pad2 = c2 * big_t - c * t
+
+    def rechunk(x):
+        return torch.nn.functional.pad(x.reshape(-1), (0, pad2)).reshape(c2, big_t)
+
+    blo, bhi = key_halves(d["i_item_sk"], dt.INT64)
+    join_s = 2 * registry._next_pow2(blo.shape[1])
+    # name -> (lo, hi, valid, table_slots, max_probes)
+    cases = {
+        "one_key": (full(one[0]), full(one[1]), ones, 2 * t, ht.MAX_PROBES),
+        "zipf_brands": (glo, ghi, gval, 2 * t, ht.MAX_PROBES),
+        "one_home_slot": (on_dev(np.broadcast_to(hlo, (c, t))),
+                          on_dev(np.broadcast_to(hhi, (c, t))), ones, 2 * t,
+                          ht.MAX_PROBES),
+        "max_probes_2": (on_dev(rand[0]), on_dev(rand[1]), ones, 2 * t, 2),
+        "nulls_20pct": (glo, ghi, gval * nulls, 2 * t, ht.MAX_PROBES),
+        "random_s8192": (on_dev(rand[0]), on_dev(rand[1]), ones, 8192,
+                         ht.MAX_PROBES),
+        "random_s16384": (on_dev(rand[0]), on_dev(rand[1]), ones, 16384,
+                          ht.MAX_PROBES),
+        "random_s32768": (on_dev(rand[0]), on_dev(rand[1]), ones, 32768,
+                          ht.MAX_PROBES),
+        "t8192_s16384": (rechunk(glo), rechunk(ghi), rechunk(gval), 16384,
+                         ht.MAX_PROBES),
+        "join_items_s2^19": (blo, bhi, torch.ones_like(blo), join_s,
+                             ht.MAX_PROBES),
+        "zipf_brands_s2^19": (glo, ghi, gval, 1 << 19, ht.MAX_PROBES),
+    }
+    out = []
+    for name, (lo, hi, valid, slots, probes) in cases.items():
+        cc, tt = lo.shape
+        want = ht.build_table_plain(lo, hi, valid, table_slots=slots,
+                                    max_probes=probes)
+        errs = []
+        for _ in range(2):
+            got = ht.build_table(lo, hi, valid, table_slots=slots,
+                                 max_probes=probes)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
+        regime = ht.build_regime(tt, slots)
+        ovf, dup = int(want[4]), int(want[5])
+        rounds = build_rounds(lo, hi, valid, want, slots, probes)
+        log(f"(c) build case {name} {cc}x{tt} keys, {slots} slots, "
+            f"max_probes {probes}: regime {regime}, {rounds} rounds, "
+            f"overflow {ovf}, dup {dup}; max_abs_err {errs[0]}, {errs[1]}")
+        out.append({"case": name, "shape": f"{cc}x{tt}", "slots": slots,
+                    "max_probes": probes, "regime": regime, "rounds": rounds,
+                    "overflow": ovf, "dup": dup, "max_abs_err": max(errs)})
+        if any(errs):
+            raise AssertionError(f"build case {name}: K2a differs from the "
+                                 "plain version")
+    return out
+
+
+# (rows, T) of the K4b checks: either side of the one-block regime
+# (T <= 4096) and (f)'s chunk length
+U32_ROW_SHAPES = ((4, 1024), (4, 4096), (4, 8192), (4, 1 << 17))
+
+
+def phase_u32_rows(seed: int) -> list:
+    """K4b against its plain version, exactly, on rows of distinct keys
+    (``distinct_u32_rows``) at each of U32_ROW_SHAPES, keys only and with
+    an int32 and an int16 payload; returns one summary a shape."""
+    from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
+
+    rng = np.random.default_rng(seed + 5)
+    out = []
+    for c, t in U32_ROW_SHAPES:
+        key = torch.from_numpy(distinct_u32_rows(rng, c, t).view(np.int32))
+        p32 = torch.from_numpy(
+            rng.integers(-2**31, 2**31, (c, t)).astype(np.int32))
+        p16 = torch.from_numpy(
+            rng.integers(-2**15, 2**15, (c, t)).astype(np.int16))
+        key, p32, p16 = key.to(DEVICE), p32.to(DEVICE), p16.to(DEVICE)
+        want = bs.batched_sort_u32_plain(key, p32, p16)
+        got_keys = bs.batched_sort_u32(key)
+        got_pay = bs.batched_sort_u32(key, p32, p16)
+        torch.cuda.synchronize()
+        err_keys = max_abs_err(got_keys, want[:1])
+        err_pay = max_abs_err(got_pay, want)
+        log(f"(c) K4b distinct rows {c}x{t}: digits a row {digits_str(key)}; "
+            f"max_abs_err keys only {err_keys}, with 2 payloads {err_pay}")
+        out.append({"shape": f"{c}x{t}", "max_abs_err_keys": err_keys,
+                    "max_abs_err_payloads": err_pay})
+        if err_keys or err_pay:
+            raise AssertionError(f"K4b {c}x{t} differs from the plain version")
+    return out
+
+
+def ptxas_lines(text: str) -> list:
+    """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
+    name, registers, static shared memory and spills."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores/loads {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{m.group(2) or 0} B static smem, {spill}")
+            name = None
     return out
 
 
@@ -982,6 +1213,9 @@ def main(argv=None) -> int:
     kernels.build_all()
     log(f"built {len(kernels.SOURCES)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
+    for name in kernels.SOURCES:
+        for line in ptxas_lines(kernels.ptxas_info(name)):
+            log(f"ptxas {name}.cu: {line}")
     rng = np.random.default_rng(args.seed)
     failed = []
     t0 = time.perf_counter()
@@ -1007,7 +1241,7 @@ def main(argv=None) -> int:
         except Exception:  # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
-    recs, classes = [], []
+    recs = []
     if len(res) == len(phases):
         try:
             recs = phase_kernels(d, res["query"], res["rowconv"],
@@ -1017,11 +1251,16 @@ def main(argv=None) -> int:
             failed.append("kernels")
     else:
         failed.append("kernels (skipped: an earlier phase failed)")
-    try:
-        classes = phase_key_classes(args.seed)
-    except Exception:
-        traceback.print_exc()
-        failed.append("key classes")
+    checks = {"key_classes": lambda: phase_key_classes(args.seed),
+              "u32_rows": lambda: phase_u32_rows(args.seed),
+              "build_cases": lambda: phase_build_cases(d, args.seed)}
+    hard = {}
+    for name, fn in checks.items():
+        try:
+            hard[name] = fn()
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
     try:
         smi = nvidia_smi_line()
     except (OSError, subprocess.SubprocessError):
@@ -1040,7 +1279,7 @@ def main(argv=None) -> int:
         "sort_profile": res["sort"]["profile"],
         "groupby_ms": res["groupby"]["plan_ms"],
         "groupby_profile": res["groupby"]["profile"],
-        "key_classes": classes}))
+        **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,11 +34,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("row_transpose", "hash_table", "murmur3", "bitonic_sort",
-           "radix_sort")
+SOURCES = ("row_transpose", "hash_table", "murmur3", "radix_sort")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -111,10 +110,17 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{err}")
         else:
+            (out_dir / f"lib{name}.ptxas.txt").write_text(err)
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def ptxas_info(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` reported when it built ``csrc/<name>.cu``
+    (each kernel's registers, shared memory and spills); build_all first."""
+    return (BUILD_ROOT / _digest() / f"lib{name}.ptxas.txt").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

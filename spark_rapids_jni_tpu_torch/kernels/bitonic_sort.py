@@ -6,9 +6,9 @@ contract (the JAX package's ``batched_sort_u64_looped`` docstring says it
 has ``batched_sort_u64``'s semantics) and one CUDA entry, the radix sort of
 ``csrc/radix_sort.cu``; each wrapper counts its own launches. K4b
 ``batched_sort_u32`` sorts u32 keys that are distinct within a row (the
-packed groupby's word), without a tiebreak, on the bitonic network of
-``csrc/bitonic_sort.cu``; see the end of this module. Design notes are in
-the two sources.
+packed groupby's word) with the same radix sort on 4-byte keys, its own
+entry, with no perm; see the end of this module. Design notes are in the
+source.
 
 The contract is the JAX package's: each row of a ``(C, T)`` u64 key (T a
 power of two) is sorted ascending, stably, with payloads carried along;
@@ -35,12 +35,11 @@ import torch
 from . import check_status, library, ptr, register, require_cuda, stream_of
 
 _RADIX = "spark_rapids_jni_tpu_torch/csrc/radix_sort.cu"
-_BITONIC = "spark_rapids_jni_tpu_torch/csrc/bitonic_sort.cu"
 SORT = register("batched_sort_u64_looped", _RADIX,
                 "spark_rapids_jni_tpu/kernels/bitonic_sort.py:401")
 SORT_U64 = register("batched_sort_u64", _RADIX,
                     "spark_rapids_jni_tpu/kernels/bitonic_sort.py:116")
-SORT_U32 = register("batched_sort_u32", _BITONIC,
+SORT_U32 = register("batched_sort_u32", _RADIX,
                     "spark_rapids_jni_tpu/kernels/bitonic_sort.py:265")
 
 #: the kernels' launch geometry: rows ride gridDim.y, and the perm is int32
@@ -55,31 +54,28 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_DECLARED = set()
+_DECLARED = False
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, its entries declared."""
-    lib = library(name)
-    if name not in _DECLARED:
+def _lib() -> ctypes.CDLL:
+    """The library of ``csrc/radix_sort.cu``, its entries declared."""
+    global _DECLARED
+    lib = library("radix_sort")
+    if not _DECLARED:
         lib.srt_error_string.argtypes = [_I]
         lib.srt_error_string.restype = ctypes.c_char_p
         u64s = ctypes.POINTER(ctypes.c_uint64)
-        if name == "radix_sort":
-            lib.srt_radix_sort_u64_scratch.argtypes = [_I64, _I64]
-            lib.srt_radix_sort_u64_scratch.restype = _I64
-            lib.srt_radix_sort_u64.argtypes = [
-                _P, _P, _P, _I64, _I64, _P, _I64, u64s, u64s,
-                ctypes.POINTER(_I), _I, _P,
-            ]
-            lib.srt_radix_sort_u64.restype = _I
-        else:
-            lib.srt_bitonic_sort_u32.argtypes = [
-                _P, _P, _P, _I64, _I64, u64s, u64s, ctypes.POINTER(_I), _I,
-                _P,
-            ]
-            lib.srt_bitonic_sort_u32.restype = _I
-        _DECLARED.add(name)
+        sort_args = [_P, _P, _P, _I64, _I64, _P, _I64, u64s, u64s,
+                     ctypes.POINTER(_I), _I, _P]
+        lib.srt_radix_sort_u64_scratch.argtypes = [_I64, _I64]
+        lib.srt_radix_sort_u64_scratch.restype = _I64
+        lib.srt_radix_sort_u64.argtypes = sort_args
+        lib.srt_radix_sort_u64.restype = _I
+        lib.srt_radix_sort_u32_scratch.argtypes = [_I64, _I64, _I]
+        lib.srt_radix_sort_u32_scratch.restype = _I64
+        lib.srt_radix_sort_u32.argtypes = sort_args
+        lib.srt_radix_sort_u32.restype = _I
+        _DECLARED = True
     return lib
 
 
@@ -167,7 +163,7 @@ def _sort_cuda(info, key: torch.Tensor, payloads):
     sorted_key = torch.empty_like(key)
     perm = torch.empty((c, t), dtype=torch.int32, device=key.device)
     outs = [torch.empty_like(p) for p in payloads]
-    lib = _lib("radix_sort")
+    lib = _lib()
     nbytes = lib.srt_radix_sort_u64_scratch(c, t)  # 0 when a row fits a block
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=key.device)
     rc = lib.srt_radix_sort_u64(
@@ -205,7 +201,7 @@ def batched_sort_u64(key: torch.Tensor, *payloads: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# K4b: u32 keys distinct within a row, no tiebreak, no perm
+# K4b: u32 keys distinct within a row, no perm
 # ---------------------------------------------------------------------------
 
 
@@ -262,16 +258,22 @@ def batched_sort_u32_plain(key: torch.Tensor, *payloads: torch.Tensor):
 
 
 def _sort_u32_cuda(key: torch.Tensor, payloads):
+    """K4b: the radix sort of ``csrc/radix_sort.cu`` on 4-byte keys. Keys
+    only, nothing rides; with payloads a u32 index rides into ``idx`` and
+    moves them once. The scratch is allocated here, as the C entry sizes
+    it."""
     _require_batch(key, payloads)
     c, t = key.shape
     sorted_key = torch.empty_like(key)
     idx = (torch.empty((c, t), dtype=torch.int32, device=key.device)
            if payloads else None)
     outs = [torch.empty_like(p) for p in payloads]
-    lib = _lib("bitonic_sort")
-    rc = lib.srt_bitonic_sort_u32(
+    lib = _lib()
+    nbytes = lib.srt_radix_sort_u32_scratch(c, t, len(payloads))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=key.device)
+    rc = lib.srt_radix_sort_u32(
         ptr(key), ptr(sorted_key), None if idx is None else ptr(idx), c, t,
-        *_payload_args(payloads, outs), stream_of(key),
+        ptr(scratch), nbytes, *_payload_args(payloads, outs), stream_of(key),
     )
     check_status(lib, rc, SORT_U32.name)
     SORT_U32.launches += 1

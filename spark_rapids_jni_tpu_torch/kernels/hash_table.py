@@ -45,8 +45,10 @@ def _lib() -> ctypes.CDLL:
     if not _DECLARED:
         lib.srt_error_string.argtypes = [_I]
         lib.srt_error_string.restype = ctypes.c_char_p
-        lib.srt_build_table.argtypes = [_P] * 11 + [_I64, _I, _I, _I, _P]
+        lib.srt_build_table.argtypes = [_P] * 8 + [_I64, _I, _I, _I, _P]
         lib.srt_build_table.restype = _I
+        lib.srt_build_table_regime.argtypes = [_I, _I]
+        lib.srt_build_table_regime.restype = _I
         lib.srt_probe_table.argtypes = [_P] * 9 + [_I64, _I, _I, _I, _P]
         lib.srt_probe_table.restype = _I
         _DECLARED = True
@@ -134,6 +136,11 @@ def build_table_plain(lo, hi, valid, *, table_slots: int,
 
 
 def _build_cuda(lo, hi, valid, s: int, max_probes: int):
+    """K2a in one launch (``csrc/hash_table.cu``): a chunk's table in shared
+    memory where it fits, else one cooperative launch over the whole
+    table. A slot's claim lives in its row word while a round runs and a
+    row's probe state in its slot word, so no scratch is allocated; the
+    entry zeroes ``counters`` (overflow, dup)."""
     c, t = lo.shape
     require_cuda(lo, "lo", torch.int32)
     require_cuda(hi, "hi", torch.int32, (c, t))
@@ -145,19 +152,27 @@ def _build_cuda(lo, hi, valid, s: int, max_probes: int):
     tlo = torch.empty((c, s), dtype=torch.int32, device=dev)
     thi = torch.empty((c, s), dtype=torch.int32, device=dev)
     trow = torch.empty((c, s), dtype=torch.int32, device=dev)
-    claim = torch.empty((c, s), dtype=torch.int64, device=dev)
-    pslot = torch.empty((c, t), dtype=torch.int32, device=dev)
-    live = torch.empty((c, t), dtype=torch.uint8, device=dev)
-    counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
     lib = _lib()
     rc = lib.srt_build_table(
         ptr(lo), ptr(hi), ptr(valid), ptr(slot), ptr(tlo), ptr(thi),
-        ptr(trow), ptr(claim), ptr(pslot), ptr(live), ptr(counters),
-        c, t, s, int(max_probes), stream_of(lo),
+        ptr(trow), ptr(counters), c, t, s, int(max_probes), stream_of(lo),
     )
     check_status(lib, rc, "build_table")
     BUILD.launches += 1
     return slot, tlo, thi, trow, counters[0], counters[1]
+
+
+def build_regime(rows: int, table_slots: int) -> str:
+    """Which K2a kernel a build of ``rows`` rows a chunk into
+    ``table_slots`` slots runs on the current CUDA device: ``"chunk"`` (a
+    chunk's table in one block's shared memory) or ``"grid"`` (one
+    cooperative launch)."""
+    lib = _lib()
+    rc = lib.srt_build_table_regime(int(rows), int(table_slots))
+    if rc < 0:
+        check_status(lib, -rc, "build_table_regime")
+    return "chunk" if rc else "grid"
 
 
 def build_table(lo, hi, valid, *, table_slots: int,

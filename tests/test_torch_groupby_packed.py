@@ -22,6 +22,7 @@ runs eagerly and compiles its ops once; the cases of another shape run
 it under ``jax.jit``.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +98,32 @@ def test_batched_sort_u32_matches_jax(c, t):
     np.testing.assert_array_equal(got[1].numpy().view(np.uint32),
                                   np.asarray(want[1]).view(np.uint32))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("t", [8, 256, 8192])
+def test_batched_sort_u32_plain_is_a_stable_sort(t):
+    """The property the CUDA K4b (a radix sort) is held to on the card: on
+    rows of distinct keys, plain K4b equals a stable torch.sort of the
+    int32 carrier (top bit flipped), payloads included; keys only, it
+    equals that sort also where all-ones words tie (the packed groupby's
+    padding)."""
+    rng = np.random.default_rng(t + 2)
+    c = 3
+    key = torch.from_numpy(chip_smoke.distinct_u32_rows(rng, c, t).view(
+        np.int32))
+    p32 = torch.from_numpy(rng.integers(-2**31, 2**31, (c, t)).astype(
+        np.int32))
+    p16 = torch.from_numpy(rng.integers(-2**15, 2**15, (c, t)).astype(
+        np.int16))
+    carrier, order = torch.sort(key ^ -2**31, dim=1, stable=True)
+    got = bs.batched_sort_u32(key, p32, p16)
+    assert torch.equal(got[0], carrier ^ -2**31)
+    assert torch.equal(got[1], torch.gather(p32, 1, order))
+    assert torch.equal(got[2], torch.gather(p16, 1, order))
+    tied = key.clone()
+    tied[:, t - t // 3:] = -1
+    want = torch.sort(tied ^ -2**31, dim=1, stable=True)[0] ^ -2**31
+    assert torch.equal(bs.batched_sort_u32(tied)[0], want)
 
 
 def _zeros(dtype, shape=(1, 8)):

@@ -77,15 +77,15 @@ def test_every_tpu_kernel_has_one_registered_counterpart():
 
 
 def test_every_kernel_names_a_built_source():
-    """Each kernel's source is one the build compiles; K3 and K4a share
-    the radix sort's, K4b keeps the bitonic network's."""
+    """Each kernel's source is one the build compiles; K3, K4a and K4b
+    share the radix sort's."""
     for info in kernels.KERNELS.values():
         path = ROOT / info.source
         assert path.is_file() and path.stem in kernels.SOURCES, info
     src = {k: v.source.rsplit("/", 1)[1] for k, v in kernels.KERNELS.items()}
     assert (src["batched_sort_u64_looped"], src["batched_sort_u64"],
             src["batched_sort_u32"]) == (
-        "radix_sort.cu", "radix_sort.cu", "bitonic_sort.cu")
+        "radix_sort.cu", "radix_sort.cu", "radix_sort.cu")
 
 
 @pytest.mark.parametrize("name", kernels.SOURCES)

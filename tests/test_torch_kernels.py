@@ -69,19 +69,41 @@ def test_hash_word_matches_jax():
 
 
 BUILD_CASES = [
-    # (C, T, distinct keys, null fraction, max_probes)
+    # (C, T, distinct keys or a hard chunk's name, null fraction, max_probes)
     (1, 1024, 300, 0.1, jht.MAX_PROBES),
     (1, 2048, 2048 * 4, 0.0, jht.MAX_PROBES),
     (4, 1024, 50, 0.2, jht.MAX_PROBES),
     (4, 2048, 5000, 0.05, jht.MAX_PROBES),
     (4, 1024, 3000, 0.0, 2),  # forces overflow / unresolved
+    # the chunks the CUDA build's regimes are hardest on: most rows claim
+    # one slot in round 0, or every key walks one probe chain
+    (2, 512, "one_key_most_rows", 0.1, jht.MAX_PROBES),
+    (2, 128, "one_home_slot", 0.0, jht.MAX_PROBES),
 ]
+
+
+def _build_words(rng, c, t, distinct):
+    """(C, T) u64 build keys: drawn from ``distinct`` random keys, or a
+    hard chunk — "one_key_most_rows" (80 % of the rows one key, the rest
+    from T random keys) or "one_home_slot" (C * T distinct keys that all
+    hash to slot 0 of the 2T-slot table)."""
+    if distinct == "one_key_most_rows":
+        words = _keys(rng, c, t, t)
+        words[rng.random((c, t)) < 0.8] = words[0, 0]
+        return words
+    if distinct == "one_home_slot":
+        lo, hi = chip_smoke.one_home_keys(rng, c * t, 2 * t)
+        word = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        return word.reshape(c, t)
+    return _keys(rng, c, t, distinct)
 
 
 @pytest.mark.parametrize("c,t,distinct,nulls,probes", BUILD_CASES)
 def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
-    rng = np.random.default_rng(c * 7919 + t + distinct)
-    lo, hi = _halves(_keys(rng, c, t, distinct))
+    seed = c * 7919 + t + (distinct if isinstance(distinct, int) else 0)
+    rng = np.random.default_rng(seed)
+    words = _build_words(rng, c, t, distinct)
+    lo, hi = _halves(words)
     valid = (rng.random((c, t)) >= nulls).astype(np.int32)
     s = 2 * t
     want = jht.build_table(jnp.asarray(lo), jnp.asarray(hi),
@@ -96,15 +118,27 @@ def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
     np.testing.assert_array_equal(trow.numpy(), np.asarray(want[3]))
     assert int(ovf) == int(want[4])
     assert int(dup) == int(want[5])
-    if probes < jht.MAX_PROBES:
+    if distinct == "one_home_slot":
+        # one key placed a round, the rest overflow at the bound
+        homes = ht.hash_word(_t32(lo).to(torch.int64) & 0xFFFFFFFF,
+                             _t32(hi).to(torch.int64) & 0xFFFFFFFF) & (s - 1)
+        assert not homes.any()
+        assert int(ovf) == c * (t - probes)
+    elif probes < jht.MAX_PROBES:
         assert int(ovf) > 0, "the small probe bound must overflow"
     else:
         assert int(ovf) == 0
-    if distinct < c * t:
+    if distinct == "one_key_most_rows" or (
+            isinstance(distinct, int) and distinct < c * t):
         assert int(dup) > 0, "repeated keys must count as dup"
 
-    # probe: half of the queries are build keys, half new ones
-    qlo, qhi = _halves(_keys(rng, c, t, distinct * 2))
+    # probe: build keys in a new order mixed with new keys
+    if isinstance(distinct, int):
+        qwords = _keys(rng, c, t, distinct * 2)
+    else:
+        qwords = np.where(rng.random((c, t)) < 0.5,
+                          words[:, rng.permutation(t)], _keys(rng, c, t, t))
+    qlo, qhi = _halves(qwords)
     qvalid = (rng.random((c, t)) >= nulls).astype(np.int32)
     pwant = jht.probe_table(
         jnp.asarray(qlo), jnp.asarray(qhi), jnp.asarray(qvalid),
