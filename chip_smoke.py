@@ -111,6 +111,42 @@ SORT_PLAN = [FROM_FACT_ROWS, {"op": "sort_by", "keys": [{"column": 0}]},
 # DECIMAL32(-3), DECIMAL64(-8)
 ROWCONV_TYPES = [4, 10, 3, 11, 9, 1, 25, 26]
 ROWCONV_SCALES = [0, 0, 0, 0, 0, 0, -3, -8]
+# Schemas of the transpose checks (K1a/K1b against their plain versions),
+# as (type id, scale) lists: the fact batch and RowConversionTest; a
+# DECIMAL128 column (two 8-byte halves) between narrow ones; INT8, BOOL8
+# and INT16 columns at odd offsets; 9 and 17 columns (2 and 3 validity
+# bytes); and 128 columns, the kernels' limit
+_CYCLE = [(1, 0), (2, 0), (3, 0), (4, 0), (11, 0), (9, 0), (10, 0),
+          (27, -2)]
+TRANSPOSE_SCHEMAS = {
+    "fact": [(t, 0) for t in FACT_TYPES],
+    "rowconv": list(zip(ROWCONV_TYPES, ROWCONV_SCALES)),
+    "decimal128": [(3, 0), (27, -4), (1, 0), (27, 0), (11, 0)],
+    "narrow_odd": [(1, 0), (11, 0), (2, 0), (1, 0), (11, 0), (3, 0), (1, 0),
+                   (4, 0), (11, 0)],
+    "cols9": [(4, 0), (1, 0), (3, 0), (11, 0), (2, 0), (10, 0), (1, 0),
+              (9, 0), (25, -2)],
+    "cols17": [_CYCLE[i % 7] for i in range(17)],
+    "cols128": [_CYCLE[(i * 3) % 8] for i in range(128)],
+}
+# row counts of the transpose checks: either side of 32 and of 256 rows
+# (the kernels' tiles are multiples of 32 rows), and the bucket edges
+TRANSPOSE_ROWS = (1, 31, 32, 33, 255, 257, 1023, 1024, 1025)
+# on the card also a size the kernels cut into 512-row tiles (they shrink
+# tiles to spread fewer rows over the SMs), the last one ragged
+CARD_TRANSPOSE_ROWS = TRANSPOSE_ROWS + (2 * 132 * 512 + 1,)
+# The smallest FLOAT64 input on which a torch.cumsum sum differed from the
+# JAX package's (one group of 18 values), and the JAX package's sum bits
+F1_ROWS = [
+    59.63198219465419, 45.74272252693389, 56.12098844525571,
+    34.20261247180689, 35.982419628235824, 50.43377073016518,
+    46.69028133288621, 63.24105197899112, 47.04639965020695,
+    32.05416904543981, 50.4039802369896, 46.83751887868299,
+    51.69847399455005, 38.121552257154136, 42.02478881412041,
+    50.43059145863465, 57.234759796412106, 53.94155534565769,
+]
+F1_SUM_BITS = 0x408AEEB78A0DF287
+FLOAT_GROUPBY_ROWS = 1025
 # (f): the JAX package's groupby16m_packed_pallas32 shape; the key's
 # value count is also the output capacity (num_segments)
 GROUPBY_ROWS = 16_000_000
@@ -331,6 +367,15 @@ def make_rowconv_wire(rng, n: int):
             [c.tobytes() for c in cols], valids, n)
 
 
+def transpose_inputs(rng, widths, n: int):
+    """Column byte matrices of ``widths`` and an (n, cols) 0/1 validity
+    matrix with nulls everywhere and in the last rows, in numpy."""
+    cols = [rng.integers(0, 256, (n, w), dtype=np.uint8) for w in widths]
+    valid = (rng.random((n, len(widths))) > 0.3).astype(np.uint8)
+    valid[-3:] = 0
+    return cols, valid
+
+
 def sort_key_classes(rng, c: int, t: int) -> dict:
     """Hard inputs of the u64 sorts K3 and K4a: (c, t) uint64 keys by class
     name. Each class varies in a known set of bytes (the radix sort's
@@ -496,18 +541,36 @@ def transpose_bytes(layout, n: int) -> int:
                 + layout.row_size)
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean CUDA-event time a call of ``fn`` over ``reps`` calls queued back
+    to back, after one warm-up call: once the host runs ahead of the
+    device, the device's time a call, without the host's share that the
+    per-call ``cuda_ms`` includes and that varies between calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
                   plain_fn, nbytes: int, nops: int, reps: int = 20,
                   library_fn=None, note: str = "") -> dict:
     """Compare a kernel with its plain version on the same inputs, time
     both (and ``library_fn``, one PyTorch call computing the same
     function, where there is one), and return its record for the kernels
-    line."""
+    line: ``ms`` a call, ``queued_ms`` a call queued back to back."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     ms = cuda_ms(kernel_fn, reps)
+    times = {"queued_ms": queued_ms(kernel_fn, reps)}
     plain_ms = cuda_ms(plain_fn, 3)
     library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -522,7 +585,9 @@ def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
     }
     if note:
         rec["note"] = note
+    rec.update(times)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    lib += "".join(f", {k} {v:.4f}" for k, v in times.items())
     log(f"(c) {rec['name']} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms{lib}"
         + (f" ({note})" if note else ""))
@@ -643,13 +708,16 @@ def phase_rowconv(rb, kernels, wire) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         rb.table_free(out)
-    rb.table_free(tid)
+    median = statistics.median(times)
     log(f"(b) row conversion: {wire[4]} rows round-trip exact; plan median "
-        f"{statistics.median(times):.2f} ms; launches {launches}")
+        f"{median:.2f} ms (all: {[round(t, 2) for t in times]}); launches "
+        f"{launches}")
+    profile = profile_plan(plan_runner(rb, plan, [tid]), median, "(b)")
+    rb.table_free(tid)
     for k in ("pack_rows", "unpack_rows"):
         if launches[k] == 0:
             raise AssertionError(f"row conversion never launched {k}")
-    return {"launches": launches, "plan_ms": statistics.median(times)}
+    return {"launches": launches, "plan_ms": median, "profile": profile}
 
 
 def phase_rows_plan(rb, kernels, tag: str, plan_ops, wire, want: np.ndarray,
@@ -799,37 +867,48 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     la, lb = qa["launches"], qb["launches"]
     recs = []
 
-    def pack_record(tag, layout, n, launches):
+    def pack_record(tag, layout, n, launches, note=""):
+        """K1a as ``rows._pack`` calls it: a validity vector a column."""
         col_bytes = [torch.randint(0, 256, (n, w), dtype=torch.uint8,
                                    device=dev, generator=gen)
                      for w in layout.column_widths]
-        valid = torch.randint(0, 2, (n, len(col_bytes)), dtype=torch.uint8,
-                              device=dev, generator=gen)
+        vecs = [torch.randint(0, 2, (n,), dtype=torch.uint8, device=dev,
+                              generator=gen) != 0 for _ in col_bytes]
         return kernel_record(
-            rt.PACK, tag, f"{n}x{layout.row_size}B", launches["pack_rows"],
-            lambda: [rt.pack_rows(col_bytes, valid, layout)],
-            lambda: [rt.pack_rows_plain(col_bytes, valid, layout)],
-            transpose_bytes(layout, n), n * layout.row_size)
+            rt.PACK, tag, f"{n}x{layout.row_size}B", launches,
+            lambda: [rt.pack_rows_columns(col_bytes, vecs, layout)],
+            lambda: [rt.pack_rows_columns_plain(col_bytes, vecs, layout)],
+            transpose_bytes(layout, n), n * layout.row_size, note=note)
 
-    def unpack_record(tag, layout, src, launches):
-        def run(fn):
-            cols, valid = fn(src, layout)
-            return [*cols, valid]
+    def unpack_record(tag, layout, src, launches, note=""):
+        """K1b as ``rows.from_rows`` calls it: a validity vector a column
+        and null counts."""
+        def columns(fn):
+            cols, vecs, nulls = fn(src, layout)
+            return [*cols, *vecs, nulls]
 
-        n = src.shape[0]
         return kernel_record(
-            rt.UNPACK, tag, f"{n}x{layout.row_size}B", launches["unpack_rows"],
-            lambda: run(rt.unpack_rows), lambda: run(rt.unpack_rows_plain),
-            transpose_bytes(layout, n), n * layout.row_size)
+            rt.UNPACK, tag, f"{src.shape[0]}x{layout.row_size}B", launches,
+            lambda: columns(rt.unpack_rows_columns),
+            lambda: columns(rt.unpack_rows_columns_plain),
+            transpose_bytes(layout, src.shape[0]),
+            src.shape[0] * layout.row_size, note=note)
 
     # K1b at the query's input batch, K1a at its ~1000-row output
     fact_layout = rows.compute_fixed_width_layout(
         [dt.DType(dt.TypeId(t)) for t in FACT_TYPES])
-    recs.append(unpack_record("query", fact_layout,
-                              torch.from_numpy(d["rows"]).to(dev), la))
+    recs.append(unpack_record(
+        "query", fact_layout, torch.from_numpy(d["rows"]).to(dev),
+        la["unpack_rows"],
+        note="(d) and (e) each launch it once more at this shape"))
     out_layout = rows.compute_fixed_width_layout(
         [dt.INT32, dt.INT64, dt.INT64, dt.INT32, dt.INT32])
-    recs.append(pack_record("query", out_layout, qa["groups"], la))
+    recs.append(pack_record("query", out_layout, qa["groups"],
+                            la["pack_rows"]))
+    recs.append(pack_record(
+        "exchange", fact_layout, FACT_ROWS, qd["launches"]["pack_rows"],
+        note=f"the launch count is (d)'s, (e) launches it "
+             f"{qe['launches']['pack_rows']} time(s) at this shape too"))
 
     # K2a + K2b: the join's build over item keys, its probe with the
     # filtered fact keys, and the groupby's chunked build over brands
@@ -873,7 +952,8 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
     # K1a + K1b at the row-conversion shape
     rc_layout = rows.compute_fixed_width_layout(
         [dt.DType(dt.TypeId(ti), s) for ti, s in zip(ROWCONV_TYPES, ROWCONV_SCALES)])
-    recs.append(pack_record("rowconv", rc_layout, ROWCONV_ROWS, lb))
+    recs.append(pack_record("rowconv", rc_layout, ROWCONV_ROWS,
+                            lb["pack_rows"]))
     src = rt.pack_rows(
         [torch.randint(0, 256, (ROWCONV_ROWS, w), dtype=torch.uint8,
                        device=dev, generator=gen)
@@ -881,7 +961,7 @@ def phase_kernels(d: dict, qa: dict, qb: dict, qd: dict, qe: dict,
         torch.randint(0, 2, (ROWCONV_ROWS, len(ROWCONV_TYPES)),
                       dtype=torch.uint8, device=dev, generator=gen),
         rc_layout)
-    recs.append(unpack_record("rowconv", rc_layout, src, lb))
+    recs.append(unpack_record("rowconv", rc_layout, src, lb["unpack_rows"]))
 
     # K5 at the exchange's keys: item_sk, and customer_sk with its nulls.
     # Bytes: the keys, one validity byte, 4 B of output a row. Operations:
@@ -1159,6 +1239,157 @@ def phase_u32_rows(seed: int) -> list:
     return out
 
 
+def phase_transpose_cases(seed: int) -> list:
+    """K1a and K1b against their plain versions, exactly, on every schema
+    of TRANSPOSE_SCHEMAS at every row count of CARD_TRANSPOSE_ROWS: on fresh
+    tensors, and on views that start one element into their buffers (no
+    slice on 16 bytes: the kernels' guarded path), through the JAX-contract
+    entries and the per-column ones; then ``rows.to_rows``
+    of a table in batches of 96 rows (the start-offset slices
+    ``rows._pack`` makes) against the same call on the CPU. Returns one
+    summary a schema."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch import rows
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
+
+    rng = np.random.default_rng(seed + 7)
+
+    def shifted(t):
+        """A copy of ``t`` that starts one row into a bigger buffer."""
+        per = t[0].numel() if t.dim() > 1 else 1
+        buf = torch.zeros(t.numel() + per, dtype=t.dtype, device=t.device)
+        buf[per:] = t.reshape(-1)
+        return buf[per:].view(t.shape)
+
+    out = []
+    for name, schema in TRANSPOSE_SCHEMAS.items():
+        dtypes = [dt.DType(dt.TypeId(t), sc) for t, sc in schema]
+        layout = rows.compute_fixed_width_layout(dtypes)
+        errs = []
+        for n in CARD_TRANSPOSE_ROWS:
+            cols_np, valid_np = transpose_inputs(rng, layout.column_widths, n)
+            cols = [torch.from_numpy(c).to(DEVICE) for c in cols_np]
+            valid = torch.from_numpy(valid_np).to(DEVICE)
+            want = rt.pack_rows_plain(cols, valid, layout)
+            wcols, wvalid = rt.unpack_rows_plain(want, layout)
+            for view in (lambda t: t, shifted):
+                got = rt.pack_rows([view(c) for c in cols], view(valid), layout)
+                gcols, gvalid = rt.unpack_rows(view(want), layout)
+                torch.cuda.synchronize()
+                errs.append(max(max_abs_err([got], [want]),
+                                max_abs_err([*gcols, gvalid],
+                                            [*wcols, wvalid])))
+            # one validity vector a column, every third without one
+            vecs = [None if i % 3 == 1 else valid[:, i] != 0
+                    for i in range(valid.shape[1])]
+            want_c = rt.pack_rows_columns_plain(cols, vecs, layout)
+            got_c = rt.pack_rows_columns(cols, vecs, layout)
+            unpacked = [[*a, *b, c] for a, b, c in (
+                rt.unpack_rows_columns(want_c, layout),
+                rt.unpack_rows_columns_plain(want_c, layout))]
+            torch.cuda.synchronize()
+            errs.append(max(max_abs_err([got_c], [want_c]),
+                            max_abs_err(*unpacked)))
+        # rows._pack's batches start at multiples of 96 rows: a table made
+        # on the CPU by the plain unpack, and its copy on the card
+        n = TRANSPOSE_ROWS[-1]
+        cols_np, valid_np = transpose_inputs(rng, layout.column_widths, n)
+        host = rows.from_rows(rows.PackedRows(rt.pack_rows_plain(
+            [torch.from_numpy(c) for c in cols_np],
+            torch.from_numpy(valid_np), layout), layout), dtypes)
+        card = Table([Column(c.data.to(DEVICE), c.dtype,
+                             None if c.validity is None
+                             else c.validity.to(DEVICE))
+                      for c in host.columns])
+        want_b = rows.to_rows(host, batch_rows=96)
+        got_b = rows.to_rows(card, batch_rows=96)
+        torch.cuda.synchronize()
+        batch_err = max(max_abs_err([g.data.cpu()], [w.data])
+                        for g, w in zip(got_b, want_b))
+        back = table_bytes(rows.from_rows(got_b, dtypes))
+        errs.extend([batch_err, int(back != table_bytes(host))])
+        log(f"(c) transpose schema {name}: {len(schema)} columns, "
+            f"{layout.row_size} B rows; "
+            f"rows {list(CARD_TRANSPOSE_ROWS)} fresh and shifted, and "
+            f"{len(got_b)} batches of 96: max_abs_err {max(errs)}")
+        out.append({"schema": name, "columns": len(schema),
+                    "row_size": layout.row_size,
+                    "max_abs_err": max(errs)})
+        if max(errs):
+            raise AssertionError(f"transpose schema {name}: K1a or K1b "
+                                 "differs from the plain version")
+    return out
+
+
+def table_bytes(t) -> list:
+    """Every buffer of every column of a port table, as host bytes (None
+    where a column has no validity)."""
+    from spark_rapids_jni_tpu_torch import interop
+
+    return [tuple(None if b is None else b.tobytes() for b in c[:3]) + c[3:]
+            for c in interop.table_to_buffers(t)]
+
+
+def float_groupby_inputs(seed: int):
+    """(keys, values) of the card's float groupby check: 8 keys over
+    normal(50, 10) FLOAT64 values at FLOAT_GROUPBY_ROWS rows, a run of
+    -0.0 among them and key 7 holding only -0.0."""
+    rng = np.random.default_rng(seed + 8)
+    n = FLOAT_GROUPBY_ROWS
+    keys = rng.integers(0, 7, n).astype(np.int64)
+    vals = rng.normal(50, 10, n)
+    vals[100:300] = -0.0
+    keys[500:520] = 7
+    vals[500:520] = -0.0
+    return keys, vals
+
+
+def phase_float_groupby(seed: int) -> dict:
+    """FLOAT64 SUM/MIN/MAX groupbys on the card must give the port's CPU
+    bytes (the float cumsum adds in XLA's CPU order, IEEE adds are
+    deterministic, and -0.0 extremes come out +0.0 as in the JAX
+    package): through the ops and through the wire ``groupby``, on
+    ``float_groupby_inputs``; and F1_ROWS must sum to F1_SUM_BITS."""
+    from spark_rapids_jni_tpu_torch import interop, ops
+    from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+
+    keys, vals = float_groupby_inputs(seed)
+    aggs = ["sum", "min", "max"]
+    plan = json.dumps([{"op": "groupby", "by": [0],
+                        "aggs": [{"column": 1, "agg": a} for a in aggs]}])
+
+    def run(k, v, device):
+        bufs = [(k, None, None, 4, 0), (v.view(np.int64), None, None, 10, 0)]
+        t = interop.table_from_buffers(bufs, None, device=device)
+        by_ops = table_bytes(ops.groupby_aggregate(
+            t, [0], [ops.GroupbyAgg(1, a) for a in aggs]))
+        tid = rb.table_upload_wire([4, 10], [0, 0], [k.tobytes(),
+                                                     v.tobytes()],
+                                   [None, None], k.shape[0], device=device)
+        res = rb.table_plan_resident(plan, [tid])
+        wire = rb.table_download_wire(res)
+        rb.table_free(res)
+        rb.table_free(tid)
+        return by_ops, wire
+
+    card = run(keys, vals, DEVICE)
+    host = run(keys, vals, "cpu")
+    f1 = np.array(F1_ROWS)
+    f1_card = run(np.zeros(18, np.int64), f1, DEVICE)[0][1][0]
+    f1_bits = int(np.frombuffer(f1_card, np.uint64)[0])
+    neg = sum(int((np.frombuffer(c[0], np.uint64) == 1 << 63).sum())
+              for c in card[0][1:])
+    log(f"(c) float groupby: {keys.shape[0]} rows, sum/min/max bytes on the "
+        f"card {'equal' if card == host else 'DIFFER FROM'} the CPU's (ops "
+        f"and wire); -0.0 results {neg}; F1 sum bits {f1_bits:#x} "
+        f"(expected {F1_SUM_BITS:#x})")
+    if card != host or f1_bits != F1_SUM_BITS:
+        raise AssertionError("float groupby on the card differs from the CPU")
+    return {"rows": int(keys.shape[0]), "equal": True,
+            "f1_sum_bits": f"{f1_bits:#x}"}
+
+
 def ptxas_lines(text: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
     name, registers, static shared memory and spills."""
@@ -1251,7 +1482,9 @@ def main(argv=None) -> int:
             failed.append("kernels")
     else:
         failed.append("kernels (skipped: an earlier phase failed)")
-    checks = {"key_classes": lambda: phase_key_classes(args.seed),
+    checks = {"transpose_cases": lambda: phase_transpose_cases(args.seed),
+              "float_groupby": lambda: phase_float_groupby(args.seed),
+              "key_classes": lambda: phase_key_classes(args.seed),
               "u32_rows": lambda: phase_u32_rows(args.seed),
               "build_cases": lambda: phase_build_cases(d, args.seed)}
     hard = {}
@@ -1273,6 +1506,7 @@ def main(argv=None) -> int:
         "kernels": recs, "query_plan_ms": res["query"]["plan_ms"],
         "query_profile": res["query"]["profile"],
         "rowconv_plan_ms": res["rowconv"]["plan_ms"],
+        "rowconv_profile": res["rowconv"]["profile"],
         "exchange_plan_ms": res["exchange"]["plan_ms"],
         "exchange_profile": res["exchange"]["profile"],
         "sort_plan_ms": res["sort"]["plan_ms"],

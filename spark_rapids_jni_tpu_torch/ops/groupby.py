@@ -9,7 +9,10 @@ scale for decimals); ``min``/``max`` keep the input type; a group with no
 valid value is null.
 
 Sums are cumsum differences over the sorted rows, as in the JAX package:
-exact for integers even when the running sum wraps.
+exact for integers even when the running sum wraps. A floating cumsum adds
+in the order of XLA's CPU scan (:func:`_scan_sum16`), and a floating
+min/max maps -0.0 to +0.0 as the JAX package's associative scan does, so
+float results are the JAX package's bytes on the CPU and on the card.
 
 Only sum/count/min/max are ported in this slice; the other aggregations
 of the JAX module raise :class:`NotImplementedError`. The sorted-segment
@@ -77,13 +80,52 @@ def _segment_ids(key_cols: Sequence[Column]):
     return perm, seg, starts, ends
 
 
-def _segment_sum(vals: torch.Tensor, starts, ends) -> torch.Tensor:
+_SCAN_BASE = 16
+
+
+def _scan_sum16(v: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """Inclusive cumsum of a 1-D floating vector in the order of XLA's CPU
+    scan, which is what ``jnp.cumsum`` runs on the JAX package's CPU path:
+    blocks of 16 each summed left to right from +0.0, the block totals
+    scanned the same way (recursively), and the scanned total of the
+    blocks before added to every element of a block. IEEE adds are
+    deterministic, so the bytes are the same on the CPU and on the card.
+    Starting from +0.0 maps every -0.0 to +0.0, as XLA does for n >= 2; a
+    single element is returned as it is unless ``rows`` (the length the
+    JAX package scans, by default ``v``'s) is 2 or more."""
+    n = v.shape[0]
+    if (n if rows is None else rows) < 2:
+        return v.clone()
+    m = -(-n // _SCAN_BASE)
+    x = v.new_zeros(m * _SCAN_BASE)
+    x[:n] = v
+    x = x.view(m, _SCAN_BASE)
+    acc = x[:, 0] + 0.0
+    inner = [acc]
+    for j in range(1, _SCAN_BASE):
+        acc = acc + x[:, j]
+        inner.append(acc)
+    out = torch.stack(inner, 1)
+    if m > 1:
+        before = _scan_sum16(out[:, -1].contiguous())[:-1]
+        out = out + torch.cat([before.new_zeros(1), before])[:, None]
+    else:
+        out = out + 0.0
+    return out.reshape(-1)[:n]
+
+
+def _segment_sum(vals: torch.Tensor, starts, ends,
+                 rows: Optional[int] = None) -> torch.Tensor:
     """Per-segment sums of row-sorted ``vals`` as cumsum differences
-    (exact for integers even when the running sum wraps; float sums add
-    in another order than XLA's scan). An empty segment reads garbage (at
+    (exact for integers even when the running sum wraps; floats scan in
+    XLA's order over ``rows``, :func:`_scan_sum16`). An empty segment
+    reads garbage (at
     the front, ``c[-1]``): the packed groupby, whose partial slots can be
     empty, masks those; the exact path has none."""
-    c = torch.cumsum(vals, 0)
+    if vals.is_floating_point():
+        c = _scan_sum16(vals, rows)
+    else:
+        c = torch.cumsum(vals, 0)
     hi = c[ends - 1]
     lo = torch.where(starts > 0, c[(starts - 1).clamp(min=0)],
                      torch.zeros((), dtype=c.dtype, device=c.device))
@@ -110,7 +152,8 @@ def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
     ``scatter_reduce`` over the segment ids gives the same value for every
     non-empty segment (empty ones hold 0; segment ids past the end land in
     one dropped slot). Unsigned and bool values reduce as int64 carriers
-    in their order, floats as they are (NaN propagates, as jnp.minimum)."""
+    in their order, floats as they are (NaN propagates, as jnp.minimum;
+    -0.0 becomes +0.0, :func:`_zero_sign`)."""
     num_segments = ends.shape[0]
     dtype = masked_vals.dtype
     if dtype == torch.uint64:
@@ -126,7 +169,17 @@ def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
                              include_self=False)[:num_segments]
     if dtype == torch.uint64:
         return (out ^ keys_mod.SIGN64).view(torch.uint64)
-    return out.to(dtype)
+    return _zero_sign(out.to(dtype), masked_vals.shape[0])
+
+
+def _zero_sign(extremes: torch.Tensor, n: int) -> torch.Tensor:
+    """Floating extremes of a scan over ``n`` rows as the JAX package
+    gives them: its associative scan interleaves zero-padded halves with
+    an add, so for n >= 2 every -0.0 comes out +0.0. Adding +0.0 does the
+    same and leaves every other value, NaN included, as it is."""
+    if extremes.is_floating_point() and n >= 2:
+        return extremes + 0.0
+    return extremes
 
 
 def _sum_dtype(d: dt.DType) -> dt.DType:
@@ -137,7 +190,10 @@ def _sum_dtype(d: dt.DType) -> dt.DType:
     return dt.INT64
 
 
-def _aggregate(col: Column, op: str, perm, seg, starts, ends) -> Column:
+def _aggregate(col: Column, op: str, perm, seg, starts, ends,
+               rows: int) -> Column:
+    """One aggregation over the sorted segments; ``rows`` is the length the
+    JAX package scans (see :func:`groupby_aggregate`'s ``padded``)."""
     if col.dtype.id == dt.TypeId.DECIMAL128:
         raise NotImplementedError(
             "DECIMAL128 aggregation is not ported yet (ops/int128 slice)"
@@ -152,7 +208,7 @@ def _aggregate(col: Column, op: str, perm, seg, starts, ends) -> Column:
         acc = torch.float64 if col.dtype.is_floating else torch.int64
         v = vals.to(acc)
         total = _segment_sum(torch.where(valid, v, torch.zeros_like(v)),
-                             starts, ends)
+                             starts, ends, rows)
         return compute.from_values(total, _sum_dtype(col.dtype), has)
     # min / max: masked sentinels, then one segment reduction
     is_min = op == "min"
@@ -170,7 +226,7 @@ def _aggregate(col: Column, op: str, perm, seg, starts, ends) -> Column:
                              include_self=False)
     if col.dtype.is_boolean:
         out = out.to(torch.bool)
-    return compute.from_values(out, col.dtype, has)
+    return compute.from_values(_zero_sign(out, rows), col.dtype, has)
 
 
 def _out_name(table: Table, c, fallback: str) -> str:
@@ -183,8 +239,14 @@ def groupby_aggregate(
     table: Table,
     by: Sequence[Union[int, str]],
     aggs: Sequence[GroupbyAgg],
+    padded: bool = False,
 ) -> Table:
-    """Groupby with an exact output size (one host sync for the count)."""
+    """Groupby with an exact output size (one host sync for the count).
+
+    ``padded=True`` reduces as the JAX package's wire entries do: they pad
+    a table to its shape bucket (never fewer than 2 rows) before the
+    groupby, so a 1-row table's -0.0 float sum, min or max comes out +0.0
+    there. Every other result is the same either way."""
     for a in aggs:
         if a.op not in PORTED_AGGS:
             raise NotImplementedError(
@@ -210,7 +272,9 @@ def groupby_aggregate(
         ))
     for a in aggs:
         out_cols.append(_aggregate(table.column(a.column), a.op, perm,
-                                   seg, starts, ends))
+                                   seg, starts, ends,
+                                   max(table.row_count, 2) if padded
+                                   else table.row_count))
     return Table(out_cols, out_names)
 
 

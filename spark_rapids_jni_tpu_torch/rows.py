@@ -87,31 +87,26 @@ class PackedRows:
 
 def column_bytes(col: Column) -> torch.Tensor:
     """(n, width) uint8 little-endian view of a fixed-width column (no
-    copy for contiguous data; BOOL8 is its 0/1 byte)."""
-    n = col.row_count
-    return col.data.contiguous().view(torch.uint8).view(n, col.dtype.itemsize)
-
-
-def _validity_matrix(columns: Sequence[Column]) -> torch.Tensor:
-    n = columns[0].row_count
-    dev = columns[0].data.device
-    return torch.stack(
-        [c.validity if c.validity is not None
-         else torch.ones(n, dtype=torch.bool, device=dev)
-         for c in columns],
-        dim=1,
-    ).to(torch.uint8)
+    copy for contiguous data; BOOL8 is its 0/1 byte). A 0-row column
+    gets a fresh (0, width) tensor: its storage may carry a stride of 0,
+    which no dtype view takes."""
+    n, w = col.row_count, col.dtype.itemsize
+    if n == 0:
+        return torch.empty((0, w), dtype=torch.uint8, device=col.data.device)
+    return col.data.contiguous().view(torch.uint8).view(n, w)
 
 
 def _pack(table: Table, layout: RowLayout, start: int, stop: int) -> PackedRows:
-    """Rows ``start:stop`` of ``table`` packed by one kernel call."""
+    """Rows ``start:stop`` of ``table`` packed by one kernel call, which
+    reads each column's validity vector where it lies."""
     cols = [
         Column(c.data[start:stop], c.dtype,
                None if c.validity is None else c.validity[start:stop])
         for c in table.columns
     ]
-    return PackedRows(rt.pack_rows([column_bytes(c) for c in cols],
-                                   _validity_matrix(cols), layout), layout)
+    return PackedRows(rt.pack_rows_columns(
+        [column_bytes(c) for c in cols], [c.validity for c in cols], layout),
+        layout)
 
 
 def to_rows(table: Table, batch_rows: Optional[int] = None) -> list:
@@ -162,18 +157,22 @@ def from_rows(
                 f"({want.row_size} != {layout.row_size})"
             )
         layout = want
-    parts = [rt.unpack_rows(p.data, layout) for p in packed]
-    valid = torch.cat([p[1] for p in parts]) if len(parts) > 1 else parts[0][1]
-    valid = valid != 0
-    all_valid = valid.all(dim=0).cpu().tolist()  # one host sync
-    # one transpose gives every nullable column a contiguous validity
-    valid_t = None if all(all_valid) else valid.t().contiguous()
-    columns = []
-    for i, d in enumerate(layout.dtypes):
-        raw = [p[0][i] for p in parts]
-        raw = torch.cat(raw) if len(raw) > 1 else raw[0]
-        columns.append(Column(column_bytes_to_storage(raw, d), d,
-                              None if all_valid[i] else valid_t[i]))
+    # each batch's kernel writes every column's validity vector and adds
+    # up its nulls
+    parts = [rt.unpack_rows_columns(p.data, layout) for p in packed]
+    nulls = (parts[0][2] if len(parts) == 1
+             else torch.stack([p[2] for p in parts]).sum(0))
+    has_nulls = [k != 0 for k in nulls.tolist()]  # one host sync
+
+    def joined(k: int, i: int) -> torch.Tensor:
+        pieces = [p[k][i] for p in parts]
+        return torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+
+    columns = [
+        Column(column_bytes_to_storage(joined(0, i), d), d,
+               joined(1, i) if has_nulls[i] else None)
+        for i, d in enumerate(layout.dtypes)
+    ]
     return Table(columns, names)
 
 

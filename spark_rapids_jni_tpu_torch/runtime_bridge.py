@@ -35,6 +35,17 @@ class UnsupportedOpError(NotImplementedError):
     """A dispatch op of the JAX package that the port does not run yet."""
 
 
+class PlanCheckError(ValueError):
+    """A plan that cannot run, found before any input is touched (the JAX
+    package's ``plancheck.PlanCheckError``, with its message shape)."""
+
+    def __init__(self, index: int, op_name, reason: str):
+        self.index = index
+        self.op_name = op_name
+        self.reason = reason
+        super().__init__(f"plancheck: op[{index}] {op_name!r}: {reason}")
+
+
 def _wire_np(d: dt.DType) -> np.dtype:
     """Host wire numpy dtype of a fixed-width column."""
     if not d.is_fixed_width:
@@ -212,7 +223,8 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
         return ops.inner_join(table, rest[0], op["on"])
     if name == "groupby":
         aggs = [ops.GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
-        return ops.groupby_aggregate(table, op["by"], aggs)
+        # the JAX wire entries pad to a shape bucket: reduce as they do
+        return ops.groupby_aggregate(table, op["by"], aggs, padded=True)
     if name == "sort_by":
         keys = [ops.SortKey(k["column"], ascending=k.get("ascending", True))
                 for k in op["keys"]]
@@ -224,6 +236,78 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
     mask = table.columns[mask_idx]
     keep = [c for i, c in enumerate(table.columns) if i != mask_idx]
     return ops.filter_table(Table(keep), mask)
+
+
+def _int_refs(refs) -> list:
+    """The integer column indices among ``refs`` (names are resolved at
+    run time against the table's names)."""
+    return [r for r in refs if isinstance(r, int) and not isinstance(r, bool)]
+
+
+def check_plan(ops, width: int, rest_widths: Sequence[int]) -> None:
+    """Host-only check of a plan before it runs: every op is known and
+    ported, and every integer mask, column and key index is in range for
+    the column count that flows into its op (``width`` for the chain
+    input, ``rest_widths`` for the tables joins take). Raises
+    :class:`PlanCheckError` (or :class:`UnsupportedOpError` for a known op
+    that is not ported) so a caller can refuse the plan before it donates
+    an input. What the count cannot follow past an op (a name reference,
+    an explicit ``rest``) stops the index checks there; the run itself
+    still checks everything."""
+    queue = list(rest_widths)
+
+    def in_range(i, name, what, refs, w):
+        for r in _int_refs(refs):
+            if not 0 <= r < w:
+                raise PlanCheckError(
+                    i, name, f"{what} index {r} out of range for {w}-column "
+                    "input")
+
+    for i, op in enumerate(ops):
+        if not isinstance(op, dict) or "op" not in op:
+            raise PlanCheckError(i, None, "plan entries must be op objects, "
+                                 f"got {op!r}")
+        name = op["op"]
+        if name not in DISPATCH_OPS:
+            raise PlanCheckError(i, name, f"unknown table op {name!r}")
+        if name not in PORTED_OPS:
+            raise UnsupportedOpError(
+                f"table op {name!r} is not ported to the PyTorch package yet")
+        if width is None:
+            continue
+        if name == "filter":
+            in_range(i, name, "filter mask", [op.get("mask")], width)
+            width -= 1
+        elif name == "join":
+            if "rest" in op or not queue:
+                width = None
+                continue
+            right = queue.pop(0)
+            on = op.get("on", [])
+            on = on if isinstance(on, list) else [on]
+            in_range(i, name, "join 'on'", on, width)
+            in_range(i, name, "join 'on' (right table)", on, right)
+            keys = _int_refs(on)
+            width = (width + right - len(set(keys)) if len(keys) == len(on)
+                     else None)
+        elif name == "groupby":
+            by, aggs = op.get("by", []), op.get("aggs", [])
+            in_range(i, name, "groupby 'by' column", by, width)
+            in_range(i, name, "groupby agg column",
+                     [a.get("column") for a in aggs if isinstance(a, dict)],
+                     width)
+            width = len(by) + len(aggs)
+        elif name == "sort_by":
+            in_range(i, name, "sort_by key",
+                     [k.get("column") for k in op.get("keys", [])
+                      if isinstance(k, dict)], width)
+        elif name == "partition":
+            in_range(i, name, "partition key", op.get("keys", []), width)
+        elif name == "to_rows":
+            width = 1
+        elif name == "from_rows":
+            tids = op.get("type_ids")
+            width = len(tids) if isinstance(tids, list) else None
 
 
 def _partition(op: dict, table: Table) -> Table:
@@ -300,8 +384,10 @@ def table_plan_resident(
 ) -> int:
     """Run a plan (a JSON list of ops) over resident tables; the result
     stays resident. ``table_ids[0]`` is the chain input, the other ids
-    feed multi-table ops (see ``plan._take_rest``). ``donate=True``
-    frees ``table_ids[0]`` when the plan starts."""
+    feed multi-table ops (see ``plan._take_rest``). The plan is checked
+    first (:func:`check_plan`); ``donate=True`` then frees
+    ``table_ids[0]`` when the plan starts, so a rejected plan leaves it
+    live."""
     from . import plan as plan_mod
 
     if not table_ids:
@@ -310,6 +396,7 @@ def table_plan_resident(
     if not isinstance(ops, list):
         raise TypeError("table_plan_resident: plan must be a JSON list of ops")
     tables = [_resident_get(t) for t in table_ids]
+    check_plan(ops, tables[0].num_columns, [t.num_columns for t in tables[1:]])
     if donate:
         table_free(table_ids[0])
     return _resident_put(plan_mod.run_plan(ops, tables[0], tables[1:]))

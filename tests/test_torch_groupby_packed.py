@@ -12,9 +12,9 @@ Inputs are made with numpy from a seed and carried into the port over the
 same bytes. Rows at and beyond ``num_groups`` hold garbage in both
 packages, so only the first ``num_groups`` rows are compared, together
 with ``num_groups``, ``max_chunk`` and ``overflow``. Integer results,
-keys, counts, min, max, first and last compare exactly. A float sum (and
-a mean of float values) is a cumsum taken in another order than XLA's
-scan, so those compare at a relative tolerance of 1e-9.
+keys, counts, min, max, first and last compare exactly, and so do float
+sums and means: the port's float cumsum adds in the order of XLA's CPU
+scan, so they are the JAX package's bytes.
 
 Most cases share one shape (1025 rows, chunk_rows 256, chunk_segments
 256, num_segments 1024, an INT64 value column), so the JAX reference
@@ -204,28 +204,25 @@ def _aggs(ops, col="v"):
     return ([JAgg(col, op) for op in ops], [GroupbyAgg(col, op) for op in ops])
 
 
-def _same_rows(want: JTable, got, g: int, float_values=()):
-    """The first ``g`` rows of every column equal; sums and means of the
-    columns in ``float_values`` at rel 1e-9 (another order of additions)."""
+def _same_rows(want: JTable, got, g: int):
+    """The first ``g`` rows of every column equal byte for byte (float
+    sums and means too: the port's float cumsum adds in the order of XLA's
+    CPU scan)."""
     assert tuple(got.names) == tuple(want.names)
     for name, wc, gc in zip(want.names, want.columns, got.columns):
         assert gc.dtype.id == wc.dtype.id and gc.dtype.scale == wc.dtype.scale
         w = np.asarray(wc.data)[:g]
         x = interop.column_to_buffers(gc)[0][:g]
         assert x.dtype == w.dtype, name
-        op, _, src = name.partition("_")
-        if op in ("sum", "mean") and src in float_values:
-            np.testing.assert_allclose(x.view(np.float64), w.view(np.float64),
-                                       rtol=1e-9, err_msg=name)
-        else:
-            np.testing.assert_array_equal(x, w, err_msg=name)
+        np.testing.assert_array_equal(x, w, err_msg=name)
+        assert x.tobytes() == w.tobytes(), name
         assert (gc.validity is None) == (wc.validity is None), name
         if wc.validity is not None:
             np.testing.assert_array_equal(gc.validity.numpy()[:g],
                                           np.asarray(wc.validity)[:g])
 
 
-def _same_chunked(want, got, float_values=()):
+def _same_chunked(want, got):
     """The counts and flags equal; the rows too where the result is exact
     (no overflow: an overflowing key can share the sentinel's segment, so
     its rows mix with garbage partials)."""
@@ -233,7 +230,7 @@ def _same_chunked(want, got, float_values=()):
     assert (int(got[1]), int(got[2]), bool(got[3])) == (
         g, int(want[2]), bool(want[3]))
     if not bool(want[3]):
-        _same_rows(want[0], got[0], g, float_values)
+        _same_rows(want[0], got[0], g)
 
 
 SHARED = dict(num_segments=1024, chunk_rows=256, chunk_segments=256)
@@ -407,7 +404,7 @@ def test_packed_chunked_float_values_match_jax(engine):
     jt, pt = _tables({"k": (rng.integers(0, 50, n), jdt.INT64),
                       "f": (f, jdt.FLOAT64)})
     want, got = _run_chunked(jt, pt, ["k"], OPS7, engine, col="f", jit=True)
-    _same_chunked(want, got, float_values=("f",))
+    _same_chunked(want, got)
 
 
 def test_packed_chunked_rejects_an_unknown_engine():
@@ -470,7 +467,7 @@ def test_packed_router_matches_jax(name):
         return
     assert want is not None and got is not None
     assert got.row_count == want.row_count
-    _same_rows(want, got, want.row_count, float_values=("f",))
+    _same_rows(want, got, want.row_count)
 
 
 @pytest.mark.parametrize("values_via", ["sort", "gather"])

@@ -149,11 +149,20 @@ def _counts():
     return {k: v.launches for k, v in kernels.KERNELS.items()}
 
 
+def _transpose(layout, col_bytes, valid):
+    """One call of each entry of K1a and K1b: the JAX-contract matrix
+    form and the per-column form rows.py takes."""
+    packed = rt.pack_rows(col_bytes, valid, layout)
+    rt.unpack_rows(packed, layout)
+    rt.pack_rows_columns(
+        col_bytes, [valid[:, 0] != 0, None, valid[:, 2].contiguous()], layout)
+    rt.unpack_rows_columns(packed, layout)
+
+
 def test_cpu_tensors_take_the_plain_version_without_a_build():
     before = _counts()
     layout, col_bytes, valid, keys = _inputs("cpu")
-    packed = rt.pack_rows(col_bytes, valid, layout)
-    rt.unpack_rows(packed, layout)
+    _transpose(layout, col_bytes, valid)
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
     _hash_and_sort(keys)
@@ -168,6 +177,12 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         rt.unpack_rows(torch.zeros((4, layout.row_size), dtype=torch.uint8,
                                    device="meta"), layout)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rt.pack_rows_columns(col_bytes, [None] * 3, layout)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rt.unpack_rows_columns(torch.zeros((4, layout.row_size),
+                                           dtype=torch.uint8, device="meta"),
+                               layout)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -189,6 +204,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     for mod, name in ((rt, "pack_rows_plain"), (rt, "unpack_rows_plain"),
+                      (rt, "pack_rows_columns_plain"),
+                      (rt, "unpack_rows_columns_plain"),
                       (ht, "build_table_plain"), (ht, "probe_table_plain"),
                       (kh, "murmur3_plain"), (bs, "batched_sort_plain"),
                       (bs, "batched_sort_u64_plain"),
@@ -196,11 +213,12 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
         monkeypatch.setattr(mod, name, boom)
     before = _counts()
     layout, col_bytes, valid, keys = _inputs("cuda")
-    packed = rt.pack_rows(col_bytes, valid, layout)
-    rt.unpack_rows(packed, layout)
+    _transpose(layout, col_bytes, valid)
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
     _hash_and_sort(keys)
     torch.cuda.synchronize()
     after = _counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    # the transposes ran through both of their entries
+    calls = {rt.PACK.name: 2, rt.UNPACK.name: 2}
+    assert all(after[k] == before[k] + calls.get(k, 1) for k in after)

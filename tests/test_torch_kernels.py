@@ -153,30 +153,24 @@ def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
     assert int(unres) == int(pwant[2])
 
 
-# the slice's fact schema and the RowConversionTest schema (SURVEY.md §4)
-FACT = [jdt.INT64, jdt.INT64, jdt.INT64, jdt.INT32, jdt.BOOL8]
-ROWCONV = [jdt.INT64, jdt.FLOAT64, jdt.INT32, jdt.BOOL8, jdt.FLOAT32,
-           jdt.INT8, jdt.decimal32(-3), jdt.decimal64(-8)]
-
-
-def _port_dtype(d):
-    return dt.DType(dt.TypeId(int(d.id)), d.scale)
-
-
-@pytest.mark.parametrize("n", [1023, 1024, 1025])
-@pytest.mark.parametrize("schema", [FACT, ROWCONV], ids=["fact", "rowconv"])
+# chip_smoke.TRANSPOSE_SCHEMAS: the slice's fact schema, RowConversionTest
+# (SURVEY.md §4), a DECIMAL128 column, narrow columns at odd offsets, 9,
+# 17 and 128 columns; at chip_smoke.TRANSPOSE_ROWS, the tile edges of the
+# CUDA kernels and the bucket edges
+@pytest.mark.parametrize("n", chip_smoke.TRANSPOSE_ROWS)
+@pytest.mark.parametrize("schema", sorted(chip_smoke.TRANSPOSE_SCHEMAS))
 def test_pack_unpack_match_jax(schema, n):
     rng = np.random.default_rng(n)
-    jl = jrows.compute_fixed_width_layout(schema)
-    pl = rows.compute_fixed_width_layout([_port_dtype(d) for d in schema])
+    types = chip_smoke.TRANSPOSE_SCHEMAS[schema]
+    jl = jrows.compute_fixed_width_layout(
+        [jdt.DType(jdt.TypeId(t), s) for t, s in types])
+    pl = rows.compute_fixed_width_layout(
+        [dt.DType(dt.TypeId(t), s) for t, s in types])
     assert (pl.column_offsets, pl.column_widths, pl.validity_offset,
             pl.validity_bytes, pl.row_size) == (
         jl.column_offsets, jl.column_widths, jl.validity_offset,
         jl.validity_bytes, jl.row_size)
-    col_bytes = [rng.integers(0, 256, (n, w), dtype=np.uint8)
-                 for w in jl.column_widths]
-    valid = (rng.random((n, len(schema))) > 0.3).astype(np.uint8)
-    valid[-3:] = 0  # trailing nulls in every column
+    col_bytes, valid = chip_smoke.transpose_inputs(rng, jl.column_widths, n)
     want = np.array(jrt.pack_rows_pallas(
         tuple(jnp.asarray(b) for b in col_bytes), jnp.asarray(valid), jl,
         interpret=True,
@@ -192,6 +186,39 @@ def test_pack_unpack_match_jax(schema, n):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(gvalid.numpy(), np.asarray(wvalid))
     np.testing.assert_array_equal(gvalid.numpy(), valid)
+
+    # the per-column entries rows.py calls give the same bytes
+    vecs = [torch.from_numpy(valid[:, i] != 0) for i in range(valid.shape[1])]
+    got = rt.pack_rows_columns([torch.from_numpy(b) for b in col_bytes],
+                               vecs, pl)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ccols, cvalid, nulls = rt.unpack_rows_columns(torch.from_numpy(want), pl)
+    for g, w in zip(ccols, wcols):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for i, v in enumerate(cvalid):
+        assert v.dtype == torch.bool and v.is_contiguous()
+        np.testing.assert_array_equal(v.numpy(), valid[:, i] != 0)
+    np.testing.assert_array_equal(nulls.numpy(), (valid == 0).sum(0))
+
+
+@pytest.mark.parametrize("schema", ["decimal128", "narrow_odd", "cols17"])
+def test_pack_rows_columns_without_validity_is_all_valid(schema):
+    """A column without a validity vector packs as all valid."""
+    types = chip_smoke.TRANSPOSE_SCHEMAS[schema]
+    pl = rows.compute_fixed_width_layout(
+        [dt.DType(dt.TypeId(t), s) for t, s in types])
+    col_bytes, valid = chip_smoke.transpose_inputs(
+        np.random.default_rng(3), pl.column_widths, 257)
+    cols = [torch.from_numpy(b) for b in col_bytes]
+    vecs = [None if i % 2 else torch.from_numpy(valid[:, i] != 0)
+            for i in range(len(cols))]
+    ones = valid.copy()
+    ones[:, 1::2] = 1
+    want = rt.pack_rows(cols, torch.from_numpy(ones), pl)
+    assert torch.equal(rt.pack_rows_columns(cols, vecs, pl), want)
+    _, cvalid, nulls = rt.unpack_rows_columns(want, pl)
+    assert all(bool(v.all()) for v in cvalid[1::2])
+    assert nulls[1::2].eq(0).all() and nulls[0::2].gt(0).all()
 
 
 # ---------------------------------------------------------------------------
