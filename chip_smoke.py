@@ -48,9 +48,12 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     4096, 8192 and 2^17, keys only and with two payloads; K2a, run twice,
     on hard builds (one key, (a)'s Zipf brands, one home slot that
     overflows, max_probes 2, 20 % nulls, slot counts either side of the
-    shared-memory regime, 8192-row chunks, the join's 2^19 slots). The
-    registers, spills and shared memory that ``nvcc -Xptxas -v`` reported
-    for each kernel of the build are printed first.
+    shared-memory regime, 8192-row chunks, the join's 2^19 slots); K2b on
+    those tables (``phase_probe_cases``: the groupby's chunks, the
+    one-home-slot chain, max_probes 2, null, absent and unaligned
+    queries, more chunks than the grid's y limit). The registers, spills
+    and shared memory that ``nvcc -Xptxas -v`` reported for each kernel
+    of the build are printed first.
 
 Every phase sets the kernels' launch counts to 0 just before its first
 run (in (f): before the first run of each engine) and reads them just
@@ -558,19 +561,53 @@ def queued_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def ahead_ms(fn, reps: int = 20):
+    """(device, host) ms a call of ``fn`` over ``reps`` calls enqueued
+    while the stream waits behind a sleep kernel: CUDA events around the
+    calls, which run back to back once the sleep ends, give the device's
+    own time a call whatever the wrapper's host work (``queued_ms`` reads
+    the host's pace where that work is the longer); the host clock around
+    the enqueue gives the host's time a call. The sleep grows until it
+    outlasts the enqueue; device is None when it never did (a wrapper
+    that synchronises)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000  # about 1 ms at the H100's clocks
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        late = start.query()  # the sleep ended before the last enqueue
+        stop.record()
+        stop.synchronize()
+        if not late:
+            return start.elapsed_time(stop) / reps, host
+        cycles *= 4
+    return None, host
+
+
 def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
                   plain_fn, nbytes: int, nops: int, reps: int = 20,
                   library_fn=None, note: str = "") -> dict:
     """Compare a kernel with its plain version on the same inputs, time
     both (and ``library_fn``, one PyTorch call computing the same
     function, where there is one), and return its record for the kernels
-    line: ``ms`` a call, ``queued_ms`` a call queued back to back."""
+    line: ``ms`` a call, ``queued_ms`` a call queued back to back,
+    ``ahead_ms`` and ``host_ms`` the device's and the host's time a call
+    (see :func:`ahead_ms`)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     ms = cuda_ms(kernel_fn, reps)
-    times = {"queued_ms": queued_ms(kernel_fn, reps)}
+    ahead, host = ahead_ms(kernel_fn, reps)
+    times = {"queued_ms": queued_ms(kernel_fn, reps), "ahead_ms": ahead,
+             "host_ms": host}
     plain_ms = cuda_ms(plain_fn, 3)
     library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -587,7 +624,8 @@ def kernel_record(info, tag: str, shape: str, launches: int, kernel_fn,
         rec["note"] = note
     rec.update(times)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-    lib += "".join(f", {k} {v:.4f}" for k, v in times.items())
+    lib += "".join(f", {k} {v:.4f}" if v is not None else f", {k} None"
+                   for k, v in times.items())
     log(f"(c) {rec['name']} {shape}: max_abs_err={err} kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms{lib}"
         + (f" ({note})" if note else ""))
@@ -655,7 +693,8 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     taken against ``wall_ms``, the unprofiled median wall of the same run
     in this call; the profiled wall is kept beside it. Kernel time is
     summed, so overlapping kernels would count twice; each run is on one
-    stream."""
+    stream. Beside the top 12 kernels, every hand-written kernel gets a
+    line by name (0 where the run did not launch it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -673,6 +712,14 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     top = [{"name": e.key[:80], "calls_per_run": e.count / runs,
             "device_ms_per_run": e.self_device_time_total / 1e3 / runs}
            for e in top[:12]]
+    own = {}
+    for name in csrc_functions():
+        hits = [e for e in events
+                if re.match(rf"(?:void\s+)?{name}\s*[<(]", e.key)]
+        own[name] = {
+            "calls_per_run": sum(e.count for e in hits) / runs,
+            "device_ms_per_run":
+                sum(e.self_device_time_total for e in hits) / 1e3 / runs}
     profiled_ms = statistics.median(walls)
     log(f"{tag} profiled window of {runs} runs: device busy {device_ms:.3f} ms "
         f"a run = {100 * device_ms / wall_ms:.1f} % of the unprofiled "
@@ -681,9 +728,26 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     for t in top:
         log(f"    {t['device_ms_per_run']:8.3f} ms  x{t['calls_per_run']:<6g} "
             f"{t['name']}")
+    for name, t in own.items():
+        log(f"    {t['device_ms_per_run']:8.4f} ms  x{t['calls_per_run']:<6g} "
+            f"{name} (hand-written)")
     return {"runs": runs, "wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-            "top": top}
+            "top": top, "hand_written": own}
+
+
+def csrc_functions() -> list:
+    """The name of every hand-written device kernel (each ``__global__``
+    function of the port's ``csrc/``), for the profiles' by-name lines."""
+    from spark_rapids_jni_tpu_torch import kernels
+
+    names = []
+    for p in sorted(kernels.CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            names += re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)\s*\(", p.read_text())
+    return names
 
 
 def phase_rowconv(rb, kernels, wire) -> dict:
@@ -1118,7 +1182,7 @@ def build_rounds(lo, hi, valid, out, s: int, max_probes: int) -> int:
     return int(((slot - home) & (s - 1))[placed].max()) + 1
 
 
-def phase_build_cases(d: dict, seed: int) -> list:
+def phase_build_cases(d: dict, seed: int, tables: dict) -> list:
     """K2a against its plain version, exactly, on hard builds, each run
     twice (no race checker runs on the card: a barrier fault shows as a
     difference from the plain version in one of the runs). The groupby's
@@ -1126,7 +1190,8 @@ def phase_build_cases(d: dict, seed: int) -> list:
     sharing one home slot, random keys (under max_probes 2 too), 20 %
     nulls, slot counts either side of the shared-memory regime, 8192-row
     chunks and 2^19 slots, and the join's item keys; returns one summary a
-    case."""
+    case, and leaves each case's inputs and plain result in ``tables``
+    (name -> (lo, hi, valid, result)) for the probe cases."""
     from spark_rapids_jni_tpu_torch import dtype as dt
     from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
     from spark_rapids_jni_tpu_torch.kernels import registry
@@ -1198,9 +1263,107 @@ def phase_build_cases(d: dict, seed: int) -> list:
         out.append({"case": name, "shape": f"{cc}x{tt}", "slots": slots,
                     "max_probes": probes, "regime": regime, "rounds": rounds,
                     "overflow": ovf, "dup": dup, "max_abs_err": max(errs)})
+        tables[name] = (lo, hi, valid, want)
         if any(errs):
             raise AssertionError(f"build case {name}: K2a differs from the "
                                  "plain version")
+    return out
+
+
+# chunks of the probe case over the launch grid's y limit (65,535)
+PROBE_MANY_CHUNKS = 70_000
+
+
+def phase_probe_cases(d: dict, seed: int, tables: dict) -> list:
+    """K2b against its plain version, exactly, on the tables of
+    ``phase_build_cases``: the groupby's 684 x 4096 chunks with their keys
+    in a new order, the one-home-slot chain, max_probes 2 (unresolved
+    queries), 20 % null queries, keys absent from the table, more chunks
+    than the grid's y limit at a tiny T, the join's queries cut by 3 rows,
+    and queries that are views one row (one 4-byte key) into their
+    buffers; returns one summary a case."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+
+    rng = np.random.default_rng(seed + 9)
+
+    def table(name):
+        return tables[name][3][1:4]
+
+    def permuted(name):
+        lo, hi, valid = tables[name][:3]
+        perm = torch.from_numpy(rng.permutation(lo.shape[1])).to(DEVICE)
+        return lo[:, perm], hi[:, perm], valid[:, perm]
+
+    def rand_keys(c, t):
+        k = rng.integers(0, 2**32, (2, c, t), dtype=np.uint64)
+        k = k.astype(np.uint32)
+        return tuple(torch.from_numpy(x.view(np.int32)).to(DEVICE) for x in k)
+
+    def nulls(shape, frac):
+        return torch.from_numpy(
+            (rng.random(shape) >= frac).astype(np.int32)).to(DEVICE)
+
+    glo, ghi, gval = permuted("zipf_brands")
+    c, t = glo.shape
+    alo, ahi = rand_keys(c, t)
+    # many chunks of 3 rows into 4 slots: half the build's keys, half new
+    mc, mt, ms = PROBE_MANY_CHUNKS, 3, 4
+    mlo, mhi = rand_keys(mc, mt)
+    mval = nulls((mc, mt), 0.1)
+    many = ht.build_table_plain(mlo, mhi, mval, table_slots=ms)
+    qlo, qhi = rand_keys(mc, mt)
+    keep = torch.from_numpy(rng.random((mc, mt)) < 0.5).to(DEVICE)
+    qlo, qhi = torch.where(keep, mlo, qlo), torch.where(keep, mhi, qhi)
+    jlo, jhi = key_halves(d["item_sk"][d["keep"]], dt.INT64)
+    jval = torch.ones_like(jlo)
+    # name -> (lo, hi, valid, table, max_probes, what the case must show)
+    cases = {
+        "groupby_chunks": (glo, ghi, gval, table("zipf_brands"),
+                           ht.MAX_PROBES, "all_found"),
+        "one_home_slot": (*permuted("one_home_slot"), table("one_home_slot"),
+                          ht.MAX_PROBES, "unresolved"),
+        "max_probes_2": (*permuted("max_probes_2"), table("max_probes_2"), 2,
+                         "unresolved"),
+        "nulls_20pct": (glo, ghi, nulls((c, t), 0.2), table("nulls_20pct"),
+                        ht.MAX_PROBES, ""),
+        "absent_keys": (alo, ahi, torch.ones_like(alo), table("random_s8192"),
+                        ht.MAX_PROBES, "none_found"),
+        "chunks_over_grid_y": (qlo, qhi, nulls((mc, mt), 0.1), many[1:4],
+                               ht.MAX_PROBES, ""),
+        "join_ragged_tail": (jlo[:, :-3].contiguous(),
+                             jhi[:, :-3].contiguous(), jval[:, :-3],
+                             table("join_items_s2^19"), ht.MAX_PROBES, ""),
+        "join_views_one_row_in": (*(shifted(x, 1) for x in (jlo, jhi, jval)),
+                                  table("join_items_s2^19"), ht.MAX_PROBES,
+                                  ""),
+        "groupby_views_one_row_in": (
+            *(shifted(x, 1) for x in (glo, ghi, gval)), table("zipf_brands"),
+            ht.MAX_PROBES, "all_found"),
+    }
+    out = []
+    for name, (lo, hi, valid, tab, probes, must) in cases.items():
+        cc, tt = lo.shape
+        want = ht.probe_table_plain(lo, hi, valid, *tab, max_probes=probes)
+        got = ht.probe_table(lo, hi, valid, *tab, max_probes=probes)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        nfound, unres = int(want[0].sum()), int(want[2])
+        nvalid = int((valid != 0).sum())
+        log(f"(c) probe case {name} {cc}x{tt} queries, {tab[0].shape[1]} "
+            f"slots, max_probes {probes}: found {nfound} of {nvalid} valid, "
+            f"unresolved {unres}; max_abs_err {err}")
+        out.append({"case": name, "shape": f"{cc}x{tt}",
+                    "slots": int(tab[0].shape[1]), "max_probes": probes,
+                    "found": nfound, "valid": nvalid, "unresolved": unres,
+                    "max_abs_err": err})
+        if err:
+            raise AssertionError(f"probe case {name}: K2b differs from the "
+                                 "plain version")
+        if ((must == "all_found" and nfound != nvalid)
+                or (must == "none_found" and nfound)
+                or (must == "unresolved" and not unres)):
+            raise AssertionError(f"probe case {name}: expected {must}")
     return out
 
 
@@ -1255,13 +1418,6 @@ def phase_transpose_cases(seed: int) -> list:
 
     rng = np.random.default_rng(seed + 7)
 
-    def shifted(t):
-        """A copy of ``t`` that starts one row into a bigger buffer."""
-        per = t[0].numel() if t.dim() > 1 else 1
-        buf = torch.zeros(t.numel() + per, dtype=t.dtype, device=t.device)
-        buf[per:] = t.reshape(-1)
-        return buf[per:].view(t.shape)
-
     out = []
     for name, schema in TRANSPOSE_SCHEMAS.items():
         dtypes = [dt.DType(dt.TypeId(t), sc) for t, sc in schema]
@@ -1273,7 +1429,7 @@ def phase_transpose_cases(seed: int) -> list:
             valid = torch.from_numpy(valid_np).to(DEVICE)
             want = rt.pack_rows_plain(cols, valid, layout)
             wcols, wvalid = rt.unpack_rows_plain(want, layout)
-            for view in (lambda t: t, shifted):
+            for view in (lambda t: t, shifted):  # a row: one (w,) slice
                 got = rt.pack_rows([view(c) for c in cols], view(valid), layout)
                 gcols, gvalid = rt.unpack_rows(view(want), layout)
                 torch.cuda.synchronize()
@@ -1320,6 +1476,16 @@ def phase_transpose_cases(seed: int) -> list:
             raise AssertionError(f"transpose schema {name}: K1a or K1b "
                                  "differs from the plain version")
     return out
+
+
+def shifted(t, per: int | None = None):
+    """A copy of ``t`` that starts one row (``per`` elements; by default
+    one slice along its first dimension) into a bigger buffer."""
+    if per is None:
+        per = t[0].numel() if t.dim() > 1 else 1
+    buf = torch.zeros(t.numel() + per, dtype=t.dtype, device=t.device)
+    buf[per:] = t.reshape(-1)
+    return buf[per:].view(t.shape)
 
 
 def table_bytes(t) -> list:
@@ -1486,8 +1652,9 @@ def main(argv=None) -> int:
               "float_groupby": lambda: phase_float_groupby(args.seed),
               "key_classes": lambda: phase_key_classes(args.seed),
               "u32_rows": lambda: phase_u32_rows(args.seed),
-              "build_cases": lambda: phase_build_cases(d, args.seed)}
-    hard = {}
+              "build_cases": lambda: phase_build_cases(d, args.seed, tables),
+              "probe_cases": lambda: phase_probe_cases(d, args.seed, tables)}
+    hard, tables = {}, {}
     for name, fn in checks.items():
         try:
             hard[name] = fn()

@@ -65,9 +65,16 @@
 // rounds as the longest probe: block barriers in build_chunk, grid
 // barriers (an atomic a block, then a spin) in build_grid.
 //
-// The probe is read-only: one thread per query row walks at most
-// max_probes slots and stops on a key match or on an empty slot, which
-// proves the key absent.
+// The probe is read-only: each query walks at most max_probes slots and
+// stops on a key match or on an empty slot, which proves the key absent.
+// Its bound on the H100 is the HBM stream of query keys, valid flags and
+// results (20 B a query) plus one read of the table; the table (12 B a
+// slot, 6 MB at the join's 2^19 slots) fits the 50 MB L2, so what keeps
+// a probe above the bound is the latency of its steps into L2. probe_slots
+// loads a step's three words (row, lo, hi) together, one round trip a
+// step; reads the query stream and writes the results evict-first (ld/st
+// .cs), so the stream does not push the table out of L2; and takes its
+// chunk from blockIdx.y, with no division.
 
 #include <cooperative_groups.h>
 
@@ -341,45 +348,49 @@ build_grid(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
   }
 }
 
-__global__ void probe_kernel(const uint32_t* __restrict__ lo,
-                             const uint32_t* __restrict__ hi,
-                             const int32_t* __restrict__ valid,
-                             const uint32_t* __restrict__ tlo,
-                             const uint32_t* __restrict__ thi,
-                             const int32_t* __restrict__ trow,
-                             int32_t* __restrict__ found,
-                             int32_t* __restrict__ row,
-                             int* __restrict__ unresolved,
-                             int64_t n, int t, int s, int max_probes) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  int32_t hit = 0;
-  int32_t got = -1;
-  if (valid[i] != 0) {
-    uint32_t klo = lo[i];
-    uint32_t khi = hi[i];
-    int64_t base = (i / t) * s;
-    uint32_t ps = hash_word(klo, khi) & static_cast<uint32_t>(s - 1);
-    bool live = true;
-    for (int p = 0; p < max_probes; ++p) {
-      int64_t f = base + ps;
-      int32_t owner = trow[f];
-      if (owner < 0) {  // an empty slot proves the key absent
+constexpr int kProbeThreads = 256;
+constexpr int64_t kGridYMax = 65535;  // the launch grid's y limit
+
+// grid (ceil(T / threads), min(C, kGridYMax)): thread x of a block takes
+// query row x of chunk blockIdx.y and of every gridDim.y-th chunk after it.
+__global__ void __launch_bounds__(kProbeThreads)
+probe_slots(const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
+            const int32_t* __restrict__ valid, const int32_t* __restrict__ tlo,
+            const int32_t* __restrict__ thi, const int32_t* __restrict__ trow,
+            int32_t* __restrict__ found, int32_t* __restrict__ row,
+            int* __restrict__ unresolved, int64_t c, int t, int s,
+            int max_probes) {
+  int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (j >= t) return;
+  uint32_t smask = static_cast<uint32_t>(s - 1);
+  int unres = 0;
+  for (int64_t chunk = blockIdx.y; chunk < c; chunk += gridDim.y) {
+    int64_t i = chunk * t + j;
+    int64_t base = chunk * s;
+    bool live = __ldcs(&valid[i]) != 0;
+    int32_t klo = __ldcs(&lo[i]), khi = __ldcs(&hi[i]);
+    uint32_t p = hash_word(static_cast<uint32_t>(klo),
+                           static_cast<uint32_t>(khi)) & smask;
+    int32_t hit = 0, got = -1;
+    for (int step = 0; live && step < max_probes; ++step) {
+      int64_t f = base + p;
+      int32_t own = __ldg(&trow[f]);  // the three loads in flight together
+      int32_t slo = __ldg(&tlo[f]), shi = __ldg(&thi[f]);
+      if (own < 0) {  // an empty slot proves the key absent
         live = false;
-        break;
-      }
-      if (tlo[f] == klo && thi[f] == khi) {
+      } else if (slo == klo && shi == khi) {
         hit = 1;
-        got = owner;
+        got = own;
         live = false;
-        break;
+      } else {
+        p = (p + 1) & smask;
       }
-      ps = (ps + 1) & static_cast<uint32_t>(s - 1);
     }
-    if (live) atomicAdd(unresolved, 1);
+    unres += live;
+    __stcs(&found[i], hit);
+    __stcs(&row[i], got);
   }
-  found[i] = hit;
-  row[i] = got;
+  if (unres != 0) atomicAdd(unresolved, unres);
 }
 
 // Whether a (t, s) build takes build_chunk on the current device (a
@@ -460,18 +471,24 @@ SRT_EXPORT int srt_build_table(const uint32_t* lo, const uint32_t* hi,
       st));
 }
 
-SRT_EXPORT int srt_probe_table(const uint32_t* lo, const uint32_t* hi,
-                               const int32_t* valid, const uint32_t* tlo,
-                               const uint32_t* thi, const int32_t* trow,
+// All buffers are device memory the caller allocated: lo/hi/valid/found/
+// row hold C*T entries, tlo/thi/trow C*S, unresolved 1 int, which this
+// zeroes. One memset and one launch on `stream`; never synchronises,
+// allocates nothing.
+SRT_EXPORT int srt_probe_table(const int32_t* lo, const int32_t* hi,
+                               const int32_t* valid, const int32_t* tlo,
+                               const int32_t* thi, const int32_t* trow,
                                int32_t* found, int32_t* row, int* unresolved,
                                int64_t c, int t, int s, int max_probes,
                                void* stream) {
-  int64_t n = c * t;
-  if (n > 0) {
-    probe_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-        lo, hi, valid, tlo, thi, trow, found, row, unresolved, n, t, s,
-        max_probes);
-  }
-  return cudaGetLastError();
+  if (c < 0 || t < 0 || s < 2 || (s & (s - 1))) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = cudaMemsetAsync(unresolved, 0, sizeof(int), st);
+  if (rc != 0 || c == 0 || t == 0) return rc;
+  dim3 grid(static_cast<unsigned int>((t + kProbeThreads - 1) / kProbeThreads),
+            static_cast<unsigned int>(c < kGridYMax ? c : kGridYMax));
+  probe_slots<<<grid, kProbeThreads, 0, st>>>(lo, hi, valid, tlo, thi, trow,
+                                              found, row, unresolved, c, t, s,
+                                              max_probes);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -145,12 +145,14 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
-    """Validate a tensor handed to a CUDA kernel."""
-    if t.device.type != "cuda":
+    """Validate a tensor handed to a CUDA kernel (on every launch, so it
+    reads only attributes that build no Python object: ``is_cuda``, not
+    ``device``)."""
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -228,6 +228,8 @@ def probe_table_plain(lo, hi, valid, table_lo, table_hi, table_row, *,
 
 
 def _probe_cuda(lo, hi, valid, table_lo, table_hi, table_row, max_probes):
+    """K2b (``csrc/hash_table.cu``): one memset of ``unresolved`` and one
+    launch."""
     c, t = lo.shape
     s = int(table_lo.shape[1])
     require_cuda(lo, "lo", torch.int32)
@@ -237,9 +239,9 @@ def _probe_cuda(lo, hi, valid, table_lo, table_hi, table_row, max_probes):
     require_cuda(table_hi, "table_hi", torch.int32, (c, s))
     require_cuda(table_row, "table_row", torch.int32, (c, s))
     dev = lo.device
-    found = torch.empty((c, t), dtype=torch.int32, device=dev)
-    row = torch.empty((c, t), dtype=torch.int32, device=dev)
-    unresolved = torch.zeros((), dtype=torch.int32, device=dev)
+    out = torch.empty((2, c, t), dtype=torch.int32, device=dev)
+    found, row = out.unbind(0)
+    unresolved = torch.empty((), dtype=torch.int32, device=dev)
     lib = _lib()
     rc = lib.srt_probe_table(
         ptr(lo), ptr(hi), ptr(valid), ptr(table_lo), ptr(table_hi),

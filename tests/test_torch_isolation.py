@@ -222,3 +222,67 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     # the transposes ran through both of their entries
     calls = {rt.PACK.name: 2, rt.UNPACK.name: 2}
     assert all(after[k] == before[k] + calls.get(k, 1) for k in after)
+
+
+def _one_row_in(x):
+    """A copy of ``x`` that starts one element into a bigger buffer."""
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+# (C, T, distinct build keys, null fraction, probe max_probes, queries):
+# absent keys, views one row into their buffers, max_probes 1, a ragged
+# T, and more chunks than the CUDA grid's y limit (65,535) at a tiny T
+CARD_PROBE_CASES = [
+    (2, 1024, 700, 0.1, 64, "absent"),
+    (3, 512, 400, 0.0, 64, "views"),
+    (1, 1001, 800, 0.2, 64, "views"),
+    (3, 1001, 900, 0.0, 64, "mixed"),
+    (4, 1024, 3000, 0.0, 1, "mixed"),
+    (70_000, 3, 50_000, 0.1, 64, "mixed"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,distinct,nulls,probes,queries",
+                         CARD_PROBE_CASES)
+def test_probe_cases_on_card(c, t, distinct, nulls, probes, queries):
+    """K2b on the card equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(c + t + distinct)
+    pool = rng.integers(0, 2**32, (2, distinct), dtype=np.uint64)
+    pool[0] &= 2**31 - 1  # absent queries set the top bit of lo
+
+    def on_card(a):
+        return torch.from_numpy(a.astype(np.uint32).view(np.int32)).cuda()
+
+    def flags(frac):
+        return torch.from_numpy(
+            (rng.random((c, t)) >= frac).astype(np.int32)).cuda()
+
+    pick = rng.integers(0, distinct, (c, t))
+    lo, hi = on_card(pool[0][pick]), on_card(pool[1][pick])
+    s = 2 << (t - 1).bit_length()
+    tab = ht.build_table_plain(lo, hi, flags(nulls), table_slots=s)[1:4]
+    fresh = rng.integers(0, 2**32, (2, c, t), dtype=np.uint64)
+    if queries == "absent":
+        q = [on_card(fresh[0] | 2**31), on_card(fresh[1])]
+    else:
+        pick = rng.integers(0, distinct, (c, t))
+        old = rng.random((c, t)) < 0.5
+        q = [on_card(np.where(old, pool[k][pick], fresh[k])) for k in (0, 1)]
+    q.append(flags(nulls))
+    if queries == "views":
+        q = [_one_row_in(x) for x in q]
+    want = ht.probe_table_plain(*q, *tab, max_probes=probes)
+    got = ht.probe_table(*q, *tab, max_probes=probes)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    if queries == "absent":
+        assert not want[0].any()
+    if probes == 1:
+        assert int(want[2]) > 0

@@ -69,7 +69,11 @@ def test_hash_word_matches_jax():
 
 
 BUILD_CASES = [
-    # (C, T, distinct keys or a hard chunk's name, null fraction, max_probes)
+    # (C, T, distinct keys or a hard chunk's name, null fraction,
+    # max_probes[, queries]): the probe's queries are "mixed" unless the
+    # case says "half" (half the build's keys in a new order, half new
+    # ones), "views" (half, one row into their buffers) or "absent" (none
+    # of the build's keys)
     (1, 1024, 300, 0.1, jht.MAX_PROBES),
     (1, 2048, 2048 * 4, 0.0, jht.MAX_PROBES),
     (4, 1024, 50, 0.2, jht.MAX_PROBES),
@@ -79,7 +83,21 @@ BUILD_CASES = [
     # one slot in round 0, or every key walks one probe chain
     (2, 512, "one_key_most_rows", 0.1, jht.MAX_PROBES),
     (2, 128, "one_home_slot", 0.0, jht.MAX_PROBES),
+    (2, 1024, 700, 0.1, jht.MAX_PROBES, "absent"),
+    (3, 512, 400, 0.0, jht.MAX_PROBES, "views"),
+    (1, 1001, 800, 0.2, jht.MAX_PROBES, "views"),
+    (4, 1024, 3000, 0.0, 1, "half"),
+    (2, 2048, 1500, 0.05, 1, "views"),
 ]
+
+
+def _build_case(c, t, distinct, nulls, probes, queries="mixed"):
+    """One BUILD_CASES entry as a pytest param; a "mixed" case keeps the
+    id of the five fields alone."""
+    fields = (c, t, distinct, nulls, probes)
+    tag = "" if queries == "mixed" else f"-{queries}"
+    return pytest.param(*fields, queries,
+                        id="-".join(map(str, fields)) + tag)
 
 
 def _build_words(rng, c, t, distinct):
@@ -98,14 +116,15 @@ def _build_words(rng, c, t, distinct):
     return _keys(rng, c, t, distinct)
 
 
-@pytest.mark.parametrize("c,t,distinct,nulls,probes", BUILD_CASES)
-def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
+@pytest.mark.parametrize("c,t,distinct,nulls,probes,queries",
+                         [_build_case(*case) for case in BUILD_CASES])
+def test_build_and_probe_match_jax(c, t, distinct, nulls, probes, queries):
     seed = c * 7919 + t + (distinct if isinstance(distinct, int) else 0)
     rng = np.random.default_rng(seed)
     words = _build_words(rng, c, t, distinct)
     lo, hi = _halves(words)
     valid = (rng.random((c, t)) >= nulls).astype(np.int32)
-    s = 2 * t
+    s = 2 << (t - 1).bit_length()  # the registry's 2 * next power of two
     want = jht.build_table(jnp.asarray(lo), jnp.asarray(hi),
                            jnp.asarray(valid), table_slots=s,
                            max_probes=probes, interpret=True)
@@ -132,8 +151,13 @@ def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
             isinstance(distinct, int) and distinct < c * t):
         assert int(dup) > 0, "repeated keys must count as dup"
 
-    # probe: build keys in a new order mixed with new keys
-    if isinstance(distinct, int):
+    # probe: "mixed" keys from a new pool (a hard chunk's: as "half")
+    if queries == "absent":
+        # the build's keys are below 2^63 but for 0xFFFFFFFF00000001
+        qwords = (rng.integers(0, 2**63, (c, t), dtype=np.int64)
+                  .astype(np.uint64) | np.uint64(2**63))
+        assert not np.isin(qwords, words).any()
+    elif isinstance(distinct, int) and queries == "mixed":
         qwords = _keys(rng, c, t, distinct * 2)
     else:
         qwords = np.where(rng.random((c, t)) < 0.5,
@@ -144,13 +168,20 @@ def test_build_and_probe_match_jax(c, t, distinct, nulls, probes):
         jnp.asarray(qlo), jnp.asarray(qhi), jnp.asarray(qvalid),
         want[1], want[2], want[3], max_probes=probes, interpret=True,
     )
-    found, row, unres = ht.probe_table(
-        _t32(qlo), _t32(qhi), torch.from_numpy(qvalid), tlo, thi, trow,
-        max_probes=probes,
-    )
+    q = [_t32(qlo), _t32(qhi), torch.from_numpy(qvalid)]
+    if queries == "views":
+        q = [chip_smoke.shifted(x, 1) for x in q]
+        assert all(x.storage_offset() == 1 and x.is_contiguous() for x in q)
+    found, row, unres = ht.probe_table(*q, tlo, thi, trow, max_probes=probes)
     np.testing.assert_array_equal(found.numpy(), np.asarray(pwant[0]))
     np.testing.assert_array_equal(row.numpy(), np.asarray(pwant[1]))
     assert int(unres) == int(pwant[2])
+    if queries == "absent":
+        assert not found.any() and int(unres) == 0
+    elif queries != "mixed":
+        assert found.any()
+    if probes == 1:
+        assert int(unres) > 0, "one probe step must leave collisions"
 
 
 # chip_smoke.TRANSPOSE_SCHEMAS: the slice's fact schema, RowConversionTest
