@@ -36,6 +36,23 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     must equal a numpy oracle and each other byte for byte, and each
     engine is profiled. The eager router ``groupby_aggregate_packed`` runs
     once against the same oracle.
+(g) query_step — ``graft_entry.query_step`` (WHERE qty > 5 -> capped
+    inner join -> mul -> capped groupby SUM/COUNT(qty * price), the port
+    of the repository's entry point ``__graft_entry__.query_step``) over
+    a TPC-DS SF100 store_sales batch of 2^23 rows (ss_item_sk Zipf(1.3)
+    mod 204,000, ss_quantity 1-100, ss_sales_price in cents) and the
+    204,000-row item table: group count, keys and counts exact against
+    numpy, the FLOAT64 sums bit-exact against the port's own CPU run of
+    the same tables and within 1e-9 of numpy's; host syncs counted.
+    Step 0 times the plain FLOAT64 scan (``_scan_sum16``) beside
+    ``torch.cumsum``, and the scan16 kernel is held bit for bit against
+    it there and at every tile edge.
+(h) wire plan — ``table_plan_wire`` over (a)'s batch as wire bytes:
+    from_rows -> filter -> cast quantity to INT64 -> groupby the sold date
+    (SUM/COUNT/MIN/MAX) -> sort_by the date -> to_rows, exact against
+    numpy, once with SPARK_RAPIDS_TPU_KERNELS=on and once off (equal
+    5-tuples; the tier's launch and decline counters printed for each);
+    then a 2^20-row legacy flat UINT8 input.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -163,6 +180,25 @@ GROUPBY_ENGINES = {"lax": None, "pallas": "batched_sort_u64",
 # (rows, T) of the key-class checks of K3 and K4a: a many-tile row, and the
 # lengths on either side of the one-block regime (T <= 4096)
 KEY_CLASS_SHAPES = ((4, 1 << 16), (4, 4096), (4, 8192))
+# (g): graft_entry.query_step over a TPC-DS SF100 store_sales task batch
+QS_ROWS = 1 << 23
+QS_ITEMS = 204_000
+QS_SUM_RTOL = 1e-9  # the sums against numpy's (another add order)
+# (h): the wire plan "quantity sold a day" over (a)'s fact batch:
+# Spark widens SUM's INT32 input to LONG before it aggregates
+WIRE_PLAN = [
+    FROM_FACT_ROWS,
+    {"op": "filter", "mask": 4},
+    {"op": "cast", "column": 3, "type_id": 4},
+    {"op": "groupby", "by": [2],
+     "aggs": [{"column": 3, "agg": a} for a in ("sum", "count", "min", "max")]},
+    {"op": "sort_by", "keys": [{"column": 0}]},
+    {"op": "to_rows"},
+]
+# the tier's kernels (h) runs: the sort's key comes out of the groupby
+# with a validity vector, so packed_sort (K3) declines in both packages
+WIRE_KERNELS = ("unpack_rows", "build_table", "pack_rows")
+FLAT_ROWS = 1 << 20  # (h)'s second run: a legacy flat UINT8 buffer
 
 
 def log(msg: str) -> None:
@@ -715,7 +751,8 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     own = {}
     for name in csrc_functions():
         hits = [e for e in events
-                if re.match(rf"(?:void\s+)?{name}\s*[<(]", e.key)]
+                if re.match(rf"(?:void\s+)?(?:\(anonymous namespace\)::)?"
+                            rf"{name}\s*[<(]", e.key)]
         own[name] = {
             "calls_per_run": sum(e.count for e in hits) / runs,
             "device_ms_per_run":
@@ -1556,6 +1593,281 @@ def phase_float_groupby(seed: int) -> dict:
             "f1_sum_bits": f"{f1_bits:#x}"}
 
 
+def make_query_step_data(rng, n: int, n_items: int) -> dict:
+    """(g)'s store_sales batch and SF100 item table: ss_item_sk Zipf(1.3)
+    mod 204,000, ss_quantity 1-100, ss_sales_price in cents below $200;
+    i_category_id 1-10."""
+    return {
+        "item": (rng.zipf(1.3, n) % n_items).astype(np.int64),
+        "qty": rng.integers(1, 101, n).astype(np.int64),
+        "price": rng.integers(0, 20_000, n) / 100.0,
+        "i_item": np.arange(n_items, dtype=np.int64),
+        "cat": rng.integers(1, 11, n_items).astype(np.int64),
+    }
+
+
+def query_step_oracle(q: dict) -> dict:
+    m = q["qty"] > 5
+    cat = q["cat"][q["item"][m]]  # i_item_sk == row index: one match a row
+    rev = q["qty"][m] * q["price"][m]
+    keys, inv = np.unique(cat, return_inverse=True)
+    return {"keys": keys, "count": np.bincount(inv).astype(np.int64),
+            "sum": np.bincount(inv, weights=rev)}
+
+
+def query_step_tables(q: dict, device):
+    from spark_rapids_jni_tpu_torch.column import Table
+
+    sales = Table.from_pydict({"item": q["item"], "qty": q["qty"],
+                               "price": q["price"]}, device=device)
+    items = Table.from_pydict({"item": q["i_item"], "cat": q["cat"]},
+                              device=device)
+    return sales, items
+
+
+def count_syncs(fn) -> int:
+    """Host syncs one call of ``fn`` makes: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_scan16(n: int, seed: int, launches: int) -> dict:
+    """Step 0 of (g) and scan16's record: the plain ``_scan_sum16`` (the
+    FLOAT64 sum's scan in XLA's order) at ``n`` rows beside one
+    ``torch.cumsum`` of the same vector, CUDA events a call and the
+    device and host time a call (:func:`ahead_ms`); then the scan16
+    kernel held bit for bit against the plain version on that vector."""
+    from spark_rapids_jni_tpu_torch.kernels import scan16
+    from spark_rapids_jni_tpu_torch.ops.groupby import _scan_sum16
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v = torch.randn(n, dtype=torch.float64, device=DEVICE, generator=g) * 50
+    out = {}
+    for name, fn in (("scan_sum16", lambda: _scan_sum16(v, n)),
+                     ("cumsum", lambda: torch.cumsum(v, 0))):
+        # 5 calls: the plain scan's host work (~90 launches) must fit
+        # behind ahead_ms's longest sleep
+        dev, host = ahead_ms(fn, 5)
+        out[name] = {"ms": cuda_ms(fn, 20), "ahead_ms": dev, "host_ms": host}
+    log(f"(g) step 0: at {n} FLOAT64 rows _scan_sum16 {out['scan_sum16']} "
+        f"vs torch.cumsum {out['cumsum']} (ms a call)")
+    # bytes: the vector read once, the scan written once; operations: one
+    # FLOAT64 add an element and level (16/15 of n), at the card's FP64
+    # rate outside the tensor cores (34 TFLOP/s, NVIDIA's data sheet)
+    out["record"] = kernel_record(
+        scan16.SCAN16, "query_step", f"{n} x FLOAT64", launches,
+        lambda: [scan16.scan_sum16(v, n).view(torch.int64)],
+        lambda: [_scan_sum16(v, n).view(torch.int64)],
+        16 * n, 0, library_fn=lambda: torch.cumsum(v, 0),
+        note="bits compared; ops bound: 16/15 n FP64 adds at 34 TFLOP/s "
+             f"= {16 * n / 15 / 34e12 * 1e3:.5f} ms")
+    return out
+
+
+SCAN16_CASE_ROWS = (1, 2, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097,
+                    65536, 65537, 1 << 20, 4096 * 4097 + 5)
+
+
+def phase_scan16_cases(seed: int) -> list:
+    """scan16 against its plain version, bit for bit, on the lengths
+    around each level and tile edge and past two recursion levels, with
+    -0.0 runs, mixed magnitudes, inf and NaN, and ``rows`` 1 and 2 for a
+    one-element vector."""
+    from spark_rapids_jni_tpu_torch.kernels import scan16
+    from spark_rapids_jni_tpu_torch.ops.groupby import _scan_sum16
+
+    rng = np.random.default_rng(seed + 16)
+    out = []
+    for n in SCAN16_CASE_ROWS:
+        x = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
+        x[rng.random(n) < 0.05] = -0.0
+        if n > 300:
+            x[100:140] = -0.0
+            x[rng.integers(0, n)] = np.inf
+        v = torch.from_numpy(x).to(DEVICE)
+        for rows in ({None, 1, 2} if n == 1 else {None}):
+            got = scan16.scan_sum16(v, rows).view(torch.int64)
+            want = _scan_sum16(v, rows).view(torch.int64)
+            err = max_abs_err([got], [want])
+            out.append({"rows": n, "rows_arg": rows, "max_abs_err": err})
+            if err:
+                raise AssertionError(f"scan16 differs at {n} rows ({rows})")
+    nan = torch.tensor([1.0, float("nan"), 2.0] * 3000, dtype=torch.float64,
+                       device=DEVICE)
+    if not torch.equal(torch.isnan(scan16.scan_sum16(nan)),
+                       torch.isnan(_scan_sum16(nan))):
+        raise AssertionError("scan16 NaN positions differ")
+    log(f"(c) scan16 cases: {len(out)} lengths {list(SCAN16_CASE_ROWS)} "
+        f"bit-exact against _scan_sum16; NaN propagates alike")
+    return out
+
+
+def phase_query_step(kernels, q: dict, seed: int) -> dict:
+    """(g): ``graft_entry.query_step`` on the card at full width: the
+    group count, keys and counts exact against numpy, the sums bit-exact
+    against the port's own CPU run of the same tables and within
+    ``QS_SUM_RTOL`` of numpy's; wall, profile, host syncs, and Step 0."""
+    from spark_rapids_jni_tpu_torch import graft_entry
+
+    want = query_step_oracle(q)
+    sales, items = query_step_tables(q, DEVICE)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    agg, ngroups = graft_entry.query_step(sales, items)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    card = table_bytes(agg)
+    g = int(ngroups)
+    host_agg, host_g = graft_entry.query_step(*query_step_tables(q, "cpu"))
+    keys = agg["cat"].data[:g].cpu().numpy()
+    count = agg["count_rev"].data[:g].cpu().numpy()
+    sums = agg["sum_rev"].to_numpy()[:g]
+    valid = [c.validity.cpu().numpy() for c in agg.columns]
+    checks = {
+        "ngroups": g == want["keys"].shape[0] == int(host_g),
+        "keys": np.array_equal(keys, want["keys"]),
+        "count": np.array_equal(count, want["count"]),
+        "validity": all(np.array_equal(v, np.arange(64) < g) for v in valid),
+        "sum_bits_equal_cpu": card == table_bytes(host_agg),
+        "sum_vs_numpy": bool(np.allclose(sums, want["sum"], rtol=QS_SUM_RTOL,
+                                         atol=0)),
+    }
+    rel = float(np.max(np.abs(sums - want["sum"]) / np.abs(want["sum"])))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        graft_entry.query_step(sales, items)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(times)
+    syncs = count_syncs(lambda: graft_entry.query_step(sales, items))
+    log(f"(g) query_step: {q['qty'].shape[0]} x {q['cat'].shape[0]} rows, "
+        f"{g} groups; checks {checks}; sums max relative difference from "
+        f"numpy {rel:.3e}; wall median {median:.2f} ms over 5 runs (all: "
+        f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
+        f"launches {launches}")
+    def run():
+        graft_entry.query_step(sales, items)
+        torch.cuda.synchronize()
+
+    profile = profile_plan(run, median, "(g)")
+    step0 = phase_scan16(q["qty"].shape[0], seed, launches["scan16"])
+    share = step0["scan_sum16"]["ahead_ms"] / profile["device_ms"]
+    log(f"(g) step 0: the plain _scan_sum16's "
+        f"{step0['scan_sum16']['ahead_ms']:.4f} ms of device time is "
+        f"{100 * share:.1f} % of (g)'s {profile['device_ms']:.3f} ms a run "
+        f"(which runs the scan16 kernel)")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"(g) query_step differs: {bad}")
+    if launches["scan16"] == 0:
+        raise AssertionError("(g) never launched scan16")
+    return {"launches": launches, "groups": g, "wall_ms": median,
+            "syncs": syncs, "profile": profile, "step0": step0,
+            "scan_share": share, "sum_max_rel_diff": rel}
+
+
+def wire_plan_oracle(d: dict, n: int) -> np.ndarray:
+    """(h)'s result rows in numpy: per sold date (ascending), SUM, COUNT,
+    MIN and MAX of the non-null quantities of the kept rows, as 48-byte
+    packed rows (five INT64 columns and a validity byte; a null result
+    keeps the groupby's 0 sum and sentinel extremes)."""
+    m = d["keep"][:n]
+    date = d["date_sk"][:n][m]
+    qty = d["quantity"][:n][m].astype(np.int64)
+    ok = d["quantity_ok"][:n][m]
+    keys, inv = np.unique(date, return_inverse=True)
+    g = keys.shape[0]
+    count = np.bincount(inv[ok], minlength=g).astype(np.int64)
+    total = np.bincount(inv[ok], weights=qty[ok], minlength=g).astype(np.int64)
+    lo = np.full(g, np.iinfo(np.int64).max)
+    hi = np.full(g, np.iinfo(np.int64).min)
+    np.minimum.at(lo, inv[ok], qty[ok])
+    np.maximum.at(hi, inv[ok], qty[ok])
+    rows = np.zeros((g, 48), np.uint8)
+    for j, col in enumerate((keys, total, count, lo, hi)):
+        rows[:, 8 * j:8 * j + 8] = col.astype(np.int64).view(np.uint8).reshape(g, 8)
+    # date and count always valid; sum/min/max null where no quantity is
+    rows[:, 40] = 1 | 4 | ((count > 0).astype(np.uint8) * (2 | 8 | 16))
+    return rows
+
+
+def phase_wire_plan(kernels, d: dict) -> dict:
+    """(h): ``table_plan_wire`` over (a)'s fact batch as wire bytes, with
+    the kernel tier on and off (equal 5-tuples, both exact against
+    numpy), its counters for each; then a legacy flat UINT8 input."""
+    from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    plan = json.dumps(WIRE_PLAN)
+    want = wire_plan_oracle(d, FACT_ROWS)
+    config.set_flag("METRICS", True)
+    out, counters = {}, {}
+    try:
+        for mode in ("on", "off"):
+            config.set_flag("KERNELS", mode)
+            metrics.reset()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            out[mode] = rb.table_plan_wire(plan, *d["fact_wire"], device=DEVICE)
+            torch.cuda.synchronize()
+            counters[mode] = {
+                "tier": metrics.counter_values(["kernel.launches",
+                                                "kernel.declines"]),
+                "kernels": {k: v.launches for k, v in kernels.KERNELS.items()}}
+            check_rows(out[mode], want)
+        config.set_flag("KERNELS", "on")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rb.table_plan_wire(plan, *d["fact_wire"], device=DEVICE)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        median = statistics.median(times)
+        log(f"(h) wire plan: {want.shape[0]} dates match the numpy oracle "
+            f"with the tier on and off; the two 5-tuples are "
+            f"{'equal' if out['on'] == out['off'] else 'DIFFERENT'}; counters "
+            f"{counters}; wall median (on) {median:.2f} ms over 5 runs (all: "
+            f"{[round(t, 2) for t in times]})")
+
+        def run():
+            rb.table_plan_wire(plan, *d["fact_wire"], device=DEVICE)
+            torch.cuda.synchronize()
+
+        profile = profile_plan(run, median, "(h)")
+        n = FLAT_ROWS
+        flat = ([5], [0], [d["rows"][:n].tobytes()], [None], n * 32)
+        flat_plan = [dict(WIRE_PLAN[0], num_rows=n)] + WIRE_PLAN[1:]
+        kernels.reset_launches()
+        got = rb.table_plan_wire(json.dumps(flat_plan), *flat, device=DEVICE)
+        torch.cuda.synchronize()
+        flat_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        check_rows(got, wire_plan_oracle(d, n))
+        log(f"(h) legacy flat UINT8 input: {n} rows exact; launches "
+            f"{flat_launches}")
+    finally:
+        config.clear_flag("KERNELS")
+        config.clear_flag("METRICS")
+    if out["on"] != out["off"]:
+        raise AssertionError("(h) tier on and off give different bytes")
+    missing = [k for k in WIRE_KERNELS
+               if counters["on"]["kernels"][k] == 0 or flat_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"(h) never launched {missing}")
+    return {"counters": counters, "wall_ms": median, "profile": profile,
+            "flat_launches": flat_launches}
+
+
 def ptxas_lines(text: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
     name, registers, static shared memory and spills."""
@@ -1596,13 +1908,14 @@ def main(argv=None) -> int:
     from spark_rapids_jni_tpu_torch import kernels
     from spark_rapids_jni_tpu_torch import runtime_bridge as rb
     from spark_rapids_jni_tpu_torch.kernels import (
-        bitonic_sort, hash_table, hashing, row_transpose,
+        bitonic_sort, hash_table, hashing, row_transpose, scan16,
     )
 
     expected = {i.name for i in (row_transpose.PACK, row_transpose.UNPACK,
                                  hash_table.BUILD, hash_table.PROBE,
                                  hashing.MURMUR3, bitonic_sort.SORT,
-                                 bitonic_sort.SORT_U64, bitonic_sort.SORT_U32)}
+                                 bitonic_sort.SORT_U64, bitonic_sort.SORT_U32,
+                                 scan16.SCAN16)}
     if set(kernels.KERNELS) != expected:
         raise RuntimeError(f"kernel registry {set(kernels.KERNELS)} != {expected}")
 
@@ -1619,6 +1932,7 @@ def main(argv=None) -> int:
     d = make_query_data(rng, FACT_ROWS, ITEM_ROWS)
     rc_wire = make_rowconv_wire(rng, ROWCONV_ROWS)
     g = make_groupby_data(rng, GROUPBY_ROWS, GROUPBY_KEYS)
+    q = make_query_step_data(rng, QS_ROWS, QS_ITEMS)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -1630,6 +1944,8 @@ def main(argv=None) -> int:
             rb, kernels, "(e) sort:", SORT_PLAN, d["fact_wire"],
             sort_oracle(d), [bitonic_sort.SORT.name]),
         "groupby": lambda: phase_groupby(kernels, g),
+        "query_step": lambda: phase_query_step(kernels, q, args.seed),
+        "wire_plan": lambda: phase_wire_plan(kernels, d),
     }
     res = {}
     for name, fn in phases.items():
@@ -1639,7 +1955,8 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append(name)
     recs = []
-    if len(res) == len(phases):
+    if all(k in res for k in ("query", "rowconv", "exchange", "sort",
+                              "groupby")):
         try:
             recs = phase_kernels(d, res["query"], res["rowconv"],
                                  res["exchange"], res["sort"], res["groupby"])
@@ -1649,6 +1966,7 @@ def main(argv=None) -> int:
     else:
         failed.append("kernels (skipped: an earlier phase failed)")
     checks = {"transpose_cases": lambda: phase_transpose_cases(args.seed),
+              "scan16_cases": lambda: phase_scan16_cases(args.seed),
               "float_groupby": lambda: phase_float_groupby(args.seed),
               "key_classes": lambda: phase_key_classes(args.seed),
               "u32_rows": lambda: phase_u32_rows(args.seed),
@@ -1666,6 +1984,8 @@ def main(argv=None) -> int:
     except (OSError, subprocess.SubprocessError):
         traceback.print_exc()
         failed.append("nvidia-smi")
+    if "query_step" in res:
+        recs.append(res["query_step"]["step0"]["record"])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -1680,6 +2000,7 @@ def main(argv=None) -> int:
         "sort_profile": res["sort"]["profile"],
         "groupby_ms": res["groupby"]["plan_ms"],
         "groupby_profile": res["groupby"]["profile"],
+        "query_step": res["query_step"], "wire_plan": res["wire_plan"],
         **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -145,6 +145,9 @@ _HOST_NP = {
     TypeId.DECIMAL128: np.uint64,
 }
 
+_SIGNED_INT_IDS = frozenset(
+    {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64}
+)
 _UNSIGNED_INT_IDS = frozenset(
     {TypeId.UINT8, TypeId.UINT16, TypeId.UINT32, TypeId.UINT64}
 )
@@ -177,6 +180,10 @@ class DType:
     @property
     def is_unsigned(self) -> bool:
         return self.id in _UNSIGNED_INT_IDS
+
+    @property
+    def is_integer(self) -> bool:
+        return self.id in _SIGNED_INT_IDS or self.id in _UNSIGNED_INT_IDS
 
     @property
     def is_floating(self) -> bool:
@@ -214,6 +221,16 @@ class DType:
             return np.dtype(_HOST_NP[self.id])
         except KeyError:
             raise TypeError(f"{self.id!r} has no fixed-width storage") from None
+
+    @property
+    def value_dtype(self) -> np.dtype:
+        """The numpy dtype of this column's arithmetic values (the JAX
+        package's ``device_dtype``): the host dtype, FLOAT64 as float64."""
+        if self.id == TypeId.DECIMAL128:
+            raise TypeError("DECIMAL128 has no scalar value dtype")
+        if self.id == TypeId.FLOAT64:
+            return np.dtype(np.float64)
+        return self.host_dtype
 
     def to_wire(self) -> tuple[int, int]:
         """(native type id, scale) — the JNI int-array pair."""
@@ -272,6 +289,17 @@ def from_numpy_dtype(np_dtype) -> DType:
         return DType(_NP_TO_TYPEID[np.dtype(np_dtype)])
     except KeyError:
         raise TypeError(f"unsupported numpy dtype {np_dtype}") from None
+
+
+def common_numeric_dtype(a: DType, b: DType) -> DType:
+    """Binary-op type promotion of plain numerics (numpy's rules on the
+    value dtypes; decimals take the wider storage and the finer scale)."""
+    if a.is_decimal or b.is_decimal:
+        wid = max(a.itemsize, b.itemsize)
+        scale = min(a.scale if a.is_decimal else 0,
+                    b.scale if b.is_decimal else 0)
+        return DType(TypeId.DECIMAL64 if wid >= 8 else TypeId.DECIMAL32, scale)
+    return from_numpy_dtype(np.promote_types(a.value_dtype, b.value_dtype))
 
 
 # LIST children whose storage dtype maps back to one type id; the child

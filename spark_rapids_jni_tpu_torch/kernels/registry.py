@@ -3,9 +3,19 @@
 One entry per accelerated inner loop, each with an applicability
 predicate (a decline reason, or None) and a runner whose result is byte
 for byte the exact path's. ``runtime_bridge._dispatch_once`` asks the
-tier first; a declined op runs on the exact path. ``row_pack`` and
-``row_unpack`` are the only route of ``to_rows``/``from_rows``: their
-decline raises as an input not ported yet.
+tier first; a declined op runs on the exact path.
+
+The tier is gated as the JAX package's is, by ``SPARK_RAPIDS_TPU_KERNELS``
+(``utils/config.py``): ``on`` tries every applicable route, ``off``
+none, ``auto`` (the default) only for tables whose tensors are on a CUDA
+device. With the metrics flag on, every route that runs counts
+``kernel.launches`` and every decline ``kernel.declines``. The gate
+governs the tier's routes that have an exact twin: ``hash_build_probe``,
+``hash_groupby`` and ``packed_sort``. The row transpose has no second
+implementation in the port, so ``to_rows``/``from_rows`` run K1a/K1b
+whatever the gate (``run_kernel``, outside the counters, as the JAX
+package's exact path runs its own transpose); the tier's ``row_pack``
+and ``row_unpack`` entries count them when it is on.
 
 What carries over from the JAX package is every SEMANTIC decline: multi-
 column, nullable, string or DECIMAL128 keys; duplicate build keys of an
@@ -28,6 +38,7 @@ import torch
 
 from .. import dtype as dt
 from ..column import Column, Table
+from ..utils import config, metrics
 
 #: Registered kernel entries.
 KERNEL_NAMES = frozenset(
@@ -364,7 +375,7 @@ def _r_row_pack(op: dict, table: Table, rest) -> Table:
 
 def _a_row_unpack(op: dict, table: Table, rest) -> Optional[str]:
     if not table.columns or table.columns[0].dtype.id != dt.TypeId.LIST:
-        return "flat UINT8 row buffer (pass a LIST<UINT8> column)"
+        return "legacy flat row buffer (the exact path's route)"
     for tid in op.get("type_ids", ()):
         if dt.TypeId(int(tid)) not in dt._WIDTHS:
             return "non-fixed-width target schema"
@@ -433,17 +444,51 @@ def decline_reason(kernel: str, op: dict, table: Table,
     return _REGISTRY[kernel].applicable(op, table, rest)
 
 
+def run_kernel(kernel: str, op: dict, table: Table,
+               rest: Sequence[Table]) -> Table:
+    """Run one entry's runner outside the gate and the counters (the row
+    transpose, which has no other route)."""
+    return _REGISTRY[kernel].runner(op, table, rest)
+
+
+_GEN = -1
+_MODE = "auto"
+
+
+def tier_mode() -> str:
+    """The ``KERNELS`` flag, re-read when the flag plane's generation
+    moves (an unknown value raises ``ValueError``)."""
+    global _GEN, _MODE
+    g = config.generation()
+    if g != _GEN:
+        _MODE = config.get_flag("KERNELS")
+        _GEN = g
+    return _MODE
+
+
+def _on_cuda(table: Table, rest: Sequence[Table]) -> bool:
+    return any(c.data.is_cuda for t in (table, *rest) for c in t.columns[:1])
+
+
 def dispatch_kernel(
     op: dict, table: Table, rest: Sequence[Table], name: str
 ) -> Optional[Table]:
     """Run one op through the kernel tier. Returns the result Table, or
-    None when no kernel applies or the runner declined — the caller then
-    runs the exact path. A kernel failure raises."""
+    None when the gate is closed, no kernel applies or the runner
+    declined: the caller then runs the exact path. A kernel failure
+    raises; it is not replayed on the exact path."""
+    mode = tier_mode()
+    if mode == "off" or (mode == "auto" and not _on_cuda(table, rest)):
+        return None
     for spec in _BY_OP.get(name, ()):
         if spec.applicable(op, table, rest) is not None:
+            metrics.counter_add("kernel.declines")
             continue
         try:
-            return spec.runner(op, table, rest)
+            out = spec.runner(op, table, rest)
         except KernelDecline:
+            metrics.counter_add("kernel.declines")
             continue
+        metrics.counter_add("kernel.launches")
+        return out
     return None

@@ -1,0 +1,93 @@
+"""FLOAT64 inclusive scan in XLA's CPU add order: the scan16 kernel and
+its plain version.
+
+The JAX package's FLOAT64 segment sums are cumsum differences, and
+``jnp.cumsum`` on its CPU path is XLA's recursive base-16 scan
+(``ops/groupby.py`` ``_scan_sum16`` is the plain torch copy of that
+order, about 90 launches at 2^23 rows). The CUDA kernel in
+``csrc/scan16.cu`` computes the same sums in the same order, bit for
+bit, in 3 launches at 2^23 rows: tiles of 4096 elements (three whole
+levels of the recursion) in shared memory, the tile totals scanned by
+the same two kernels recursively (design notes there).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import check_status, library, ptr, register, require_cuda, stream_of
+
+SCAN16 = register(
+    "scan16", "spark_rapids_jni_tpu_torch/csrc/scan16.cu",
+    "spark_rapids_jni_tpu/ops/groupby.py:164",
+)
+TILE = 4096  # 16^3 elements a block
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_DECLARED = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _DECLARED
+    lib = library("scan16")
+    if not _DECLARED:
+        lib.srt_error_string.argtypes = [ctypes.c_int]
+        lib.srt_error_string.restype = ctypes.c_char_p
+        lib.srt_scan16_up.argtypes = [_P, _I64, _P, _P, _I64, _P]
+        lib.srt_scan16_up.restype = ctypes.c_int
+        lib.srt_scan16_down.argtypes = [_P, _I64, _P, _P, _P, _P, _I64, _P]
+        lib.srt_scan16_down.restype = ctypes.c_int
+        _DECLARED = True
+    return lib
+
+
+def scan_sum16_plain(v: torch.Tensor, rows: Optional[int] = None):
+    """The plain version: ``ops/groupby.py``'s ``_scan_sum16``."""
+    from ..ops.groupby import _scan_sum16
+
+    return _scan_sum16(v, rows)
+
+
+def _scan_cuda(v: torch.Tensor) -> torch.Tensor:
+    """The tiles' two kernels around the recursive scan of the tile
+    totals."""
+    lib = _lib()
+    n = v.shape[0]
+    tiles = -(-n // TILE)
+    out = torch.empty_like(v)
+    st = stream_of(v)
+    if tiles == 1:
+        rc = lib.srt_scan16_down(ptr(v), n, None, None, None, ptr(out), 1, st)
+        check_status(lib, rc, "scan16_down")
+        return out
+    t2 = torch.empty(tiles * 16, dtype=v.dtype, device=v.device)
+    t3 = torch.empty(tiles, dtype=v.dtype, device=v.device)
+    check_status(lib, lib.srt_scan16_up(ptr(v), n, ptr(t2), ptr(t3), tiles,
+                                        st), "scan16_up")
+    s3 = _scan_cuda(t3)
+    rc = lib.srt_scan16_down(ptr(v), n, ptr(t2), ptr(t3), ptr(s3), ptr(out),
+                             tiles, st)
+    check_status(lib, rc, "scan16_down")
+    return out
+
+
+def scan_sum16(v: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """Inclusive cumsum of a 1-D float64 vector in XLA's CPU order (see
+    ``ops/groupby.py`` ``_scan_sum16`` for ``rows``): the plain version
+    for a CPU tensor, the kernel for a CUDA one."""
+    if v.device.type == "cpu":
+        return scan_sum16_plain(v, rows)
+    if not v.is_cuda:
+        raise ValueError(f"v must be a CUDA tensor, got {v.device}")
+    n = v.shape[0]
+    if (n if rows is None else rows) < 2 or n == 0:
+        return v.clone()
+    v = v.contiguous()
+    require_cuda(v, "v", torch.float64, (n,))
+    out = _scan_cuda(v)
+    SCAN16.launches += 1
+    return out

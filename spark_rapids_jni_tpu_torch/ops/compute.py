@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 import torch
 
 from .. import dtype as dt
@@ -51,3 +53,97 @@ def merge_validity(*cols: Column) -> Optional[torch.Tensor]:
     for m in masks[1:]:
         out = out & m
     return out
+
+
+# ---------------------------------------------------------------------------
+# value conversions with the JAX package's (XLA's) semantics
+# ---------------------------------------------------------------------------
+
+#: torch dtype of each value dtype (numpy) the ops compute in
+TORCH_OF = {
+    np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.uint32): torch.uint32, np.dtype(np.uint64): torch.uint64,
+    np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+    np.dtype(np.bool_): torch.bool,
+}
+NP_OF = {v: k for k, v in TORCH_OF.items()}
+#: unsigned dtypes that torch computes little with: they travel as int64
+#: carriers (values for 16 and 32 bits, the bit pattern for 64)
+WIDE_UNSIGNED = {torch.uint16: 16, torch.uint32: 32, torch.uint64: 64}
+
+
+def to_carrier(v: torch.Tensor) -> torch.Tensor:
+    """Values -> the tensor the ops compute on: uint16/uint32 as int64
+    values, uint64 as its int64 bit pattern, every other dtype as it is."""
+    if v.dtype == torch.uint64:
+        return v.view(torch.int64)
+    if v.dtype in WIDE_UNSIGNED:
+        return v.to(torch.int64)
+    return v
+
+
+def from_carrier(c: torch.Tensor, to: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`to_carrier` for the value dtype ``to``; integer
+    carriers wrap to its width."""
+    bits = WIDE_UNSIGNED.get(to)
+    if bits == 64:
+        return c.to(torch.int64).view(torch.uint64)
+    if bits is not None:
+        return (c.to(torch.int64) & ((1 << bits) - 1)).to(to)
+    return c if c.dtype == to else c.to(to)
+
+
+def _float_to_int(v: torch.Tensor, to: torch.dtype) -> torch.Tensor:
+    """XLA's float -> integer convert: truncation toward zero, saturated
+    to the target's range, NaN -> 0. The bounds are taken in float64,
+    never through torch's conversion of NaN, inf or out-of-range values
+    (undefined on CUDA)."""
+    f = v.to(torch.float64)
+    nan = torch.isnan(f)
+    f = torch.where(nan, 0.0, f)
+    if to == torch.int64:
+        top = f >= 2.0**63
+        body = f.clamp(-(2.0**63), 2.0**63 - 1024).to(torch.int64)
+        return torch.where(top, torch.iinfo(torch.int64).max, body)
+    if to == torch.uint64:
+        f = f.clamp(min=0.0)
+        top = f >= 2.0**64
+        high = f >= 2.0**63
+        lo = torch.where(high, 0.0, f).to(torch.int64)
+        hi = (torch.where(high, f - 2.0**63, 0.0).clamp(max=2.0**63 - 2048)
+              .to(torch.int64) ^ (-(2**63)))
+        bits = torch.where(top, -1, torch.where(high, hi, lo))
+        return bits.view(torch.uint64)
+    info = np.iinfo(NP_OF[to])
+    return from_carrier(f.clamp(float(info.min), float(info.max))
+                        .to(torch.int64), to)
+
+
+def astype(v: torch.Tensor, to: torch.dtype) -> torch.Tensor:
+    """``v.astype(to)`` as the JAX package computes it on values:
+    integers wrap, floats -> integers saturate (:func:`_float_to_int`),
+    anything -> bool is ``!= 0``."""
+    if v.dtype == to:
+        return v
+    if to == torch.bool:
+        return to_carrier(v) != 0
+    if to.is_floating_point:
+        if v.dtype in (torch.uint16, torch.uint32):
+            return v.to(torch.int64).to(to)
+        return v.to(to)
+    if v.is_floating_point():
+        return _float_to_int(v, to)
+    return from_carrier(to_carrier(v).to(torch.int64), to)
+
+
+def flush_subnormal(v: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats -> zero of the same sign. The JAX package's CPU
+    code runs with denormals flushed, inputs and results alike (its TPU
+    has none), so the float ops flush what they read and what they
+    return."""
+    if not v.is_floating_point():
+        return v
+    tiny = torch.finfo(v.dtype).tiny
+    return torch.where(v.abs() < tiny, v * 0.0, v)

@@ -56,17 +56,29 @@ class GroupbyAgg:
             raise ValueError(f"unknown aggregation {self.op!r}")
 
 
-def _segment_ids(key_cols: Sequence[Column]):
-    """(perm, seg, starts, ends) of a stable sort by the key words."""
+def _group_words(key_cols: Sequence[Column],
+                 row_valid: Optional[torch.Tensor] = None) -> list:
+    """The sort words of a groupby: a leading occupancy word when
+    ``row_valid`` is given (padding rows last), then per key column a
+    validity word (null keys group together, first) and its order words
+    with null rows set to the u64 word 0."""
     words: list[torch.Tensor] = []
+    if row_valid is not None:
+        words.append((~row_valid).to(torch.int64))
     for c in key_cols:
         ks = keys_mod.column_order_keys(c)
         if c.validity is not None:
-            # null key rows group together (validity word 0 sorts first)
             words.append(c.validity.to(torch.int64))
-            words.extend(torch.where(c.validity, w, keys_mod.SIGN64) for w in ks)
+            words.extend(torch.where(c.validity, w, keys_mod.SIGN64)
+                         for w in ks)
         else:
             words.extend(ks)
+    return words
+
+
+def _sorted_segments(words):
+    """(perm, seg, boundary) of a stable sort by ``words``: segment ids
+    count the rows where any word changes."""
     perm = lexsort(words)
     n = perm.shape[0]
     boundary = torch.zeros(n, dtype=torch.bool, device=perm.device)
@@ -74,9 +86,14 @@ def _segment_ids(key_cols: Sequence[Column]):
     for w in words:
         sw = w[perm]
         boundary[1:] |= sw[1:] != sw[:-1]
-    seg = torch.cumsum(boundary, 0) - 1
+    return perm, torch.cumsum(boundary, 0) - 1, boundary
+
+
+def _segment_ids(key_cols: Sequence[Column]):
+    """(perm, seg, starts, ends) of a stable sort by the key words."""
+    perm, seg, boundary = _sorted_segments(_group_words(key_cols))
     starts = torch.nonzero(boundary).flatten()
-    ends = torch.cat([starts[1:], starts.new_tensor([n])])
+    ends = torch.cat([starts[1:], starts.new_tensor([perm.shape[0]])])
     return perm, seg, starts, ends
 
 
@@ -114,6 +131,20 @@ def _scan_sum16(v: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     return out.reshape(-1)[:n]
 
 
+def _cumsum(vals: torch.Tensor, rows: Optional[int]) -> torch.Tensor:
+    """Running sums for the segment sums: integers by ``torch.cumsum``
+    (exact, whatever the order), floats in XLA's scan order (FLOAT64
+    through ``kernels/scan16.py``: the scan16 kernel on CUDA,
+    :func:`_scan_sum16` on the CPU)."""
+    if not vals.is_floating_point():
+        return torch.cumsum(vals, 0)
+    if vals.dtype != torch.float64:
+        return _scan_sum16(vals, rows)
+    from ..kernels.scan16 import scan_sum16
+
+    return scan_sum16(vals, rows)
+
+
 def _segment_sum(vals: torch.Tensor, starts, ends,
                  rows: Optional[int] = None) -> torch.Tensor:
     """Per-segment sums of row-sorted ``vals`` as cumsum differences
@@ -122,10 +153,7 @@ def _segment_sum(vals: torch.Tensor, starts, ends,
     reads garbage (at
     the front, ``c[-1]``): the packed groupby, whose partial slots can be
     empty, masks those; the exact path has none."""
-    if vals.is_floating_point():
-        c = _scan_sum16(vals, rows)
-    else:
-        c = torch.cumsum(vals, 0)
+    c = _cumsum(vals, rows)
     hi = c[ends - 1]
     lo = torch.where(starts > 0, c[(starts - 1).clamp(min=0)],
                      torch.zeros((), dtype=c.dtype, device=c.device))
@@ -251,7 +279,7 @@ def groupby_aggregate(
         if a.op not in PORTED_AGGS:
             raise NotImplementedError(
                 f"groupby aggregation {a.op!r} is not ported yet: it lands "
-                "with the rest of ops/groupby.py (ROADMAP Queue 1, item 10)"
+                "with the rest of ops/groupby.py (ROADMAP Queue 1, item 5)"
             )
     key_cols = [table.column(c) for c in by]
     out_names = [_out_name(table, c, f"key{i}") for i, c in enumerate(by)]
@@ -291,3 +319,107 @@ def _empty_result(table, key_cols, aggs, out_names) -> Table:
         cols.append(Column(torch.zeros(0, dtype=out.storage_dtype,
                                        device=dev), out, no_rows))
     return Table(cols, out_names)
+
+
+# ---------------------------------------------------------------------------
+# capped groupby: a static segment count, a device group count
+# ---------------------------------------------------------------------------
+
+
+def _capped_segment_sum(vals: torch.Tensor, starts, ends, rows: int):
+    """The JAX package's ``_sorted_segment_sum``: cumsum differences over
+    all ``rows`` sorted rows (floats in XLA's scan order), 0 for an empty
+    segment."""
+    n = vals.shape[0]
+    c = _cumsum(vals, rows)
+    hi = c[_clip_rows(ends.to(torch.int64) - 1, n)]
+    lo = torch.where(starts > 0, c[_clip_rows(starts.to(torch.int64) - 1, n)],
+                     torch.zeros((), dtype=c.dtype, device=c.device))
+    return torch.where(ends > starts, hi - lo,
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+
+
+def _capped_aggregate(col: Column, op: str, perm, seg, starts, ends,
+                      row_valid, num_segments: int) -> Column:
+    """One aggregation of the capped groupby, with the JAX package's bytes
+    in every one of its ``num_segments`` rows."""
+    if col.dtype.id == dt.TypeId.DECIMAL128:
+        raise NotImplementedError(
+            "DECIMAL128 aggregation is not ported yet (ops/int128 slice)")
+    n = perm.shape[0]
+    vals = compute.values(col)[perm]
+    valid = compute.valid_mask(col)
+    if row_valid is not None:
+        valid = valid & row_valid
+    valid = valid[perm]
+    n_valid = _capped_segment_sum(valid.to(torch.int64), starts, ends, n)
+    has = n_valid > 0
+    if op == "count":
+        return Column(n_valid, dt.INT64, None)
+    if op == "sum":
+        acc = torch.float64 if col.dtype.is_floating else torch.int64
+        v = compute.astype(torch.where(valid, vals, torch.zeros_like(vals)),
+                           acc)
+        total = _capped_segment_sum(v, starts, ends, n)
+        return compute.from_values(total, _sum_dtype(col.dtype), has)
+    # min / max: masked sentinels; a segment's extreme is the value the
+    # JAX package's segmented scan holds at the segment's last row, and an
+    # empty segment (past the groups) reads the last row's segment's
+    is_min = op == "min"
+    if col.dtype.is_floating:
+        sentinel = np.inf if is_min else -np.inf
+    elif col.dtype.is_boolean:
+        sentinel = is_min
+    else:
+        info = np.iinfo(compute.NP_OF[vals.dtype])
+        sentinel = int(info.max if is_min else info.min)
+    masked = torch.where(valid, vals, torch.full_like(vals, sentinel))
+    ext = _sorted_segment_extreme(masked, seg, ends, is_min)
+    out = ext[seg[_clip_rows(ends.to(torch.int64) - 1, n)].clamp(
+        max=num_segments - 1)]
+    return compute.from_values(out, col.dtype, has)
+
+
+def groupby_aggregate_capped(
+    table: Table,
+    by: Sequence[Union[int, str]],
+    aggs: Sequence[GroupbyAgg],
+    num_segments: int,
+    row_valid: Optional[torch.Tensor] = None,
+) -> tuple[Table, torch.Tensor]:
+    """Groupby with a static output size: (result of ``num_segments``
+    rows, device group count). Keys and values past the count are null.
+    ``row_valid`` False rows (padding) sort behind every real row, behind
+    a leading occupancy word, and the count is the highest segment that
+    holds a valid row. Only sum/count/min/max are ported."""
+    for a in aggs:
+        if a.op not in PORTED_AGGS:
+            raise NotImplementedError(
+                f"groupby aggregation {a.op!r} is not ported yet: it lands "
+                "with the rest of ops/groupby.py (ROADMAP Queue 1, item 5)")
+    key_cols = [table.column(c) for c in by]
+    n = table.row_count
+    perm, seg, _ = _sorted_segments(_group_words(key_cols, row_valid))
+    if row_valid is not None:
+        rv_sorted = row_valid[perm]
+        num_groups = torch.where(rv_sorted, seg + 1, 0).max()
+    else:
+        num_groups = seg[-1] + 1
+    starts, ends = _segment_bounds(seg, num_segments)
+    in_range = torch.arange(num_segments, device=perm.device) < num_groups
+    first_rows = perm[_clip_rows(starts.to(torch.int64), n)]
+    out_cols, out_names = [], []
+    for i, (c, col) in enumerate(zip(by, key_cols)):
+        valid = compute.valid_mask(col)[first_rows] & in_range
+        out_cols.append(Column(
+            col.data[first_rows], col.dtype, valid,
+            None if col.lengths is None else col.lengths[first_rows]))
+        out_names.append(_out_name(table, c, f"key{i}"))
+    for a in aggs:
+        r = _capped_aggregate(table.column(a.column), a.op, perm, seg, starts,
+                              ends, row_valid, num_segments)
+        valid = compute.valid_mask(r) & in_range
+        out_cols.append(Column(r.data, r.dtype, valid, r.lengths))
+        out_names.append(
+            a.name or f"{a.op}_{_out_name(table, a.column, f'c{a.column}')}")
+    return Table(out_cols, out_names), num_groups

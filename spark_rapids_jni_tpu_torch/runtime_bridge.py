@@ -7,12 +7,18 @@ BOOL8 as one 0/1 byte), per-column 0/1 validity byte vectors, and LIST
 columns as int32 offsets[n+1] followed by the child values, with the
 child type id in the scale slot.
 
-Tables stay resident on the device between calls: ``table_upload_wire``
-returns an id, ``table_plan_resident`` runs a plan over ids and returns
-a new id, ``table_download_wire`` serializes one, ``table_free`` drops
-it. Only ``from_rows``, ``filter``, ``join`` (inner), ``groupby``,
-``sort_by``, ``partition`` and ``to_rows`` are ported; every other op of
-``DISPATCH_OPS`` raises :class:`UnsupportedOpError`.
+``table_op_wire`` and ``table_plan_wire`` take one wire table and give
+back the wire 5-tuple: bytes in, bytes out. Otherwise tables stay
+resident on the device between calls: ``table_upload_wire`` returns an
+id, ``table_plan_resident`` runs a plan over ids and returns a new id,
+``table_download_wire`` serializes one, ``table_free`` drops it. Every
+entry that runs ops checks them first (``plancheck.check_plan``), before
+any upload or donation. Only ``from_rows`` (a LIST<UINT8> row column or
+a legacy flat UINT8 buffer), ``filter``, ``cast``, ``join`` (inner),
+``groupby``, ``sort_by``, ``partition`` and ``to_rows`` are ported; every
+other op of ``DISPATCH_OPS`` raises :class:`UnsupportedOpError`. The JAX
+package pads wire tables to a shape bucket; the port runs exact shapes,
+which gives the same logical rows.
 """
 
 from __future__ import annotations
@@ -33,17 +39,6 @@ from .column import (
 
 class UnsupportedOpError(NotImplementedError):
     """A dispatch op of the JAX package that the port does not run yet."""
-
-
-class PlanCheckError(ValueError):
-    """A plan that cannot run, found before any input is touched (the JAX
-    package's ``plancheck.PlanCheckError``, with its message shape)."""
-
-    def __init__(self, index: int, op_name, reason: str):
-        self.index = index
-        self.op_name = op_name
-        self.reason = reason
-        super().__init__(f"plancheck: op[{index}] {op_name!r}: {reason}")
 
 
 def _wire_np(d: dt.DType) -> np.dtype:
@@ -180,10 +175,11 @@ DISPATCH_OPS = frozenset({
     "partition", "to_rows", "from_rows",
 })
 #: The ops this slice of the port runs.
-PORTED_OPS = frozenset({"join", "groupby", "filter", "sort_by", "partition",
-                        "to_rows", "from_rows"})
-#: Ops whose only route is a kernel of the tier: the row transpose has no
-#: second implementation, so a decline means an input not ported yet.
+PORTED_OPS = frozenset({"join", "groupby", "filter", "cast", "sort_by",
+                        "partition", "to_rows", "from_rows"})
+#: Ops whose only route is a kernel: the row transpose has no second
+#: implementation, so it runs K1a/K1b whatever the tier's gate, and a
+#: decline means an input not ported yet.
 _KERNEL_ONLY = {"to_rows": "row_pack", "from_rows": "row_unpack"}
 
 
@@ -210,10 +206,21 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
         raise UnsupportedOpError(
             f"table op {name!r} is not ported to the PyTorch package yet"
         )
+    if name == "from_rows" and table.columns[0].dtype.id != dt.TypeId.LIST:
+        return _from_flat_rows(op, table)
     if name in _KERNEL_ONLY:
-        reason = kernel_registry.decline_reason(_KERNEL_ONLY[name], op, table,
-                                                rest)
-        raise UnsupportedOpError(f"{name}: {reason} (not ported yet)")
+        kernel = _KERNEL_ONLY[name]
+        reason = kernel_registry.decline_reason(kernel, op, table, rest)
+        if reason is not None:
+            raise UnsupportedOpError(f"{name}: {reason} (not ported yet)")
+        return kernel_registry.run_kernel(kernel, op, table, rest)
+    if name == "cast":
+        from .ops.cast import cast
+
+        target = dt.DType(dt.TypeId(op["type_id"]), op.get("scale", 0))
+        out = list(table.columns)
+        out[op["column"]] = cast(table.columns[op["column"]], target)
+        return Table(out, table.names)
     if name == "join":
         how = op.get("how", "inner")
         if how != "inner":
@@ -238,76 +245,23 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
     return ops.filter_table(Table(keep), mask)
 
 
-def _int_refs(refs) -> list:
-    """The integer column indices among ``refs`` (names are resolved at
-    run time against the table's names)."""
-    return [r for r in refs if isinstance(r, int) and not isinstance(r, bool)]
+def _from_flat_rows(op: dict, table: Table) -> Table:
+    """``from_rows`` of a legacy flat UINT8 buffer: one column of
+    ``num_rows * row_size`` bytes, unpacked by K1b like a row column."""
+    from . import rows as rows_mod
 
-
-def check_plan(ops, width: int, rest_widths: Sequence[int]) -> None:
-    """Host-only check of a plan before it runs: every op is known and
-    ported, and every integer mask, column and key index is in range for
-    the column count that flows into its op (``width`` for the chain
-    input, ``rest_widths`` for the tables joins take). Raises
-    :class:`PlanCheckError` (or :class:`UnsupportedOpError` for a known op
-    that is not ported) so a caller can refuse the plan before it donates
-    an input. What the count cannot follow past an op (a name reference,
-    an explicit ``rest``) stops the index checks there; the run itself
-    still checks everything."""
-    queue = list(rest_widths)
-
-    def in_range(i, name, what, refs, w):
-        for r in _int_refs(refs):
-            if not 0 <= r < w:
-                raise PlanCheckError(
-                    i, name, f"{what} index {r} out of range for {w}-column "
-                    "input")
-
-    for i, op in enumerate(ops):
-        if not isinstance(op, dict) or "op" not in op:
-            raise PlanCheckError(i, None, "plan entries must be op objects, "
-                                 f"got {op!r}")
-        name = op["op"]
-        if name not in DISPATCH_OPS:
-            raise PlanCheckError(i, name, f"unknown table op {name!r}")
-        if name not in PORTED_OPS:
-            raise UnsupportedOpError(
-                f"table op {name!r} is not ported to the PyTorch package yet")
-        if width is None:
-            continue
-        if name == "filter":
-            in_range(i, name, "filter mask", [op.get("mask")], width)
-            width -= 1
-        elif name == "join":
-            if "rest" in op or not queue:
-                width = None
-                continue
-            right = queue.pop(0)
-            on = op.get("on", [])
-            on = on if isinstance(on, list) else [on]
-            in_range(i, name, "join 'on'", on, width)
-            in_range(i, name, "join 'on' (right table)", on, right)
-            keys = _int_refs(on)
-            width = (width + right - len(set(keys)) if len(keys) == len(on)
-                     else None)
-        elif name == "groupby":
-            by, aggs = op.get("by", []), op.get("aggs", [])
-            in_range(i, name, "groupby 'by' column", by, width)
-            in_range(i, name, "groupby agg column",
-                     [a.get("column") for a in aggs if isinstance(a, dict)],
-                     width)
-            width = len(by) + len(aggs)
-        elif name == "sort_by":
-            in_range(i, name, "sort_by key",
-                     [k.get("column") for k in op.get("keys", [])
-                      if isinstance(k, dict)], width)
-        elif name == "partition":
-            in_range(i, name, "partition key", op.get("keys", []), width)
-        elif name == "to_rows":
-            width = 1
-        elif name == "from_rows":
-            tids = op.get("type_ids")
-            width = len(tids) if isinstance(tids, list) else None
+    schema = [dt.DType(dt.TypeId(t), s)
+              for t, s in zip(op["type_ids"], op["scales"])]
+    layout = rows_mod.compute_fixed_width_layout(schema)
+    n = int(op["num_rows"])
+    raw = table.columns[0].data
+    if raw.numel() != n * layout.row_size:
+        raise ValueError(
+            f"flat row buffer of {raw.numel()} bytes is not {n} rows of "
+            f"{layout.row_size} bytes")
+    return rows_mod.from_rows(
+        rows_mod.PackedRows(raw.reshape(n, layout.row_size).contiguous(),
+                            layout), schema)
 
 
 def _partition(op: dict, table: Table) -> Table:
@@ -385,10 +339,11 @@ def table_plan_resident(
     """Run a plan (a JSON list of ops) over resident tables; the result
     stays resident. ``table_ids[0]`` is the chain input, the other ids
     feed multi-table ops (see ``plan._take_rest``). The plan is checked
-    first (:func:`check_plan`); ``donate=True`` then frees
-    ``table_ids[0]`` when the plan starts, so a rejected plan leaves it
-    live."""
+    first (``plancheck.check_plan`` on the tables' schemas);
+    ``donate=True`` then frees ``table_ids[0]`` when the plan starts, so
+    a rejected plan leaves it live."""
     from . import plan as plan_mod
+    from . import plancheck
 
     if not table_ids:
         raise ValueError("table_plan_resident needs at least one input")
@@ -396,10 +351,64 @@ def table_plan_resident(
     if not isinstance(ops, list):
         raise TypeError("table_plan_resident: plan must be a JSON list of ops")
     tables = [_resident_get(t) for t in table_ids]
-    check_plan(ops, tables[0].num_columns, [t.num_columns for t in tables[1:]])
+    plancheck.check_plan(
+        ops, schema=plancheck.schema_of_table(tables[0]),
+        rows=tables[0].logical_row_count,
+        rest=[(plancheck.schema_of_table(t), t.logical_row_count)
+              for t in tables[1:]],
+        names=tables[0].names)
     if donate:
         table_free(table_ids[0])
     return _resident_put(plan_mod.run_plan(ops, tables[0], tables[1:]))
+
+
+def _check_wire_plan(ops, type_ids, scales, num_rows: int) -> None:
+    from . import plancheck
+
+    plancheck.check_plan(ops, schema=plancheck.schema_from_wire(
+        type_ids, scales), rows=int(num_rows))
+
+
+def table_op_wire(
+    op_json: str,
+    type_ids: Sequence[int],
+    scales: Sequence[int],
+    datas: Sequence[Optional[bytes]],
+    valids: Sequence[Optional[bytes]],
+    num_rows: int,
+    device: Union[str, torch.device] = "cuda",
+):
+    """One op over one wire table: bytes in, the wire 5-tuple out. The op
+    is checked on the wire schema before the upload."""
+    op = json.loads(op_json)
+    _check_wire_plan([op], type_ids, scales, num_rows)
+    tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
+                           resolve_device(device))
+    return _table_to_wire(_dispatch_once(op, tbl, (), op["op"]))
+
+
+def table_plan_wire(
+    plan_json: str,
+    type_ids: Sequence[int],
+    scales: Sequence[int],
+    datas: Sequence[Optional[bytes]],
+    valids: Sequence[Optional[bytes]],
+    num_rows: int,
+    device: Union[str, torch.device] = "cuda",
+):
+    """A plan (a JSON list of ops) over one wire table: the plan is
+    checked on the wire schema before the upload, runs over the uploaded
+    table (``plan.run_plan``) and comes back as the wire 5-tuple. A plan
+    has one input table, so a ``join`` in it is refused."""
+    from . import plan as plan_mod
+
+    ops = json.loads(plan_json)
+    if not isinstance(ops, list):
+        raise TypeError("table_plan_wire: plan must be a JSON list of ops")
+    _check_wire_plan(ops, type_ids, scales, num_rows)
+    tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
+                           resolve_device(device))
+    return _table_to_wire(plan_mod.run_plan(ops, tbl))
 
 
 def table_download_wire(table_id: int):

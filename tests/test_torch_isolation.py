@@ -16,13 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from spark_rapids_jni_tpu_torch import Column, Table, kernels, rows
+import inspect
+
+from spark_rapids_jni_tpu_torch import Column, Table, graft_entry, kernels, rows
 from spark_rapids_jni_tpu_torch import dtype as dt
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
 from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
 from spark_rapids_jni_tpu_torch.kernels import hashing as kh
 from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
+from spark_rapids_jni_tpu_torch.kernels import scan16 as sc
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spark_rapids_jni_tpu_torch").rglob("*.py"))
@@ -57,13 +60,18 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"runtime_bridge.py", "registry.py", "hash_table.py",
             "row_transpose.py", "rows.py", "hashing.py", "bitonic_sort.py",
-            "partition.py", "groupby_packed.py", "groupby_chunked.py"} <= names
+            "partition.py", "groupby_packed.py", "groupby_chunked.py",
+            "graft_entry.py", "plancheck.py", "binaryop.py", "unaryop.py",
+            "cast.py", "config.py", "metrics.py", "scan16.py"} <= names
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():
     """Eight functions of the JAX package reach ``pl.pallas_call``; each
-    has one hand-written kernel here, counted apart."""
+    has one hand-written kernel here, counted apart. One more kernel,
+    scan16, computes the FLOAT64 cumsum of the JAX package's segment sums
+    (``jnp.cumsum``, XLA's scan) in the same add order."""
     assert {k: v.replaces for k, v in kernels.KERNELS.items()} == {
+        "scan16": "spark_rapids_jni_tpu/ops/groupby.py:164",
         "pack_rows": "spark_rapids_jni_tpu/kernels/row_transpose.py:149",
         "unpack_rows": "spark_rapids_jni_tpu/kernels/row_transpose.py:219",
         "build_table": "spark_rapids_jni_tpu/kernels/hash_table.py:134",
@@ -118,10 +126,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Column.from_numpy(np.arange(3))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Table.from_pydict({"a": np.arange(3)})
+    plan = '[{"op": "from_rows", "type_ids": [3], "scales": [0]}]'
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rb.table_plan_wire(plan, *_fact_wire())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rb.table_op_wire(plan[1:-1], *_fact_wire())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        graft_entry._example_tables()
     # the CPU is used only when asked for
     tid = rb.table_upload_wire(*_fact_wire(), device="cpu")
     assert rb.table_num_rows(tid) == 4
     rb.table_free(tid)
+    assert len(rb.table_plan_wire(plan, *_fact_wire(), device="cpu")) == 5
+    assert graft_entry.entry("cpu")[1][0].row_count == 256
+
+
+@pytest.mark.parametrize("fn", [rb.table_plan_wire, rb.table_op_wire,
+                                graft_entry.entry, graft_entry._example_tables],
+                         ids=lambda f: f.__name__)
+def test_new_entries_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def _inputs(device):
@@ -166,6 +192,7 @@ def test_cpu_tensors_take_the_plain_version_without_a_build():
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
     _hash_and_sort(keys)
+    sc.scan_sum16(torch.arange(5000, dtype=torch.float64))
     assert _counts() == before
     assert not kernels._LIBS, "importing or CPU use must not build kernels"
 
@@ -193,6 +220,8 @@ def test_other_devices_raise_instead_of_falling_back():
         bs.batched_sort_u64(keys.to(torch.int64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         bs.batched_sort_u32(keys)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sc.scan_sum16(torch.zeros(8, dtype=torch.float64, device="meta"))
 
 
 @pytest.mark.cuda
@@ -209,7 +238,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
                       (ht, "build_table_plain"), (ht, "probe_table_plain"),
                       (kh, "murmur3_plain"), (bs, "batched_sort_plain"),
                       (bs, "batched_sort_u64_plain"),
-                      (bs, "batched_sort_u32_plain")):
+                      (bs, "batched_sort_u32_plain"),
+                      (sc, "scan_sum16_plain")):
         monkeypatch.setattr(mod, name, boom)
     before = _counts()
     layout, col_bytes, valid, keys = _inputs("cuda")
@@ -217,6 +247,7 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     built = ht.build_table(keys, keys, torch.ones_like(keys), table_slots=256)
     ht.probe_table(keys, keys, torch.ones_like(keys), *built[1:4])
     _hash_and_sort(keys)
+    sc.scan_sum16(torch.arange(5000, dtype=torch.float64, device="cuda"))
     torch.cuda.synchronize()
     after = _counts()
     # the transposes ran through both of their entries

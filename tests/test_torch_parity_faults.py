@@ -31,7 +31,7 @@ from spark_rapids_jni_tpu.column import Column as JColumn
 from spark_rapids_jni_tpu.column import Table as JTable
 from spark_rapids_jni_tpu.ops import groupby_packed as jgp
 from spark_rapids_jni_tpu.ops.groupby import groupby_aggregate_capped
-from spark_rapids_jni_tpu_torch import interop, ops
+from spark_rapids_jni_tpu_torch import interop, ops, plancheck
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.ops import groupby as pgb
 from spark_rapids_jni_tpu_torch.ops import groupby_packed as pgp
@@ -255,24 +255,32 @@ def test_f3_rejected_plan_keeps_donated_input(plan):
 def test_f3_check_follows_the_column_count():
     """Indexes are checked against the columns that flow into each op:
     after a filter, a join and a groupby; a good plan passes."""
-    rb.check_plan([{"op": "filter", "mask": 1},
-                   {"op": "join", "on": [0]},
-                   {"op": "groupby", "by": [2],
-                    "aggs": [{"column": 0, "agg": "sum"}]},
-                   {"op": "sort_by", "keys": [{"column": 1}]}], 3, [3])
-    with pytest.raises(rb.PlanCheckError, match=r"op\[1\] 'sort_by'"):
-        rb.check_plan([{"op": "filter", "mask": 0},
-                       {"op": "sort_by", "keys": [{"column": 2}]}], 3, [])
-    with pytest.raises(rb.PlanCheckError, match="right table"):
-        rb.check_plan([{"op": "join", "on": [2]}], 3, [2])
-    with pytest.raises(rb.PlanCheckError, match="agg column"):
-        rb.check_plan([{"op": "to_rows"},
-                       {"op": "from_rows", "type_ids": [4, 4],
-                        "scales": [0, 0]},
-                       {"op": "groupby", "by": [0],
-                        "aggs": [{"column": 2, "agg": "sum"}]}], 3, [])
-    with pytest.raises(rb.UnsupportedOpError, match="cast"):
-        rb.check_plan([{"op": "cast"}], 1, [])
+    i64, b8 = plancheck.ColType(4), plancheck.ColType(11)
+    three = [i64, b8, i64]
+    plancheck.check_plan([{"op": "filter", "mask": 1},
+                          {"op": "join", "on": [0]},
+                          {"op": "groupby", "by": [2],
+                           "aggs": [{"column": 0, "agg": "sum"}]},
+                          {"op": "sort_by", "keys": [{"column": 1}]}],
+                         schema=three, rest=[([i64, i64, i64], None)])
+    with pytest.raises(plancheck.PlanCheckError, match=r"op\[1\] 'sort_by'"):
+        plancheck.check_plan([{"op": "filter", "mask": 1},
+                              {"op": "sort_by", "keys": [{"column": 2}]}],
+                             schema=three)
+    with pytest.raises(plancheck.PlanCheckError, match="right table"):
+        plancheck.check_plan([{"op": "join", "on": [2]}], schema=three,
+                             rest=[([i64, i64], None)])
+    with pytest.raises(plancheck.PlanCheckError, match="agg column"):
+        plancheck.check_plan([{"op": "to_rows"},
+                              {"op": "from_rows", "type_ids": [4, 4],
+                               "scales": [0, 0]},
+                              {"op": "groupby", "by": [0],
+                               "aggs": [{"column": 2, "agg": "sum"}]}],
+                             schema=three)
+    with pytest.raises(plancheck.PlanCheckError, match="'column'"):
+        plancheck.check_plan([{"op": "cast"}], schema=[i64])
+    with pytest.raises(rb.UnsupportedOpError, match="rlike"):
+        plancheck.check_plan([{"op": "rlike", "column": 0}], schema=[i64])
 
 
 def test_f4_zero_row_to_rows_matches_jax():

@@ -25,10 +25,11 @@ from spark_rapids_jni_tpu.column import Table as JTable
 from spark_rapids_jni_tpu.ops import keys as jkeys
 from spark_rapids_jni_tpu.ops.groupby import groupby_aggregate_capped
 from spark_rapids_jni_tpu.utils import config, metrics
-from spark_rapids_jni_tpu_torch import interop, ops, rows
+from spark_rapids_jni_tpu_torch import interop, ops, plancheck, rows
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.kernels import registry
 from spark_rapids_jni_tpu_torch.ops import keys
+from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
 
 def _jax_buffers(t: JTable) -> list:
@@ -286,6 +287,7 @@ def _kernel_flags():
     config.clear_flag("KERNELS")
     config.clear_flag("METRICS")
     metrics.reset()
+    pconfig.clear_flag("KERNELS")
 
 
 def test_slice_plan_matches_jax(_kernel_flags, monkeypatch):
@@ -319,8 +321,9 @@ def test_slice_plan_matches_jax(_kernel_flags, monkeypatch):
         rb.table_free(t)
 
 
-def test_kernel_tier_declines_semantically():
+def test_kernel_tier_declines_semantically(_kernel_flags):
     """The JAX tier's semantic declines send the op to the exact path."""
+    pconfig.set_flag("KERNELS", "on")  # CPU tensors: the tier's plain route
     rng = np.random.default_rng(5)
     left = _port(_jtable(rng, 200, key_range=20))
     dup_right = _port(_jtable(rng, 50, key_range=10))  # repeated keys
@@ -346,9 +349,10 @@ def test_unported_ops_raise_typed():
             [PLAN[0], {"op": "rlike", "column": 0, "pattern": "a"}]), [fid])
     with pytest.raises(ValueError, match="unknown table op"):
         rb.table_plan_resident(json.dumps([{"op": "nope"}]), [fid])
-    # a declined row kernel is the only route of from_rows: it raises
+    # from_rows of a table that is neither a row column nor a flat UINT8
+    # buffer is refused by the plan check, before it runs
     cols = rb.table_plan_resident(json.dumps([PLAN[0]]), [fid])
-    with pytest.raises(rb.UnsupportedOpError, match="flat UINT8"):
+    with pytest.raises(plancheck.PlanCheckError, match="flat UINT8"):
         rb.table_plan_resident(json.dumps([PLAN[0]]), [cols])
     with pytest.raises(rb.UnsupportedOpError, match="'rest'"):
         rb.table_plan_resident(json.dumps([dict(PLAN[2], rest=[0])]),

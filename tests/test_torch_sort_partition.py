@@ -27,6 +27,7 @@ from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
 from spark_rapids_jni_tpu_torch.kernels import registry
 from spark_rapids_jni_tpu_torch.ops import partition
+from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
 EDGES = (1023, 1024, 1025)
 
@@ -96,6 +97,7 @@ def _flags():
     config.clear_flag("KERNELS")
     config.clear_flag("METRICS")
     metrics.reset()
+    pconfig.clear_flag("KERNELS")
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +161,8 @@ def test_partition_rejects_bad_ops():
     wire = _wire(_jtable(np.random.default_rng(0), 32))
     tid = rb.table_upload_wire(*wire, device="cpu")
     for op, err in (({"kind": "hash", "num": 0}, "num must be >= 1"),
-                    ({"kind": "range", "num": 2}, "needs keys"),
+                    ({"kind": "range", "num": 2},
+                     "needs a non-empty 'keys' list"),
                     ({"kind": "spread", "num": 2}, "unknown partition kind")):
         with pytest.raises(ValueError, match=err):
             rb.table_plan_resident(json.dumps([dict(op, op="partition")]),
@@ -211,6 +214,7 @@ def test_sort_kernel_tiers_match(n, asc, _flags):
     want = tuple(_wire(jout))
     pt = _port(jt)
     assert registry.decline_reason("packed_sort", op, pt, ()) is None
+    pconfig.set_flag("KERNELS", "on")  # CPU tensors: the tier's plain route
     before = bs.SORT.launches
     tier = registry.dispatch_kernel(op, pt, (), "sort_by")
     assert bs.SORT.launches == before  # CPU tensors: the plain version ran
