@@ -53,6 +53,24 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     numpy, once with SPARK_RAPIDS_TPU_KERNELS=on and once off (equal
     5-tuples; the tier's launch and decline counters printed for each);
     then a 2^20-row legacy flat UINT8 input.
+(i) the rest of the dispatch plane — four resident plans through
+    ``table_upload_wire`` + ``table_plan_resident`` over (a)'s batch:
+    (i1) a LEFT SEMI join with the ~20,400 items of one category (K2a +
+    K2b through the kernel tier), then per-day mean/variance/std of the
+    quantity and first/last customer, sorted, to rows; (i2) a LEFT ANTI
+    join with the same items, then SELECT DISTINCT customer, date; (i3) a
+    LEFT OUTER join with SF100 customer (2,000,000 keys, every 20th left
+    out; birth year 3.5 % null), then count/nunique(item)/sum(quantity)
+    by birth year; (i4) UNION ALL of two 2^23-row batches (an explicit
+    ``rest``), FULL OUTER join with item, counts by category. Each is
+    held against a numpy oracle (integers exact, floats within 1e-9),
+    (i1) also byte for byte against the port's own CPU run; then 5 timed
+    runs and a profiled window.
+(j) every other new op once at 2^20 rows through ``table_op_resident``
+    (right join, cross_join of 1,826 dates x 10 categories, slice,
+    repeat, sample with and without replacement, collect_list/collect_set
+    by day, a donated input) and at the ops level (distinct_capped,
+    drop_nulls), byte for byte against the port's own CPU run.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -68,7 +86,8 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     shared-memory regime, 8192-row chunks, the join's 2^19 slots); K2b on
     those tables (``phase_probe_cases``: the groupby's chunks, the
     one-home-slot chain, max_probes 2, null, absent and unaligned
-    queries, more chunks than the grid's y limit). The registers, spills
+    queries, more chunks than the grid's y limit); K2a and K2b also at
+    (i1)'s semi shapes. The registers, spills
     and shared memory that ``nvcc -Xptxas -v`` reported for each kernel
     of the build are printed first.
 
@@ -1655,8 +1674,9 @@ def phase_scan16(n: int, seed: int, launches: int) -> dict:
     out = {}
     for name, fn in (("scan_sum16", lambda: _scan_sum16(v, n)),
                      ("cumsum", lambda: torch.cumsum(v, 0))):
-        # 5 calls: the plain scan's host work (~90 launches) must fit
-        # behind ahead_ms's longest sleep
+        # the plain scan's ~500 launches a call (its subnormal flushes)
+        # fill the launch queue behind ahead_ms's sleep, so its device
+        # time a call comes back None: not measured
         dev, host = ahead_ms(fn, 5)
         out[name] = {"ms": cuda_ms(fn, 20), "ahead_ms": dev, "host_ms": host}
     log(f"(g) step 0: at {n} FLOAT64 rows _scan_sum16 {out['scan_sum16']} "
@@ -1762,11 +1782,13 @@ def phase_query_step(kernels, q: dict, seed: int) -> dict:
 
     profile = profile_plan(run, median, "(g)")
     step0 = phase_scan16(q["qty"].shape[0], seed, launches["scan16"])
-    share = step0["scan_sum16"]["ahead_ms"] / profile["device_ms"]
-    log(f"(g) step 0: the plain _scan_sum16's "
-        f"{step0['scan_sum16']['ahead_ms']:.4f} ms of device time is "
-        f"{100 * share:.1f} % of (g)'s {profile['device_ms']:.3f} ms a run "
-        f"(which runs the scan16 kernel)")
+    plain = step0["scan_sum16"]["ahead_ms"]
+    share = None if plain is None else plain / profile["device_ms"]
+    log(f"(g) step 0: the plain _scan_sum16's device time a call is "
+        + ("not measured (its launches outrun the sleep)" if plain is None
+           else f"{plain:.4f} ms, {100 * share:.1f} % of (g)'s "
+                f"{profile['device_ms']:.3f} ms a run (which runs the "
+                f"scan16 kernel)"))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"(g) query_step differs: {bad}")
@@ -1868,6 +1890,396 @@ def phase_wire_plan(kernels, d: dict) -> dict:
             "flat_launches": flat_launches}
 
 
+# ---------------------------------------------------------------------------
+# (i) and (j): the rest of the dispatch plane
+# ---------------------------------------------------------------------------
+
+CUSTOMER_ROWS = 2_000_000  # TPC-DS SF100 customer
+CATEGORY = 1  # (i1)/(i2): the items with i_category_id 1
+OPS_ROWS = 1 << 20  # (j)
+DISPATCH_RTOL = 1e-9  # (i1)'s float statistics against numpy's
+DISPATCH_KERNELS = {
+    "i1": ("unpack_rows", "build_table", "probe_table", "scan16",
+           "pack_rows"),
+    "i2": ("unpack_rows", "build_table", "probe_table", "pack_rows"),
+    "i3": ("unpack_rows", "pack_rows"),
+    "i4": ("unpack_rows", "pack_rows"),
+}
+I1_AGGS = ([{"column": 3, "agg": a} for a in ("mean", "variance", "std")]
+           + [{"column": 1, "agg": "first"}, {"column": 1, "agg": "last"},
+              {"column": 3, "agg": "count"}])
+DISPATCH_PLANS = {
+    # WHERE ss_item_sk IN (items of one category), then per-day statistics
+    "i1": [FROM_FACT_ROWS, {"op": "join", "how": "semi", "on": [0]},
+           {"op": "groupby", "by": [2], "aggs": I1_AGGS},
+           {"op": "sort_by", "keys": [{"column": 0}]}, {"op": "to_rows"}],
+    # NOT EXISTS, then SELECT DISTINCT customer, date
+    "i2": [FROM_FACT_ROWS, {"op": "join", "how": "anti", "on": [0]},
+           {"op": "distinct", "keys": [1, 2]}, {"op": "to_rows"}],
+    # sales LEFT OUTER JOIN customer, by birth year
+    "i3": [FROM_FACT_ROWS, {"op": "join", "how": "left", "on": [1]},
+           {"op": "groupby", "by": [5],
+            "aggs": [{"column": 0, "agg": "count"},
+                     {"column": 0, "agg": "nunique"},
+                     {"column": 3, "agg": "sum"}]},
+           {"op": "to_rows"}],
+    # (batch UNION ALL batch) FULL OUTER JOIN item, by category
+    "i4": [{"op": "concat", "rest": [0]}, FROM_FACT_ROWS,
+           {"op": "join", "how": "full", "on": [0], "rest": [1]},
+           {"op": "groupby", "by": [6],
+            "aggs": [{"column": 0, "agg": "count"},
+                     {"column": 3, "agg": "count"}]},
+           {"op": "to_rows"}],
+}
+
+
+def make_dispatch_data(rng, d: dict) -> dict:
+    """(i)'s other tables: the item keys of one category, SF100's customer
+    table (every 20th key left out), and a second fact batch."""
+    items = d["i_item_sk"][d["i_category_id"] == CATEGORY]
+    sk = np.arange(1, CUSTOMER_ROWS + 1, dtype=np.int64)
+    sk = sk[sk % 20 != 0]
+    birth = rng.integers(1924, 1993, sk.shape[0]).astype(np.int32)
+    birth_ok = rng.random(sk.shape[0]) > 0.035
+    d2 = make_query_data(rng, FACT_ROWS, ITEM_ROWS)
+    return {
+        "items": items, "sk": sk, "birth": birth, "birth_ok": birth_ok,
+        "d2": d2,
+        "item_cat_wire": ([4], [0], [items.tobytes()], [None], items.shape[0]),
+        "customer_wire": ([3, 4], [0, 0], [birth.tobytes(), sk.tobytes()],
+                          [birth_ok.astype(np.uint8).tobytes(), None],
+                          sk.shape[0]),
+    }
+
+
+def wire_rows(wire, size: int) -> np.ndarray:
+    """The (n, size) packed rows of a LIST<UINT8> wire result."""
+    type_ids, scales, datas, valids, n = wire
+    if type_ids != [24] or scales != [5] or valids != [None]:
+        raise AssertionError(f"unexpected result schema {type_ids} {scales}")
+    offs = np.frombuffer(datas[0], np.int32, n + 1)
+    if not np.array_equal(offs, np.arange(n + 1) * size):
+        raise AssertionError(f"result rows are not {size} bytes each")
+    return np.frombuffer(datas[0], np.uint8, offset=4 * (n + 1)).reshape(n, size)
+
+
+def field(rows: np.ndarray, off: int, dtype) -> np.ndarray:
+    w = np.dtype(dtype).itemsize
+    return rows[:, off:off + w].copy().view(dtype)[:, 0]
+
+
+def category_mask(dd: dict) -> np.ndarray:
+    cat = np.zeros(ITEM_ROWS, bool)
+    cat[dd["items"]] = True
+    return cat
+
+
+def check_i1(d: dict, dd: dict, wire) -> dict:
+    """(i1) against numpy: dates, first/last customer, counts and validity
+    exact; mean, variance, std within DISPATCH_RTOL."""
+    m = category_mask(dd)[d["item_sk"]]
+    date, qty = d["date_sk"][m], d["quantity"][m].astype(np.float64)
+    qok, cust, cok = d["quantity_ok"][m], d["customer_sk"][m], d["customer_ok"][m]
+    keys, inv = np.unique(date, return_inverse=True)
+    g = keys.shape[0]
+    cnt = np.bincount(inv[qok], minlength=g)
+    mean = np.bincount(inv[qok], weights=qty[qok], minlength=g) / np.maximum(cnt, 1)
+    dev = (qty - mean[inv])[qok]
+    var = (np.bincount(inv[qok], weights=dev * dev, minlength=g)
+           / np.maximum(cnt - 1, 1))
+    vi = np.flatnonzero(cok)
+    first, last = np.zeros(g, np.int64), np.zeros(g, np.int64)
+    has_c = np.zeros(g, bool)
+    u, i = np.unique(inv[vi], return_index=True)
+    first[u], has_c[u] = cust[vi[i]], True
+    u, i = np.unique(inv[vi][::-1], return_index=True)
+    last[u] = cust[vi[::-1][i]]
+    rows = wire_rows(wire, 64)
+    bits = (1 | 64 | (cnt > 0) * 2 | (cnt > 1) * (4 | 8)
+            | has_c * (16 | 32)).astype(np.uint8)
+    rel = 0.0
+    for off, want, ok in ((8, mean, cnt > 0), (16, var, cnt > 1),
+                          (24, np.sqrt(var), cnt > 1)):
+        got = field(rows, off, np.float64)[ok]
+        rel = max(rel, float(np.max(np.abs(got - want[ok])
+                                    / np.maximum(np.abs(want[ok]), 1e-300))))
+    checks = {
+        "groups": rows.shape[0] == g,
+        "date": np.array_equal(field(rows, 0, np.int64), keys),
+        "first": np.array_equal(field(rows, 32, np.int64)[has_c], first[has_c]),
+        "last": np.array_equal(field(rows, 40, np.int64)[has_c], last[has_c]),
+        "count": np.array_equal(field(rows, 48, np.int64), cnt),
+        "validity": np.array_equal(rows[:, 56], bits),
+        "padding": not rows[:, 57:].any(),
+        "float_rtol": rel <= DISPATCH_RTOL,
+    }
+    return {"checks": checks, "rows_in": int(m.sum()), "groups": g,
+            "float_max_rel": rel}
+
+
+def check_i2(d: dict, dd: dict, wire) -> dict:
+    """(i2) against numpy: the first fact row of each distinct (customer,
+    date) among the rows whose item is not of the category, in order,
+    byte for byte."""
+    idx = np.flatnonzero(~category_mask(dd)[d["item_sk"]])
+    ck = np.where(d["customer_ok"][idx], d["customer_sk"][idx], -1)
+    key = (ck + 1) * 2048 + (d["date_sk"][idx] - 2_450_816)
+    _, first = np.unique(key, return_index=True)
+    want = d["rows"][idx[np.sort(first)]]
+    check_rows(wire, want)
+    return {"checks": {"rows": True}, "rows_in": int(idx.shape[0]),
+            "groups": int(want.shape[0])}
+
+
+def check_i3(d: dict, dd: dict, wire) -> dict:
+    """(i3) against numpy: per birth year (null first), the rows, the
+    distinct items and the quantity sum."""
+    cust, cok = d["customer_sk"], d["customer_ok"]
+    byear = np.zeros(CUSTOMER_ROWS + 1, np.int32)
+    bok = np.zeros(CUSTOMER_ROWS + 1, bool)
+    byear[dd["sk"]], bok[dd["sk"]] = dd["birth"], dd["birth_ok"]
+    at = np.where(cok, cust, 0)
+    g = np.where(cok & bok[at], byear[at] - 1923, 0)  # 0: the null year
+    qok = d["quantity_ok"]
+    groups = np.unique(g)
+    count = np.bincount(g, minlength=70)[groups]
+    pairs = np.unique(g * ITEM_ROWS + d["item_sk"])
+    nuniq = np.bincount(pairs // ITEM_ROWS, minlength=70)[groups]
+    total = np.bincount(g[qok], weights=d["quantity"][qok],
+                        minlength=70).astype(np.int64)[groups]
+    has = np.bincount(g[qok], minlength=70)[groups] > 0
+    rows = wire_rows(wire, 40)
+    key_ok = groups > 0
+    bits = (key_ok * 1 | 2 | 4 | has * 8).astype(np.uint8)
+    checks = {
+        "groups": rows.shape[0] == groups.shape[0],
+        "year": np.array_equal(field(rows, 0, np.int32)[key_ok],
+                               groups[key_ok] + 1923),
+        "count": np.array_equal(field(rows, 8, np.int64), count),
+        "nunique": np.array_equal(field(rows, 16, np.int64), nuniq),
+        "sum": np.array_equal(field(rows, 24, np.int64)[has], total[has]),
+        "validity": np.array_equal(rows[:, 32], bits),
+    }
+    return {"checks": checks, "groups": int(groups.shape[0])}
+
+
+def check_i4(d: dict, dd: dict, wire) -> dict:
+    """(i4) against numpy: per category, the rows of both batches plus the
+    items sold in neither, and the rows with a quantity."""
+    d2 = dd["d2"]
+    cat = d["i_category_id"]
+    sold = np.concatenate([d["item_sk"], d2["item_sk"]])
+    qok = np.concatenate([d["quantity_ok"], d2["quantity_ok"]])
+    unsold = np.ones(ITEM_ROWS, bool)
+    unsold[sold] = False
+    count0 = (np.bincount(cat[sold], minlength=11)
+              + np.bincount(cat[unsold], minlength=11))[1:]
+    count3 = np.bincount(cat[sold][qok], minlength=11)[1:]
+    rows = wire_rows(wire, 32)
+    checks = {
+        "groups": rows.shape[0] == 10,
+        "category": np.array_equal(field(rows, 0, np.int32), np.arange(1, 11)),
+        "count_rows": np.array_equal(field(rows, 8, np.int64), count0),
+        "count_quantity": np.array_equal(field(rows, 16, np.int64), count3),
+        "validity": bool((rows[:, 24] == 7).all()),
+    }
+    return {"checks": checks, "rows_in": int(sold.shape[0]),
+            "right_only": int(unsold.sum())}
+
+
+DISPATCH_CHECKS = {"i1": check_i1, "i2": check_i2, "i3": check_i3,
+                   "i4": check_i4}
+
+
+def phase_dispatch(rb, kernels, d: dict, dd: dict) -> dict:
+    """(i): the four plans through ``table_upload_wire`` +
+    ``table_plan_resident``, each run once and checked, then 5 timed runs
+    and a profiled window; (i1)'s bytes also equal the port's own CPU run
+    of the same plan."""
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    inputs = {
+        "i1": [d["fact_wire"], dd["item_cat_wire"]],
+        "i2": [d["fact_wire"], dd["item_cat_wire"]],
+        "i3": [d["fact_wire"], dd["customer_wire"]],
+        "i4": [d["fact_wire"], dd["d2"]["fact_wire"], d["item_wire"]],
+    }
+    out = {}
+    config.set_flag("METRICS", True)
+    try:
+        for tag, plan_ops in DISPATCH_PLANS.items():
+            plan = json.dumps(plan_ops)
+            ids = [rb.table_upload_wire(*w, device=DEVICE) for w in inputs[tag]]
+            torch.cuda.synchronize()
+            metrics.reset()
+            kernels.reset_launches()
+            res = rb.table_plan_resident(plan, ids)
+            torch.cuda.synchronize()
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            tier = metrics.counter_values(["kernel.launches", "kernel.declines"])
+            wire = rb.table_download_wire(res)
+            rb.table_free(res)
+            got = DISPATCH_CHECKS[tag](d, dd, wire)
+            if tag == "i1":
+                cpu = [rb.table_upload_wire(*w, device="cpu")
+                       for w in inputs[tag]]
+                ref = rb.table_plan_resident(plan, cpu)
+                got["checks"]["bytes_equal_cpu"] = (
+                    tuple(rb.table_download_wire(ref)) == tuple(wire))
+                for t in cpu + [ref]:
+                    rb.table_free(t)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = rb.table_plan_resident(plan, ids)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                rb.table_free(res)
+            median = statistics.median(times)
+            log(f"({tag}) {got}; wall median {median:.2f} ms over 5 runs (all: "
+                f"{[round(t, 2) for t in times]}); launches {launches}; "
+                f"tier {tier}")
+            profile = profile_plan(plan_runner(rb, plan, ids), median,
+                                   f"({tag})")
+            for t in ids:
+                rb.table_free(t)
+            bad = [k for k, ok in got["checks"].items() if not ok]
+            if bad:
+                raise AssertionError(f"({tag}) differs: {bad}")
+            missing = [k for k in DISPATCH_KERNELS[tag] if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"({tag}) never launched {missing}")
+            out[tag] = {"launches": launches, "tier": tier, "wall_ms": median,
+                        "profile": profile, **got}
+    finally:
+        config.clear_flag("METRICS")
+    return out
+
+
+def dispatch_kernel_records(d: dict, dd: dict, qi: dict) -> list:
+    """K2a and K2b at (i1)'s semi join: the build over the category's item
+    keys and the probe with every fact key. Bytes as the join's records
+    count them."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+    from spark_rapids_jni_tpu_torch.kernels import registry
+
+    la = qi["i1"]["launches"]
+    blo, bhi = key_halves(dd["items"], dt.INT64)
+    bval = torch.ones_like(blo)
+    nb = blo.shape[1]
+    ns = 2 * registry._next_pow2(nb)
+    built = ht.build_table(blo, bhi, bval, table_slots=ns)
+    rounds = build_rounds(blo, bhi, bval, built, ns, ht.MAX_PROBES)
+    recs = [kernel_record(
+        ht.BUILD, "semi", f"1x{nb} keys, {ns} slots", la["build_table"],
+        lambda: ht.build_table(blo, bhi, bval, table_slots=ns),
+        lambda: ht.build_table_plain(blo, bhi, bval, table_slots=ns),
+        12 * nb + 4 * nb + 12 * ns + 8, 20 * nb,
+        note=f"(i1)/(i2)'s build; regime {ht.build_regime(nb, ns)}, "
+             f"{rounds} probe rounds")]
+    plo, phi = key_halves(d["item_sk"], dt.INT64)
+    pval = torch.ones_like(plo)
+    npb = plo.shape[1]
+    tables = built[1:4]
+    recs.append(kernel_record(
+        ht.PROBE, "semi", f"1x{npb} keys, {ns} slots", la["probe_table"],
+        lambda: ht.probe_table(plo, phi, pval, *tables),
+        lambda: ht.probe_table_plain(plo, phi, pval, *tables),
+        12 * npb + 12 * ns + 8 * npb + 4, 20 * npb,
+        note="(i1)/(i2)'s probe: every fact row"))
+    return recs
+
+
+def same_buffers(a, b, what: str) -> None:
+    """Two tables' host buffers (``interop.table_to_buffers``) equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for part, u, v in zip(("data", "validity", "lengths"), x[:3], y[:3]):
+            if (u is None) != (v is None) or (
+                    u is not None and (u.dtype != v.dtype
+                                       or not np.array_equal(u, v))):
+                raise AssertionError(f"(j) {what}: column {i} {part} differs")
+        if x[3:] != y[3:]:
+            raise AssertionError(f"(j) {what}: column {i} type differs")
+    if len(a) != len(b):
+        raise AssertionError(f"(j) {what}: column counts differ")
+
+
+def phase_remaining_ops(rb, d: dict, seed: int) -> dict:
+    """(j): every other new op once on the card at 2^20 rows, byte for
+    byte against the port's own CPU run of the same call (``sample``'s
+    rows come from the seed, so they must match too)."""
+    from spark_rapids_jni_tpu_torch import interop, ops
+
+    n = OPS_ROWS
+    fact = (FACT_TYPES[:4] + [11], [0] * 5,
+            [d[k][:n].tobytes() for k in ("item_sk", "customer_sk", "date_sk",
+                                          "quantity", "keep")],
+            [None, d["customer_ok"][:n].astype(np.uint8).tobytes(), None,
+             d["quantity_ok"][:n].astype(np.uint8).tobytes(), None], n)
+    dates = np.arange(2_450_816, 2_452_642, dtype=np.int64)
+    cats = np.arange(1, 11, dtype=np.int32)
+    dates_wire = ([4], [0], [dates.tobytes()], [None], dates.shape[0])
+    cats_wire = ([3], [0], [cats.tobytes()], [None], cats.shape[0])
+    cases = {
+        "right join": ([fact, d["item_wire"]],
+                       {"op": "join", "how": "right", "on": [0]}),
+        "cross_join": ([dates_wire, cats_wire], {"op": "cross_join"}),
+        "slice": ([fact], {"op": "slice", "start": 1000, "stop": 700_000}),
+        "repeat": ([fact], {"op": "repeat", "count": 3}),
+        "sample": ([fact], {"op": "sample", "n": n // 10, "seed": seed + 7}),
+        "sample with replacement": (
+            [fact], {"op": "sample", "n": n // 10, "seed": seed + 7,
+                     "replacement": True}),
+        "collect by day": (
+            [fact], {"op": "groupby", "by": [2],
+                     "aggs": [{"column": 3, "agg": "collect_list"},
+                              {"column": 3, "agg": "collect_set"}]}),
+    }
+    out = {}
+    for what, (wires, op) in cases.items():
+        got = []
+        for dev in (DEVICE, "cpu"):
+            ids = [rb.table_upload_wire(*w, device=dev) for w in wires]
+            res = rb.table_op_resident(json.dumps(op), ids)
+            got.append(rb.table_download_wire(res))
+            for t in ids + [res]:
+                rb.table_free(t)
+        if tuple(got[0]) != tuple(got[1]):
+            raise AssertionError(f"(j) {what}: the card's bytes differ from "
+                                 "the CPU's")
+        out[what] = int(got[0][4])
+    # a donated input is freed by the call, after the op's check
+    donated = rb.table_upload_wire(*fact, device=DEVICE)
+    res = rb.table_op_resident(json.dumps(cases["slice"][1]), [donated],
+                               donate=True)
+    try:
+        rb.table_num_rows(donated)
+        raise AssertionError("(j) a donated input is still live")
+    except KeyError:
+        pass
+    rb.table_free(res)
+    # the ops-level calls
+    bufs = {dev: interop.table_from_buffers(
+        [(np.frombuffer(b, np.dtype(t)), None if v is None
+          else np.frombuffer(v, np.uint8).astype(bool), None, tid, 0)
+         for b, v, t, tid in zip(fact[2], fact[3],
+                                 ("<i8", "<i8", "<i8", "<i4", "u1"),
+                                 fact[0])], device=dev)
+        for dev in (DEVICE, "cpu")}
+    for what, fn in (
+            ("distinct_capped",
+             lambda t: ops.distinct_capped(t, keys=[1, 2])[0]),
+            ("drop_nulls", lambda t: ops.drop_nulls(t, keys=[1, 3]))):
+        card, host = (interop.table_to_buffers(fn(bufs[k]))
+                      for k in (DEVICE, "cpu"))
+        same_buffers(card, host, what)
+        out[what] = int(card[0][0].shape[0])
+    log(f"(j) remaining ops at {n} rows: equal to the CPU run's bytes; rows "
+        f"out {out}; a donated input was freed")
+    return out
+
+
 def ptxas_lines(text: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
     name, registers, static shared memory and spills."""
@@ -1933,6 +2345,7 @@ def main(argv=None) -> int:
     rc_wire = make_rowconv_wire(rng, ROWCONV_ROWS)
     g = make_groupby_data(rng, GROUPBY_ROWS, GROUPBY_KEYS)
     q = make_query_step_data(rng, QS_ROWS, QS_ITEMS)
+    dd = make_dispatch_data(rng, d)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -1946,6 +2359,8 @@ def main(argv=None) -> int:
         "groupby": lambda: phase_groupby(kernels, g),
         "query_step": lambda: phase_query_step(kernels, q, args.seed),
         "wire_plan": lambda: phase_wire_plan(kernels, d),
+        "dispatch": lambda: phase_dispatch(rb, kernels, d, dd),
+        "remaining_ops": lambda: phase_remaining_ops(rb, d, args.seed),
     }
     res = {}
     for name, fn in phases.items():
@@ -1986,6 +2401,12 @@ def main(argv=None) -> int:
         failed.append("nvidia-smi")
     if "query_step" in res:
         recs.append(res["query_step"]["step0"]["record"])
+    if "dispatch" in res:
+        try:
+            recs += dispatch_kernel_records(d, dd, res["dispatch"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("dispatch kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2001,6 +2422,7 @@ def main(argv=None) -> int:
         "groupby_ms": res["groupby"]["plan_ms"],
         "groupby_profile": res["groupby"]["profile"],
         "query_step": res["query_step"], "wire_plan": res["wire_plan"],
+        "dispatch": res["dispatch"], "remaining_ops": res["remaining_ops"],
         **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

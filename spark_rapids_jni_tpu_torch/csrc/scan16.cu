@@ -11,7 +11,10 @@
 //   scanned level-(L+1) entry of the block before; a level of one block
 //   gets + 0.0.
 // IEEE adds are deterministic, so the result must be the plain version's
-// bit for bit (chip_smoke.py holds it so).
+// bit for bit (chip_smoke.py holds it so). XLA's CPU code runs with
+// subnormals flushed to zero, in what an add reads and what it returns,
+// and FP64 on the card has no such mode: every load and every add goes
+// through flush() (a subnormal becomes the zero of its sign).
 //
 // Design: one block of 256 threads owns a tile of 16^3 = 4096 elements,
 // which holds three whole levels: 256 level-0 blocks, 16 level-1 blocks
@@ -44,13 +47,21 @@ constexpr int kScanThreads = kTile / kBase;   // 256: a level-0 block each
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
 
+__device__ __forceinline__ double flush(double x) {
+  return fabs(x) < 2.2250738585072014e-308 ? copysign(0.0, x) : x;
+}
+
+__device__ __forceinline__ double add(double a, double b) {
+  return flush(a + b);
+}
+
 // The tile's elements (zero past n) into shared memory.
 __device__ __forceinline__ void load_tile(const double* __restrict__ x,
                                           int64_t n, int64_t base,
                                           double* v) {
   for (int i = threadIdx.x; i < kTile; i += kScanThreads) {
     const int64_t g = base + i;
-    v[padded(i)] = g < n ? x[g] : 0.0;
+    v[padded(i)] = g < n ? flush(x[g]) : 0.0;
   }
 }
 
@@ -59,7 +70,7 @@ __device__ __forceinline__ double prefix16(double* p, int stride) {
   double acc = 0.0;
 #pragma unroll
   for (int j = 0; j < kBase; ++j) {
-    acc = acc + p[j * stride];
+    acc = add(acc, p[j * stride]);
     p[j * stride] = acc;
   }
   return acc;
@@ -101,10 +112,10 @@ scan16_down(const double* __restrict__ x, int64_t n,
       const double s_before = tile > 1 ? s3[tile - 2] : 0.0;
       const double* prev = t2 + (tile - 1) * kBase;
       double p14 = 0.0;
-      for (int k = 0; k < kBase - 1; ++k) p14 = p14 + prev[k];
+      for (int k = 0; k < kBase - 1; ++k) p14 = add(p14, prev[k]);
       c2 = s3[tile - 1];
-      c1 = t3[tile - 1] + s_before;
-      c0 = prev[kBase - 1] + (p14 + s_before);
+      c1 = add(t3[tile - 1], s_before);
+      c0 = add(prev[kBase - 1], add(p14, s_before));
     }
     c[0] = c0;
     c[1] = c1;
@@ -120,20 +131,20 @@ scan16_down(const double* __restrict__ x, int64_t n,
   if (threadIdx.x == 0) {
     prefix16(p2, 1);
     // S_2: the tile's one level-2 block gets c2
-    for (int k = 0; k < kBase; ++k) p2[k] = p2[k] + c[2];
+    for (int k = 0; k < kBase; ++k) p2[k] = add(p2[k], c[2]);
   }
   __syncthreads();
   {  // S_1: one level-1 entry a thread
     const int e = threadIdx.x;
     const int b = e / kBase;
-    p1[e] = p1[e] + (b == 0 ? c[1] : p2[b - 1]);
+    p1[e] = add(p1[e], b == 0 ? c[1] : p2[b - 1]);
   }
   __syncthreads();
   const int64_t base = tile * kTile;
   for (int i = threadIdx.x; i < kTile; i += kScanThreads) {
     const int b = i / kBase;
     const int64_t g = base + i;
-    if (g < n) out[g] = v[padded(i)] + (b == 0 ? c[0] : p1[b - 1]);
+    if (g < n) out[g] = add(v[padded(i)], b == 0 ? c[0] : p1[b - 1]);
   }
 }
 

@@ -176,14 +176,18 @@ def _r_packed_sort(op: dict, table: Table, rest) -> Table:
 
 
 # ---------------------------------------------------------------------------
-# hash_build_probe — inner join through the hash table (K2a + K2b)
+# hash_build_probe — inner, semi and anti joins through the hash table
+# (K2a + K2b)
 # ---------------------------------------------------------------------------
+
+
+_KERNEL_JOIN_HOWS = frozenset({"inner", "semi", "anti"})
 
 
 def _a_hash_join(op: dict, table: Table, rest) -> Optional[str]:
     how = op.get("how", "inner")
-    if how != "inner":
-        return f"join how={how!r} (semi/anti kernels not ported yet)"
+    if how not in _KERNEL_JOIN_HOWS:
+        return f"join how={how!r} (left/outer build on exact machinery)"
     if not rest:
         return "missing build-side table"
     on = op.get("on") or []
@@ -207,6 +211,7 @@ def _a_hash_join(op: dict, table: Table, rest) -> Optional[str]:
 
 
 def _r_hash_join(op: dict, table: Table, rest) -> Table:
+    from ..ops.filter import filter_table
     from ..ops.join import join_output
     from . import hash_table
 
@@ -225,6 +230,13 @@ def _r_hash_join(op: dict, table: Table, rest) -> Table:
     ovf, dup, unres = (int(x) for x in torch.stack([ovf, dup, unres]).cpu())
     if ovf or unres:
         raise KernelDecline("hash table probe bound exceeded")
+    how = op.get("how", "inner")
+    if how in ("semi", "anti"):
+        # membership only: duplicate build keys change nothing, and the
+        # probe keys are not null (the predicate declines nullable keys)
+        has = found[0] != 0
+        return filter_table(table, Column(~has if how == "anti" else has,
+                                          dt.BOOL8, None))
     if dup:
         # the one-slot-per-key table holds one right row per key, so only
         # a unique-key build is byte-exact here
@@ -413,7 +425,8 @@ _REGISTRY = {
     ),
     "hash_build_probe": KernelSpec(
         "hash_build_probe", ("join",), _a_hash_join, _r_hash_join,
-        "inner join through the open-addressing table (K2a + K2b)",
+        "inner, semi and anti joins through the open-addressing table "
+        "(K2a + K2b)",
     ),
     "hash_groupby": KernelSpec(
         "hash_groupby", ("groupby",), _a_hash_groupby, _r_hash_groupby,

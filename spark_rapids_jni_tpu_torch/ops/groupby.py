@@ -1,24 +1,29 @@
 """Group-by aggregation, sort-based (port of ``ops/groupby.py``).
 
-The exact path of the slice: order words (ops/keys.py) -> stable lexsort
--> segment boundaries -> per-segment reductions. Null keys form their own
-group, which sorts first. Output columns, dtypes and validity follow the
-JAX package: every output column carries a validity tensor; ``count`` is
-INT64; ``sum`` is INT64 (FLOAT64 for floats, DECIMAL64 at the input's
-scale for decimals); ``min``/``max`` keep the input type; a group with no
-valid value is null.
+The exact path: order words (ops/keys.py) -> stable lexsort -> segment
+boundaries -> per-segment reductions. Null keys form their own group,
+which sorts first. Output columns, dtypes and validity follow the JAX
+package: every output column carries a validity tensor; ``count`` and
+``nunique`` are INT64; ``sum`` is INT64 (FLOAT64 for floats, DECIMAL64 at
+the input's scale for decimals); ``mean``, ``variance`` and ``std`` are
+FLOAT64 (variance and std: the two-pass sample form, null below 2 valid
+rows); ``min``/``max``/``first``/``last`` keep the input type (first and
+last: the first and last valid value); ``collect_list``/``collect_set``
+are LIST columns of ``(groups, pad)`` child values with per-group
+lengths, nulls dropped, sets ascending. A group with no valid value is
+null. DECIMAL128 values raise :class:`NotImplementedError`.
 
 Sums are cumsum differences over the sorted rows, as in the JAX package:
 exact for integers even when the running sum wraps. A floating cumsum adds
 in the order of XLA's CPU scan (:func:`_scan_sum16`), and a floating
-min/max maps -0.0 to +0.0 as the JAX package's associative scan does, so
-float results are the JAX package's bytes on the CPU and on the card.
-
-Only sum/count/min/max are ported in this slice; the other aggregations
-of the JAX module raise :class:`NotImplementedError`. The sorted-segment
-helpers ``_segment_sum``, ``_segment_bounds`` and
-``_sorted_segment_extreme`` also serve the packed-key groupby
-(ops/groupby_packed.py), as in the JAX package.
+min/max maps -0.0 to +0.0 as the JAX package's associative scan does.
+XLA's CPU code flushes subnormal floats to zero, in what every float
+operation reads and returns; the float reductions here flush at the same
+points (``compute.flush_subnormal``). So float results are the JAX
+package's bytes on the CPU and on the card. The sorted-segment helpers
+``_segment_sum``, ``_segment_bounds`` and ``_sorted_segment_extreme`` also
+serve the packed-key groupby (ops/groupby_packed.py), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -39,7 +44,12 @@ _AGG_OPS = {
     "sum", "count", "min", "max", "mean", "variance", "std",
     "collect_list", "collect_set", "nunique", "first", "last",
 }
-PORTED_AGGS = frozenset({"sum", "count", "min", "max"})
+_COLLECT_OPS = frozenset({"collect_list", "collect_set"})
+_LIST_CHILD_IDS = frozenset({
+    dt.TypeId.INT8, dt.TypeId.INT16, dt.TypeId.INT32, dt.TypeId.INT64,
+    dt.TypeId.UINT8, dt.TypeId.UINT16, dt.TypeId.UINT32, dt.TypeId.UINT64,
+    dt.TypeId.FLOAT32, dt.TypeId.BOOL8,
+})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,23 +119,26 @@ def _scan_sum16(v: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     deterministic, so the bytes are the same on the CPU and on the card.
     Starting from +0.0 maps every -0.0 to +0.0, as XLA does for n >= 2; a
     single element is returned as it is unless ``rows`` (the length the
-    JAX package scans, by default ``v``'s) is 2 or more."""
+    JAX package scans, by default ``v``'s) is 2 or more. Subnormals are
+    flushed to zero in the input and after every add, as XLA's CPU code
+    runs."""
     n = v.shape[0]
     if (n if rows is None else rows) < 2:
         return v.clone()
+    flush = compute.flush_subnormal
     m = -(-n // _SCAN_BASE)
     x = v.new_zeros(m * _SCAN_BASE)
-    x[:n] = v
+    x[:n] = flush(v)
     x = x.view(m, _SCAN_BASE)
     acc = x[:, 0] + 0.0
     inner = [acc]
     for j in range(1, _SCAN_BASE):
-        acc = acc + x[:, j]
+        acc = flush(acc + x[:, j])
         inner.append(acc)
     out = torch.stack(inner, 1)
     if m > 1:
         before = _scan_sum16(out[:, -1].contiguous())[:-1]
-        out = out + torch.cat([before.new_zeros(1), before])[:, None]
+        out = flush(out + torch.cat([before.new_zeros(1), before])[:, None])
     else:
         out = out + 0.0
     return out.reshape(-1)[:n]
@@ -149,7 +162,8 @@ def _segment_sum(vals: torch.Tensor, starts, ends,
                  rows: Optional[int] = None) -> torch.Tensor:
     """Per-segment sums of row-sorted ``vals`` as cumsum differences
     (exact for integers even when the running sum wraps; floats scan in
-    XLA's order over ``rows``, :func:`_scan_sum16`). An empty segment
+    XLA's order over ``rows``, :func:`_scan_sum16`; their differences
+    flushed as XLA's subtraction flushes them). An empty segment
     reads garbage (at
     the front, ``c[-1]``): the packed groupby, whose partial slots can be
     empty, masks those; the exact path has none."""
@@ -157,7 +171,7 @@ def _segment_sum(vals: torch.Tensor, starts, ends,
     hi = c[ends - 1]
     lo = torch.where(starts > 0, c[(starts - 1).clamp(min=0)],
                      torch.zeros((), dtype=c.dtype, device=c.device))
-    return hi - lo
+    return compute.flush_subnormal(hi - lo)
 
 
 def _segment_bounds(seg: torch.Tensor, num_segments: int):
@@ -173,7 +187,8 @@ def _clip_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx.clamp(0, max(n - 1, 0)).to(torch.int64)
 
 
-def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
+def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool,
+                            rows: Optional[int] = None):
     """Per-segment min/max of a row-sorted vector, one value per entry of
     ``ends``. The JAX package runs a segmented associative scan and reads
     each segment's last row; torch has no such scan, so one
@@ -181,7 +196,8 @@ def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
     non-empty segment (empty ones hold 0; segment ids past the end land in
     one dropped slot). Unsigned and bool values reduce as int64 carriers
     in their order, floats as they are (NaN propagates, as jnp.minimum;
-    -0.0 becomes +0.0, :func:`_zero_sign`)."""
+    -0.0 becomes +0.0 when the JAX package scans ``rows`` >= 2 rows, by
+    default ``masked_vals``'s, :func:`_zero_sign`)."""
     num_segments = ends.shape[0]
     dtype = masked_vals.dtype
     if dtype == torch.uint64:
@@ -197,7 +213,8 @@ def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool):
                              include_self=False)[:num_segments]
     if dtype == torch.uint64:
         return (out ^ keys_mod.SIGN64).view(torch.uint64)
-    return _zero_sign(out.to(dtype), masked_vals.shape[0])
+    return _zero_sign(out.to(dtype),
+                      masked_vals.shape[0] if rows is None else rows)
 
 
 def _zero_sign(extremes: torch.Tensor, n: int) -> torch.Tensor:
@@ -218,43 +235,202 @@ def _sum_dtype(d: dt.DType) -> dt.DType:
     return dt.INT64
 
 
-def _aggregate(col: Column, op: str, perm, seg, starts, ends,
-               rows: int) -> Column:
-    """One aggregation over the sorted segments; ``rows`` is the length the
-    JAX package scans (see :func:`groupby_aggregate`'s ``padded``)."""
+def _out_dtype(op: str, d: dt.DType) -> dt.DType:
+    """An aggregation's output type (the JAX module's rules)."""
+    if op in ("count", "nunique"):
+        return dt.INT64
+    if op == "sum":
+        return _sum_dtype(d)
+    if op in ("mean", "variance", "std"):
+        return dt.FLOAT64
+    if op in _COLLECT_OPS:
+        return dt.LIST
+    return d
+
+
+def _check_value(col: Column, op: str) -> None:
     if col.dtype.id == dt.TypeId.DECIMAL128:
         raise NotImplementedError(
-            "DECIMAL128 aggregation is not ported yet (ops/int128 slice)"
-        )
-    vals = compute.values(col)[perm]
-    valid = compute.valid_mask(col)[perm]
-    n_valid = _segment_sum(valid.to(torch.int64), starts, ends)
+            "DECIMAL128 aggregation is not ported yet (ops/int128 slice, "
+            "ROADMAP Queue 1, item 5)")
+    if op in _COLLECT_OPS and col.dtype.id not in _LIST_CHILD_IDS:
+        raise TypeError(
+            f"{op} not supported for {col.dtype} (LIST children are "
+            "int8..64, uint8..64, float32, bool)")
+
+
+def _float_values(vals: torch.Tensor, d: dt.DType) -> torch.Tensor:
+    """``vals.astype(float64)`` (decimals times ``10.0 ** scale``) as XLA's
+    CPU code computes it, subnormals flushed in and out."""
+    f = compute.astype(compute.flush_subnormal(vals), torch.float64)
+    if d.is_decimal:
+        f = compute.flush_subnormal(f * (10.0 ** d.scale))
+    return f
+
+
+def _valid_rank_rows(valid: torch.Tensor, starts, ranks) -> torch.Tensor:
+    """The sorted-row index of each segment's r-th VALID row (JAX
+    ``_valid_rank_rows``): rank r of a segment lives at the first row
+    where the running valid count reaches the count before the segment
+    plus r. ``ranks`` is (segments, k); ranks past a segment's valid rows
+    land on whatever row the search finds, as in the JAX package (the
+    caller masks them). Unclipped: a search past the last row returns
+    ``n``."""
+    n = valid.shape[0]
+    cvalid = torch.cumsum(valid.to(torch.int64), 0)
+    st = starts.to(torch.int64)
+    base = torch.where(st > 0, cvalid[_clip_rows(st - 1, n)],
+                       torch.zeros((), dtype=torch.int64, device=st.device))
+    target = base[:, None] + ranks.to(torch.int64)
+    return torch.searchsorted(cvalid, target.reshape(-1)).reshape(
+        target.shape)
+
+
+def _masked_rows(data: torch.Tensor, rows: torch.Tensor, n: int,
+                 scan_rows: int) -> torch.Tensor:
+    """``data[rows]`` clipped to the table, as the JAX package's gather
+    clips. Where the JAX wire entries padded the table (``scan_rows`` past
+    ``n``), a row past the last real one is a zero padding row."""
+    out = data[_clip_rows(rows, n)]
+    if scan_rows > n:
+        out = torch.where(rows >= n, torch.zeros_like(out), out)
+    return out
+
+
+def _first_occurrence(d: dt.DType, seg, data, valid):
+    """Rows re-sorted by (segment, valid first, value word), stably, and
+    the mask of each segment's first row of each distinct valid value
+    (JAX ``_first_occurrence``, the core of collect_set and nunique).
+    Segments keep their row ranges."""
+    from .sort import lexsort
+
+    vword = keys_mod.column_order_keys(Column(data, d))[0]
+    perm = lexsort([seg.to(torch.int64), (~valid).to(torch.int64), vword])
+    seg2, vword2 = seg[perm], vword[perm]
+    new = torch.ones(perm.shape[0], dtype=torch.bool, device=perm.device)
+    new[1:] = (seg2[1:] != seg2[:-1]) | (vword2[1:] != vword2[:-1])
+    return data[perm], valid[perm] & new
+
+
+def _collect(d: dt.DType, op: str, pad: int, seg, data, valid, starts,
+             ends, segsum) -> Column:
+    """collect_list / collect_set: a LIST column of (segments, pad) child
+    values and per-group lengths; nulls dropped, sets ascending (JAX
+    ``_collect_segment``)."""
+    if op == "collect_set":
+        data, valid = _first_occurrence(d, seg, data, valid)
+    n = data.shape[0]
+    counts = segsum(valid.to(torch.int32), starts, ends)
+    lens = counts.clamp(max=pad)
+    ranks = torch.arange(1, pad + 1, device=data.device)[None, :]
+    mat = data[_clip_rows(_valid_rank_rows(valid, starts, ranks), n)]
+    slot_ok = torch.arange(pad, device=data.device)[None, :] < lens[:, None]
+    zero = torch.zeros((), dtype=mat.dtype, device=mat.device)
+    return Column(torch.where(slot_ok, mat, zero), dt.LIST, None,
+                  lens.to(torch.int32))
+
+
+def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
+            seg_clip: int, scan_rows: int, list_capacity) -> Column:
+    """One aggregation over row-sorted ``data`` (storage) and ``valid``;
+    ``segsum(vals, starts, ends)`` is the path's segment sum, ``seg_clip``
+    its largest segment id and ``scan_rows`` the length the JAX package
+    scans. Every float result is flushed as XLA's CPU code flushes it."""
+    d = col.dtype
+    vals = compute.values(Column(data, d))
+    n_valid = segsum(valid.to(torch.int64), starts, ends)
     has = n_valid > 0
     if op == "count":
-        return Column(n_valid, dt.INT64, torch.ones_like(has))
-    if op == "sum":
-        acc = torch.float64 if col.dtype.is_floating else torch.int64
-        v = vals.to(acc)
-        total = _segment_sum(torch.where(valid, v, torch.zeros_like(v)),
-                             starts, ends, rows)
-        return compute.from_values(total, _sum_dtype(col.dtype), has)
+        return Column(n_valid, dt.INT64, None)
+    if op in ("first", "last"):
+        ranks = (torch.ones_like(n_valid) if op == "first" else n_valid)
+        rows = _valid_rank_rows(valid, starts, ranks[:, None])[:, 0]
+        return Column(_masked_rows(data, rows, data.shape[0], scan_rows),
+                      d, has)
+    if op == "nunique":
+        _, first = _first_occurrence(d, seg, data, valid)
+        return Column(segsum(first.to(torch.int64), starts, ends), dt.INT64,
+                      None)
+    if op in _COLLECT_OPS:
+        if list_capacity is None:
+            raise ValueError(
+                f"{op} in the capped API needs GroupbyAgg.list_capacity "
+                "(the static LIST pad width)")
+        return _collect(d, op, list_capacity, seg, data, valid, starts, ends,
+                        segsum)
+    if op in ("sum", "mean"):
+        if d.is_floating:
+            # the scan flushes what it reads; a FLOAT32 value is flushed
+            # before it widens, as XLA's convert reads it
+            if d.id != dt.TypeId.FLOAT64:
+                vals = compute.flush_subnormal(vals)
+            v = torch.where(valid, vals.to(torch.float64), 0.0)
+        else:
+            v = compute.astype(
+                torch.where(valid, vals, torch.zeros_like(vals)), torch.int64)
+        total = segsum(v, starts, ends)
+        if op == "sum":
+            return compute.from_values(total, _sum_dtype(d), has)
+        mean = compute.flush_subnormal(
+            total.to(torch.float64) / n_valid.clamp(min=1).to(torch.float64))
+        if d.is_decimal:
+            mean = compute.flush_subnormal(mean * (10.0 ** d.scale))
+        return compute.from_values(mean, dt.FLOAT64, has)
+    if op in ("variance", "std"):
+        # two-pass: segment mean, back to the rows, segment sum of the
+        # squared deviations; sample variance (ddof 1), null below 2 rows
+        flush = compute.flush_subnormal
+        fvals = _float_values(vals, d)
+        nf = n_valid.to(torch.float64)
+        s1 = segsum(torch.where(valid, fvals, 0.0), starts, ends)
+        mean = flush(s1 / nf.clamp(min=1))
+        mean_row = mean[seg.clamp(0, seg_clip)]
+        if d.is_decimal and scan_rows >= 2:
+            # XLA's compiled graph recomputes the scaling in the deviation's
+            # fusion and contracts the two into one fma (over one row it
+            # shares the product instead and rounds it)
+            dev = flush(compute.fma(_float_values(vals, dt.FLOAT64),
+                                    10.0 ** d.scale, -mean_row))
+        else:
+            dev = flush(fvals - mean_row)
+        sq = segsum(torch.where(valid, flush(dev * dev), 0.0), starts, ends)
+        var = flush(sq / (nf - 1).clamp(min=1))
+        out = compute.sqrt_rn(var) if op == "std" else var
+        return compute.from_values(out, dt.FLOAT64, n_valid > 1)
     # min / max: masked sentinels, then one segment reduction
     is_min = op == "min"
-    work = vals.to(torch.uint8) if col.dtype.is_boolean else vals
-    if col.dtype.is_floating:
+    if d.is_floating:
         sentinel = np.inf if is_min else -np.inf
-    elif col.dtype.is_boolean:
-        sentinel = 1 if is_min else 0
+    elif d.is_boolean:
+        sentinel = is_min
     else:
-        info = torch.iinfo(work.dtype)
-        sentinel = info.max if is_min else info.min
-    masked = torch.where(valid, work, torch.full_like(work, sentinel))
-    out = torch.empty(starts.shape[0], dtype=work.dtype, device=work.device)
-    out = out.scatter_reduce(0, seg, masked, "amin" if is_min else "amax",
-                             include_self=False)
-    if col.dtype.is_boolean:
-        out = out.to(torch.bool)
-    return compute.from_values(_zero_sign(out, rows), col.dtype, has)
+        info = np.iinfo(compute.NP_OF[vals.dtype])
+        sentinel = int(info.max if is_min else info.min)
+    masked = torch.where(valid, vals, torch.full_like(vals, sentinel))
+    ext = _sorted_segment_extreme(masked, seg, ends, is_min, scan_rows)
+    return compute.from_values(ext, d, has)
+
+
+def _aggregate(col: Column, op: str, perm, seg, starts, ends,
+               rows: int, list_capacity) -> Column:
+    """One aggregation of the exact groupby; ``rows`` is the length the
+    JAX package scans (see :func:`groupby_aggregate`'s ``padded``)."""
+    _check_value(col, op)
+    data = col.data[perm]
+    valid = compute.valid_mask(col)[perm]
+
+    def segsum(v, s, e):
+        return _segment_sum(v, s, e, rows)
+
+    r = _reduce(col, op, data, valid, seg, starts, ends, segsum,
+                starts.shape[0] - 1, rows, list_capacity)
+    if op == "count":
+        return Column(r.data, r.dtype, torch.ones_like(r.data, dtype=torch.bool))
+    if r.validity is None:
+        return Column(r.data, r.dtype,
+                      torch.ones(r.data.shape[0], dtype=torch.bool,
+                                 device=r.data.device), r.lengths)
+    return r
 
 
 def _out_name(table: Table, c, fallback: str) -> str:
@@ -263,32 +439,39 @@ def _out_name(table: Table, c, fallback: str) -> str:
     return table.names[c] if table.names else fallback
 
 
+def _agg_names(table: Table, by, aggs) -> list:
+    names = [_out_name(table, c, f"key{i}") for i, c in enumerate(by)]
+    names += [
+        a.name or f"{a.op}_{_out_name(table, a.column, f'c{a.column}')}"
+        for a in aggs
+    ]
+    return names
+
+
 def groupby_aggregate(
     table: Table,
     by: Sequence[Union[int, str]],
     aggs: Sequence[GroupbyAgg],
     padded: bool = False,
 ) -> Table:
-    """Groupby with an exact output size (one host sync for the count).
+    """Groupby with an exact output size (one host sync for the count;
+    one more sizes the LIST pad of a collect aggregation without a
+    ``list_capacity``: the largest group's valid rows, as the JAX
+    package's count pre-pass gives it).
 
     ``padded=True`` reduces as the JAX package's wire entries do: they pad
-    a table to its shape bucket (never fewer than 2 rows) before the
-    groupby, so a 1-row table's -0.0 float sum, min or max comes out +0.0
-    there. Every other result is the same either way."""
+    a table to its shape bucket (:func:`wire_rows`) before the groupby,
+    so a 1-row table's -0.0 float sum, min or max comes out +0.0 there,
+    and a ``first`` that finds no valid row reads a zero padding row.
+    Every other result is the same either way."""
     for a in aggs:
-        if a.op not in PORTED_AGGS:
-            raise NotImplementedError(
-                f"groupby aggregation {a.op!r} is not ported yet: it lands "
-                "with the rest of ops/groupby.py (ROADMAP Queue 1, item 5)"
-            )
+        _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
-    out_names = [_out_name(table, c, f"key{i}") for i, c in enumerate(by)]
-    out_names += [
-        a.name or f"{a.op}_{_out_name(table, a.column, f'c{a.column}')}"
-        for a in aggs
-    ]
+    out_names = _agg_names(table, by, aggs)
     if table.row_count == 0:
         return _empty_result(table, key_cols, aggs, out_names)
+    n = table.row_count
+    rows = wire_rows(n) if padded else n
     perm, seg, starts, ends = _segment_ids(key_cols)
     first_rows = perm[starts]
     out_cols = []
@@ -299,11 +482,30 @@ def groupby_aggregate(
             None if k.lengths is None else k.lengths[first_rows],
         ))
     for a in aggs:
-        out_cols.append(_aggregate(table.column(a.column), a.op, perm,
-                                   seg, starts, ends,
-                                   max(table.row_count, 2) if padded
-                                   else table.row_count))
+        col = table.column(a.column)
+        cap = a.list_capacity
+        if a.op in _COLLECT_OPS and cap is None:
+            nv = _segment_sum(compute.valid_mask(col)[perm].to(torch.int64),
+                              starts, ends)
+            cap = max(1, int(nv.max()))
+        out_cols.append(_aggregate(col, a.op, perm, seg, starts, ends, rows,
+                                   cap))
     return Table(out_cols, out_names)
+
+
+def wire_rows(n: int) -> int:
+    """The rows a JAX wire entry pads an ``n``-row table to: its default
+    shape-bucket ladder (x2 from 1,024, none past 2^23 rows)."""
+    if n <= 0 or n > _BUCKET_CAP:
+        return n
+    b = _BUCKET_FLOOR
+    while b < n:
+        b *= 2
+    return b
+
+
+_BUCKET_FLOOR = 1024
+_BUCKET_CAP = 1 << 23
 
 
 def _empty_result(table, key_cols, aggs, out_names) -> Table:
@@ -314,8 +516,12 @@ def _empty_result(table, key_cols, aggs, out_names) -> Table:
                    None if k.lengths is None else k.lengths[:0])
             for k in key_cols]
     for a in aggs:
-        d = table.column(a.column).dtype
-        out = {"count": dt.INT64, "sum": _sum_dtype(d)}.get(a.op, d)
+        col = table.column(a.column)
+        out = _out_dtype(a.op, col.dtype)
+        if out.id == dt.TypeId.LIST:
+            cols.append(Column(col.data.new_zeros((0, 1)), out, no_rows,
+                               torch.zeros(0, dtype=torch.int32, device=dev)))
+            continue
         cols.append(Column(torch.zeros(0, dtype=out.storage_dtype,
                                        device=dev), out, no_rows))
     return Table(cols, out_names)
@@ -328,56 +534,43 @@ def _empty_result(table, key_cols, aggs, out_names) -> Table:
 
 def _capped_segment_sum(vals: torch.Tensor, starts, ends, rows: int):
     """The JAX package's ``_sorted_segment_sum``: cumsum differences over
-    all ``rows`` sorted rows (floats in XLA's scan order), 0 for an empty
-    segment."""
+    all ``rows`` sorted rows (floats in XLA's scan order, differences
+    flushed), 0 for an empty segment."""
     n = vals.shape[0]
     c = _cumsum(vals, rows)
     hi = c[_clip_rows(ends.to(torch.int64) - 1, n)]
     lo = torch.where(starts > 0, c[_clip_rows(starts.to(torch.int64) - 1, n)],
                      torch.zeros((), dtype=c.dtype, device=c.device))
-    return torch.where(ends > starts, hi - lo,
+    return torch.where(ends > starts, compute.flush_subnormal(hi - lo),
                        torch.zeros((), dtype=c.dtype, device=c.device))
 
 
 def _capped_aggregate(col: Column, op: str, perm, seg, starts, ends,
-                      row_valid, num_segments: int) -> Column:
+                      row_valid, num_segments: int, list_capacity) -> Column:
     """One aggregation of the capped groupby, with the JAX package's bytes
     in every one of its ``num_segments`` rows."""
-    if col.dtype.id == dt.TypeId.DECIMAL128:
-        raise NotImplementedError(
-            "DECIMAL128 aggregation is not ported yet (ops/int128 slice)")
+    _check_value(col, op)
     n = perm.shape[0]
-    vals = compute.values(col)[perm]
     valid = compute.valid_mask(col)
     if row_valid is not None:
         valid = valid & row_valid
     valid = valid[perm]
-    n_valid = _capped_segment_sum(valid.to(torch.int64), starts, ends, n)
-    has = n_valid > 0
-    if op == "count":
-        return Column(n_valid, dt.INT64, None)
-    if op == "sum":
-        acc = torch.float64 if col.dtype.is_floating else torch.int64
-        v = compute.astype(torch.where(valid, vals, torch.zeros_like(vals)),
-                           acc)
-        total = _capped_segment_sum(v, starts, ends, n)
-        return compute.from_values(total, _sum_dtype(col.dtype), has)
-    # min / max: masked sentinels; a segment's extreme is the value the
-    # JAX package's segmented scan holds at the segment's last row, and an
-    # empty segment (past the groups) reads the last row's segment's
-    is_min = op == "min"
-    if col.dtype.is_floating:
-        sentinel = np.inf if is_min else -np.inf
-    elif col.dtype.is_boolean:
-        sentinel = is_min
-    else:
-        info = np.iinfo(compute.NP_OF[vals.dtype])
-        sentinel = int(info.max if is_min else info.min)
-    masked = torch.where(valid, vals, torch.full_like(vals, sentinel))
-    ext = _sorted_segment_extreme(masked, seg, ends, is_min)
-    out = ext[seg[_clip_rows(ends.to(torch.int64) - 1, n)].clamp(
-        max=num_segments - 1)]
-    return compute.from_values(out, col.dtype, has)
+    data = col.data[perm]
+
+    def segsum(v, s, e):
+        return _capped_segment_sum(v, s, e, n)
+
+    if op in ("min", "max"):
+        # a segment's extreme is the value the JAX package's segmented
+        # scan holds at the segment's last row, and an empty segment
+        # (past the groups) reads the last row's segment's
+        r = _reduce(col, op, data, valid, seg, starts, ends, segsum,
+                    num_segments - 1, n, None)
+        ext = r.data[seg[_clip_rows(ends.to(torch.int64) - 1, n)].clamp(
+            max=num_segments - 1)]
+        return Column(ext, r.dtype, r.validity)
+    return _reduce(col, op, data, valid, seg, starts, ends, segsum,
+                   num_segments - 1, n, list_capacity)
 
 
 def groupby_aggregate_capped(
@@ -391,12 +584,10 @@ def groupby_aggregate_capped(
     rows, device group count). Keys and values past the count are null.
     ``row_valid`` False rows (padding) sort behind every real row, behind
     a leading occupancy word, and the count is the highest segment that
-    holds a valid row. Only sum/count/min/max are ported."""
+    holds a valid row. A collect aggregation needs its ``list_capacity``
+    (groups past it are truncated to it)."""
     for a in aggs:
-        if a.op not in PORTED_AGGS:
-            raise NotImplementedError(
-                f"groupby aggregation {a.op!r} is not ported yet: it lands "
-                "with the rest of ops/groupby.py (ROADMAP Queue 1, item 5)")
+        _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
     n = table.row_count
     perm, seg, _ = _sorted_segments(_group_words(key_cols, row_valid))
@@ -408,18 +599,15 @@ def groupby_aggregate_capped(
     starts, ends = _segment_bounds(seg, num_segments)
     in_range = torch.arange(num_segments, device=perm.device) < num_groups
     first_rows = perm[_clip_rows(starts.to(torch.int64), n)]
-    out_cols, out_names = [], []
-    for i, (c, col) in enumerate(zip(by, key_cols)):
+    out_cols = []
+    for col in key_cols:
         valid = compute.valid_mask(col)[first_rows] & in_range
         out_cols.append(Column(
             col.data[first_rows], col.dtype, valid,
             None if col.lengths is None else col.lengths[first_rows]))
-        out_names.append(_out_name(table, c, f"key{i}"))
     for a in aggs:
         r = _capped_aggregate(table.column(a.column), a.op, perm, seg, starts,
-                              ends, row_valid, num_segments)
+                              ends, row_valid, num_segments, a.list_capacity)
         valid = compute.valid_mask(r) & in_range
         out_cols.append(Column(r.data, r.dtype, valid, r.lengths))
-        out_names.append(
-            a.name or f"{a.op}_{_out_name(table, a.column, f'c{a.column}')}")
-    return Table(out_cols, out_names), num_groups
+    return Table(out_cols, _agg_names(table, by, aggs)), num_groups

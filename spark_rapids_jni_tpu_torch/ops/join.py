@@ -1,27 +1,47 @@
-"""Inner equi-join (port of ``ops/join.py`` ``inner_join`` and
-``inner_join_capped``).
+"""Equi-joins (port of ``ops/join.py``): inner, left, right and full
+outer, semi and anti, their capped and count forms, and the chunked
+inner join.
 
 Output order is the JAX package's: left rows in order, each followed by
-its matches in the right side's original order (the stable build sort);
-columns are the left table's, then the right table's minus its join keys
-(Spark USING). Null keys never match.
+its matches in the right side's stable (validity, key) order; a right or
+full outer join then appends the unmatched right rows in their original
+order. Inner and left joins give the left table's columns, then the
+right table's minus its join keys (Spark USING); right and full joins
+coalesce the key columns (left's key where a left row exists, else
+right's). Null keys never match: a semi join drops null-key rows and an
+anti join keeps them (Spark's NOT EXISTS).
 
 Where the JAX package binary-searches a sorted build side, the port
 gives every key tuple of both sides one dense id (``torch.unique`` over
 the order words) and reads match ranges off a stable sort of the right
 side by (valid, id) — the same pairs in the same order, and the same
-lower bounds, which the capped join's padding rows read.
+lower bounds, which unmatched and padding rows read.
+
+The JAX joins raise ``TypeError`` when the build side has 0 rows and the
+probe side has rows (right and full joins also when the left side is
+empty); the port returns Spark's result there.
 """
 
 from __future__ import annotations
+
+import math
 
 from typing import Optional, Sequence, Union
 
 import torch
 
+from .. import dtype as dt
 from ..column import Column, Table
+from . import compute
 from . import keys as keys_mod
 from .gather import gather_table
+
+#: The chunked inner join's smallest output budget a probe chunk (a host
+#: rule: a chunk whose padded output passes its budget splits in two).
+MIN_CHUNK_OUT_BYTES = 64 << 20
+#: The chunked inner join's output budget a probe chunk when the caller
+#: gives no ``probe_rows``: the reference's 2 GB batches.
+BATCH_OUT_BYTES = 2 << 30
 
 
 def _resolve(table: Table, c) -> int:
@@ -38,7 +58,9 @@ def join_output(
     right_idx: torch.Tensor,
     matched: Optional[torch.Tensor],
 ) -> Table:
-    """left columns + right columns minus the right join keys."""
+    """left columns + right columns minus the right join keys; rows whose
+    ``matched`` is False are null on the right side (and may point into
+    an empty right table)."""
     drop = {_resolve(right, c) for c in right_on
             if not isinstance(c, str) or right.names is not None}
     out_cols = list(gather_table(left, left_idx).columns)
@@ -48,7 +70,7 @@ def join_output(
         if j in drop:
             continue
         out_cols.append(
-            gather_table(Table([c]), right_idx, matched).columns[0]
+            _gather_clipped(Table([c]), right_idx, matched).columns[0]
         )
         out_names.append(right.names[j] if right.names else f"r{j}")
     return Table(out_cols, out_names)
@@ -118,6 +140,64 @@ def match_ranges(
     return perm_r, lo, counts
 
 
+def _gather_clipped(table: Table, idx: torch.Tensor,
+                    index_valid: Optional[torch.Tensor] = None) -> Table:
+    """``gather_table`` that also takes rows of a 0-row table (where the
+    JAX package's clipped gather raises): such rows read zeros, null
+    wherever ``index_valid`` says so."""
+    if table.row_count == 0 and idx.numel():
+        one = [Column(c.data.new_zeros((1,) + tuple(c.data.shape[1:])),
+                      c.dtype,
+                      None if c.validity is None else c.validity.new_zeros(1),
+                      None if c.lengths is None else c.lengths.new_zeros(1))
+               for c in table.columns]
+        table, idx = Table(one, table.names), torch.zeros_like(idx)
+    return gather_table(table, idx, index_valid)
+
+
+def _expand(perm_r, lo, counts, total: int,
+            emit: Optional[torch.Tensor] = None):
+    """(left_idx, right_idx, matched, in_range) of ``total`` pair slots,
+    without a host sync: left row i owns ``emit[i]`` slots (by default
+    ``counts[i]``), so the owner of slot p is the number of rows whose
+    slots end at or before p (one binary search over the running ends);
+    slots past the emitted total repeat the last left row, as
+    ``jnp.repeat``'s ``total_repeat_length`` fills them. ``matched`` is
+    the slots that hold a match; the others of an emitting row are its
+    outer row."""
+    dev = counts.device
+    if emit is None:
+        emit = counts
+    n_left = counts.shape[0]
+    slot = torch.arange(total, device=dev)
+    if n_left == 0:
+        none = torch.zeros(total, dtype=torch.bool, device=dev)
+        zero = torch.zeros(total, dtype=torch.int64, device=dev)
+        return zero, zero, none, none
+    ends = torch.cumsum(emit, 0)
+    start = ends - emit
+    in_range = slot < ends[-1]
+    left_idx = torch.where(
+        in_range, torch.searchsorted(ends, slot, right=True), n_left - 1)
+    k = slot - start[left_idx]
+    matched = (k < counts[left_idx]) & in_range
+    if perm_r.numel() == 0:
+        right_idx = torch.zeros_like(slot)
+    else:
+        pos = (lo[left_idx] + k).clamp(0, perm_r.shape[0] - 1)
+        right_idx = perm_r[pos]
+    return left_idx, right_idx, matched, in_range
+
+
+def _empty_pairs(left: Table, right: Table, right_on) -> Table:
+    """The JAX package's 0-row join result: right columns gain an empty
+    validity vector from its zero-length match mask."""
+    dev = left.columns[0].data.device
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    return join_output(left, right, right_on, empty, empty,
+                       torch.zeros(0, dtype=torch.bool, device=dev))
+
+
 def inner_join(
     left: Table,
     right: Table,
@@ -126,26 +206,29 @@ def inner_join(
 ) -> Table:
     """Inner equi-join with an exact output size (one host sync)."""
     right_on = right_on or on
-    dev = left.columns[0].data.device
     if left.row_count == 0 or right.row_count == 0:
-        total = 0
-    else:
-        perm_r, lo, counts = match_ranges(left, right, on, right_on)
-        total = int(counts.sum())
+        return _empty_pairs(left, right, right_on)
+    perm_r, lo, counts = match_ranges(left, right, on, right_on)
+    return _inner_pairs(left, right, right_on, perm_r, lo, counts,
+                        int(counts.sum()))
+
+
+def _inner_pairs(left, right, right_on, perm_r, lo, counts,
+                 total: int) -> Table:
+    """The exact inner join of already-computed match ranges."""
     if total == 0:
-        # the JAX package's empty result: right columns gain an empty
-        # validity vector from its zero-length match mask
-        empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return join_output(left, right, right_on, empty, empty,
-                           torch.zeros(0, dtype=torch.bool, device=dev))
-    left_idx = torch.repeat_interleave(
-        torch.arange(counts.shape[0], device=dev), counts,
-        output_size=total,
-    )
-    out_start = torch.cumsum(counts, 0) - counts
-    k = torch.arange(total, device=dev) - out_start[left_idx]
-    right_idx = perm_r[lo[left_idx] + k]
+        return _empty_pairs(left, right, right_on)
+    left_idx, right_idx, _, _ = _expand(perm_r, lo, counts, total)
     return join_output(left, right, right_on, left_idx, right_idx, None)
+
+
+def inner_join_count(left, right, on, right_on=None, left_valid=None,
+                     right_valid=None) -> torch.Tensor:
+    """The device match count: phase 1 of two-phase output sizing."""
+    right_on = right_on or on
+    _, _, counts = match_ranges(left, right, on, right_on, left_valid,
+                                right_valid)
+    return counts.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -153,25 +236,12 @@ def inner_join(
 # ---------------------------------------------------------------------------
 
 
-def _expand_capped(perm_r, lo, counts, capacity: int):
-    """(left_idx, right_idx, matched, in_range) of ``capacity`` pair
-    slots, without a host sync: left row i owns slots [start_i, start_i
-    + count_i), so the owner of slot p is the number of rows whose slots
-    end at or before p (one binary search over the running ends, whose
-    queries come in order); slots past the total repeat the last left
-    row, as ``jnp.repeat``'s ``total_repeat_length`` fills them."""
-    dev = counts.device
-    n_left = counts.shape[0]
-    ends = torch.cumsum(counts, 0)
-    start = ends - counts
-    slot = torch.arange(capacity, device=dev)
-    in_range = slot < ends[-1]
-    left_idx = torch.where(
-        in_range, torch.searchsorted(ends, slot, right=True), n_left - 1)
-    k = slot - start[left_idx]
-    matched = (k < counts[left_idx]) & in_range
-    pos = (lo[left_idx] + k).clamp(0, max(perm_r.shape[0] - 1, 0))
-    return left_idx, perm_r[pos], matched, in_range
+def _null_padding(out: Table, in_range: torch.Tensor) -> Table:
+    """Every column of a pair slot past the count is null."""
+    cols = [Column(c.data, c.dtype,
+                   in_range if c.validity is None else c.validity & in_range,
+                   c.lengths) for c in out.columns]
+    return Table(cols, out.names)
 
 
 def inner_join_from_ranges(
@@ -185,13 +255,10 @@ def inner_join_from_ranges(
 ) -> tuple[Table, torch.Tensor]:
     """A capped inner join from already-computed match ranges: pairs past
     the count are padding, and every column of a padding row is null."""
-    left_idx, right_idx, matched, in_range = _expand_capped(
+    left_idx, right_idx, matched, in_range = _expand(
         perm_r, lo, counts, capacity)
     out = join_output(left, right, right_on, left_idx, right_idx, matched)
-    cols = [Column(c.data, c.dtype,
-                   in_range if c.validity is None else c.validity & in_range,
-                   c.lengths) for c in out.columns]
-    return Table(cols, out.names), counts.sum()
+    return _null_padding(out, in_range), counts.sum()
 
 
 def inner_join_capped(
@@ -213,3 +280,269 @@ def inner_join_capped(
         left, right, on, right_on, left_valid, right_valid)
     return inner_join_from_ranges(left, right, right_on, perm_r, lo, counts,
                                   capacity)
+
+
+def _left_emit(counts: torch.Tensor,
+               left_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Output rows a left row emits in a LEFT OUTER join: its matches, or
+    one null-extended row; a padding row (``left_valid`` False) none."""
+    emit = counts.clamp(min=1)
+    return emit if left_valid is None else torch.where(left_valid, emit, 0)
+
+
+def left_join_capped(
+    left: Table,
+    right: Table,
+    on: Sequence[Union[int, str]],
+    capacity: int,
+    right_on: Optional[Sequence[Union[int, str]]] = None,
+    left_valid: Optional[torch.Tensor] = None,
+    right_valid: Optional[torch.Tensor] = None,
+) -> tuple[Table, torch.Tensor]:
+    """LEFT OUTER join with a static output capacity: (table of
+    ``capacity`` rows, device row count). Every occupied left row emits
+    at least once; rows past the count are null."""
+    right_on = right_on or on
+    perm_r, lo, counts = match_ranges(
+        left, right, on, right_on, left_valid, right_valid)
+    emit = _left_emit(counts, left_valid)
+    left_idx, right_idx, matched, in_range = _expand(
+        perm_r, lo, counts, capacity, emit)
+    out = join_output(left, right, right_on, left_idx, right_idx, matched)
+    return _null_padding(out, in_range), emit.sum()
+
+
+def left_join_count(left, right, on, right_on=None, left_valid=None,
+                    right_valid=None) -> torch.Tensor:
+    """The device row count of a LEFT OUTER join: matches plus one per
+    unmatched occupied left row (null-key rows count, padding rows do
+    not)."""
+    right_on = right_on or on
+    _, _, counts = match_ranges(left, right, on, right_on, left_valid,
+                                right_valid)
+    return _left_emit(counts, left_valid).sum()
+
+
+def left_join(
+    left: Table,
+    right: Table,
+    on: Sequence[Union[int, str]],
+    right_on: Optional[Sequence[Union[int, str]]] = None,
+    padded: bool = False,
+) -> Table:
+    """LEFT OUTER equi-join with an exact output size (one host sync):
+    every left row with its matches, or once with a null right side.
+
+    ``padded=True`` gives the bytes of the JAX package's wire entries,
+    which pad the build side to its shape bucket first: when no build
+    key is valid, an unmatched row's null right side reads a zero
+    padding row there, where the exact join reads the last build row."""
+    from ..ops.groupby import wire_rows
+    from .copying import slice_rows
+
+    right_on = right_on or on
+    perm_r, lo, counts = match_ranges(left, right, on, right_on)
+    emit = counts.clamp(min=1)
+    left_idx, right_idx, matched, _ = _expand(perm_r, lo, counts,
+                                              int(emit.sum()), emit)
+    m = right.row_count
+    if padded and m and wire_rows(m) > m and not bool(
+            _key_words([right.column(c) for c in right_on], None)[1].any()):
+        right = slice_rows(right, 0, 0)  # every right side reads zeros
+    return join_output(left, right, right_on, left_idx, right_idx, matched)
+
+
+# ---------------------------------------------------------------------------
+# semi / anti joins
+# ---------------------------------------------------------------------------
+
+
+def membership_mask(left, right, on, right_on=None, left_valid=None,
+                    right_valid=None) -> torch.Tensor:
+    """Per left row: has at least one match in ``right`` (the SEMI/ANTI
+    predicate). A null key or ``left_valid`` False never matches."""
+    right_on = right_on or on
+    _, _, counts = match_ranges(left, right, on, right_on, left_valid,
+                                right_valid)
+    return counts > 0
+
+
+def _keep(left: Table, keep: torch.Tensor) -> Table:
+    from .filter import filter_table
+
+    return filter_table(left, Column(keep, dt.BOOL8, None))
+
+
+def semi_join(left, right, on, right_on=None) -> Table:
+    """Rows of ``left`` with at least one match (LEFT SEMI)."""
+    return _keep(left, membership_mask(left, right, on, right_on))
+
+
+def anti_join(left, right, on, right_on=None) -> Table:
+    """Rows of ``left`` with no match (LEFT ANTI): null-key rows stay."""
+    return _keep(left, ~membership_mask(left, right, on, right_on))
+
+
+# ---------------------------------------------------------------------------
+# right / full outer joins
+# ---------------------------------------------------------------------------
+
+
+def _coalesce_key(lc: Column, rc: Column, left_idx, right_idx, left_ok,
+                  right_ok) -> Column:
+    """An output key column under USING: ``coalesce(l.k, r.k)``, left's
+    key where a left row exists, right's on right-only rows."""
+    if lc.dtype != rc.dtype:
+        raise TypeError(
+            f"outer-join key dtypes differ: {lc.dtype} vs {rc.dtype}")
+    lg = _gather_clipped(Table([lc]), left_idx).columns[0]
+    rg = _gather_clipped(Table([rc]), right_idx).columns[0]
+    data = torch.where(left_ok, lg.data, rg.data)
+    valid = torch.where(left_ok, compute.valid_mask(lg) & left_ok,
+                        compute.valid_mask(rg) & right_ok)
+    return Column(data, lc.dtype, valid)
+
+
+def _outer_output(left, right, left_on, right_on, left_idx, right_idx,
+                  left_ok, right_ok) -> Table:
+    """Key columns coalesced, left non-keys null where ``left_ok`` is
+    False, right non-keys (minus the right join keys) where ``right_ok``
+    is."""
+    lkeys = [_resolve(left, c) for c in left_on]
+    rkeys = [_resolve(right, c) for c in right_on]
+    rkey_of = dict(zip(lkeys, rkeys))
+    names = (list(left.names) if left.names
+             else [f"l{i}" for i in range(left.num_columns)])
+    out = []
+    for j, c in enumerate(left.columns):
+        if j in rkey_of:
+            out.append(_coalesce_key(c, right.columns[rkey_of[j]], left_idx,
+                                     right_idx, left_ok, right_ok))
+        else:
+            out.append(
+                _gather_clipped(Table([c]), left_idx, left_ok).columns[0])
+    for j, c in enumerate(right.columns):
+        if j in rkeys:
+            continue
+        out.append(_gather_clipped(Table([c]), right_idx, right_ok).columns[0])
+        names.append(right.names[j] if right.names else f"r{j}")
+    return Table(out, names)
+
+
+def _unmatched_right(left, right, on, right_on) -> torch.Tensor:
+    """Right rows with no match in ``left`` (null keys included): the rows
+    a RIGHT/FULL OUTER join appends."""
+    _, _, counts = match_ranges(right, left, right_on, on)
+    return counts == 0
+
+
+def _with_right_only(left, right, on, right_on, left_idx, right_idx,
+                     right_ok) -> Table:
+    """Pairs, then the unmatched right rows in their order with a null
+    left side (left row 0, as the JAX package gathers it)."""
+    run_idx = torch.nonzero(_unmatched_right(left, right, on,
+                                             right_on)).flatten()
+    n_pairs, n_run = left_idx.shape[0], run_idx.shape[0]
+    dev = left_idx.device
+    left_idx = torch.cat([left_idx, torch.zeros(n_run, dtype=left_idx.dtype,
+                                                device=dev)])
+    right_idx = torch.cat([right_idx, run_idx])
+    left_ok = torch.arange(n_pairs + n_run, device=dev) < n_pairs
+    right_ok = torch.cat([right_ok, torch.ones(n_run, dtype=torch.bool,
+                                               device=dev)])
+    return _outer_output(left, right, on, right_on, left_idx, right_idx,
+                         left_ok, right_ok)
+
+
+def right_join(left, right, on, right_on=None) -> Table:
+    """RIGHT OUTER equi-join: the inner pairs, then the unmatched right
+    rows with a null left side (keys coalesced from the right)."""
+    right_on = right_on or on
+    perm_r, lo, counts = match_ranges(left, right, on, right_on)
+    left_idx, right_idx, matched, _ = _expand(perm_r, lo, counts,
+                                              int(counts.sum()))
+    return _with_right_only(left, right, on, right_on, left_idx, right_idx,
+                            torch.ones_like(matched))
+
+
+def full_join(left, right, on, right_on=None) -> Table:
+    """FULL OUTER equi-join: the left join's rows, then the unmatched
+    right rows with a null left side."""
+    right_on = right_on or on
+    perm_r, lo, counts = match_ranges(left, right, on, right_on)
+    emit = counts.clamp(min=1)
+    left_idx, right_idx, matched, _ = _expand(perm_r, lo, counts,
+                                              int(emit.sum()), emit)
+    return _with_right_only(left, right, on, right_on, left_idx, right_idx,
+                            matched)
+
+
+# ---------------------------------------------------------------------------
+# the memory-bounded chunked inner join
+# ---------------------------------------------------------------------------
+
+
+def _row_bytes(table: Table) -> int:
+    """Bytes of one row: every column's element, plus a validity byte."""
+    return sum(c.data.element_size() * math.prod(c.data.shape[1:])
+               + (c.validity is not None) for c in table.columns)
+
+
+def inner_join_batched(left, right, on, right_on=None,
+                       probe_rows: Optional[int] = None) -> Table:
+    """The inner join in probe-side chunks (:func:`inner_join_batches`),
+    concatenated: the same rows as :func:`inner_join`."""
+    from .copying import concatenate
+
+    right_on = right_on or on
+    pieces = list(inner_join_batches(left, right, on, right_on, probe_rows))
+    if not pieces:
+        return _empty_pairs(left, right, right_on)
+    return concatenate(pieces) if len(pieces) > 1 else pieces[0]
+
+
+def inner_join_batches(left, right, on, right_on=None,
+                       probe_rows: Optional[int] = None):
+    """The inner join as one result table per probe chunk, in order,
+    skipping chunks without matches: at no point is more than one
+    chunk's output held. A chunk has ``probe_rows`` rows (by default as
+    many as keep its output under :data:`BATCH_OUT_BYTES` at two matches
+    a row), and a chunk of more than 1,024 rows whose output, padded to a
+    power of two, passes its budget (at least
+    :data:`MIN_CHUNK_OUT_BYTES`) splits in two. Arguments are checked at
+    the call."""
+    right_on = right_on or on
+    out_row_bytes = _row_bytes(left) + _row_bytes(right)
+    if probe_rows is None:
+        probe_rows = max(1, BATCH_OUT_BYTES // (2 * max(out_row_bytes, 1)))
+    if probe_rows <= 0:
+        raise ValueError(f"probe_rows must be positive, got {probe_rows}")
+    return _inner_join_batches_gen(left, right, on, right_on, probe_rows,
+                                   out_row_bytes)
+
+
+def _inner_join_batches_gen(left, right, on, right_on, probe_rows,
+                            out_row_bytes):
+    from collections import deque
+
+    from .copying import slice_rows
+
+    n = left.row_count
+    if n == 0 or right.row_count == 0:
+        return
+    budget = max(probe_rows * 2 * out_row_bytes, MIN_CHUNK_OUT_BYTES)
+    spans = deque((s, min(s + probe_rows, n)) for s in range(0, n, probe_rows))
+    while spans:
+        start, stop = spans.popleft()
+        chunk = slice_rows(left, start, stop)
+        perm_r, lo, counts = match_ranges(chunk, right, on, right_on)
+        total = int(counts.sum())
+        if total == 0:
+            continue
+        cap = max(32, 1 << (total - 1).bit_length())
+        if cap * out_row_bytes > budget and stop - start > 1024:
+            mid = (start + stop) // 2
+            spans.appendleft((mid, stop))
+            spans.appendleft((start, mid))
+            continue
+        yield _inner_pairs(chunk, right, right_on, perm_r, lo, counts, total)

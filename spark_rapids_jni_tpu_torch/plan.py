@@ -13,15 +13,21 @@ from typing import Sequence
 from .column import Table
 
 
-def _take_rest(op: dict, queue: list) -> list:
-    """Extra input tables of an op: a join takes the next unconsumed
-    extra table. Join is the only multi-table op ported."""
-    if "rest" in op:
-        from .runtime_bridge import UnsupportedOpError
-
-        raise UnsupportedOpError("an explicit 'rest' field is not ported yet")
-    if op["op"] == "join" and queue:
-        return [queue.pop(0)]
+def _take_rest(op: dict, orig_rest: tuple, queue: list) -> list:
+    """Extra input tables of a multi-table op: an explicit ``"rest"``
+    field names indices into the call's extra tables; otherwise a join or
+    cross join takes the next unconsumed extra table and a concat takes
+    all that are left."""
+    idxs = op.get("rest")
+    if idxs is not None:
+        return [orig_rest[int(i)] for i in idxs]
+    name = op.get("op")
+    if name in ("join", "cross_join"):
+        return [queue.pop(0)] if queue else []
+    if name == "concat":
+        out = list(queue)
+        queue.clear()
+        return out
     return []
 
 
@@ -36,9 +42,9 @@ def run_plan(ops: Sequence[dict], table: Table,
     for op in ops:
         if not isinstance(op, dict) or "op" not in op:
             raise ValueError(f"plan entries must be op objects, got {op!r}")
-    queue = list(rest)
+    orig_rest, queue = tuple(rest), list(rest)
     for op in ops:
         table = runtime_bridge._dispatch_once(
-            op, table, _take_rest(op, queue), op["op"]
+            op, table, _take_rest(op, orig_rest, queue), op["op"]
         )
     return table

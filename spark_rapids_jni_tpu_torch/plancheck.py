@@ -10,10 +10,9 @@ index, op name and reason. Like the reference it is permissive: only
 what is certain to raise is refused, and a walk whose schema is unknown
 checks structure only.
 
-The rules are those of the ops the port dispatches (``cast``,
-``filter``, ``sort_by``, ``groupby``, ``join``, ``partition``,
-``to_rows``, ``from_rows``). An op the JAX package knows and the port
-does not run raises ``runtime_bridge.UnsupportedOpError``. Fusion
+The rules are those of the ops the port dispatches: every op of the JAX
+package's but ``explode`` and ``rlike``, which raise
+``runtime_bridge.UnsupportedOpError``. Fusion
 tiers, kernel tags, segment prediction and the HBM estimate wait for
 plan fusion.
 """
@@ -225,8 +224,10 @@ def _agg_out(agg: str, col: ColType) -> ColType:
 
 
 class _State:
-    """The flowing schema, names and row bound, and the extra tables a
-    join consumes (in order, or by an explicit ``rest`` index list)."""
+    """The flowing schema, names and row bound, and the extra tables of
+    the multi-table ops, taken as ``plan._take_rest`` takes them: an
+    explicit ``rest`` index list, else a join or cross join the next one
+    and a concat all that are left."""
 
     def __init__(self, schema, names, rows, rest):
         self.schema = schema
@@ -236,14 +237,13 @@ class _State:
         self.queue: List[Tuple] = list(rest)
 
     def take_rest(self, op: dict) -> List[Tuple]:
-        idxs = op.get("rest")
-        if idxs is not None:
-            try:
-                return [self.orig_rest[int(i)] for i in idxs]
-            except (IndexError, TypeError, ValueError):
-                raise _Reject(f"'rest' indices {idxs!r} out of range for "
-                              f"{len(self.orig_rest)} extra tables") from None
-        return [self.queue.pop(0)] if self.queue else []
+        from .plan import _take_rest
+
+        try:
+            return _take_rest(op, tuple(self.orig_rest), self.queue)
+        except (IndexError, TypeError, ValueError):
+            raise _Reject(f"'rest' indices {op.get('rest')!r} out of range "
+                          f"for {len(self.orig_rest)} extra tables") from None
 
 
 def _r_cast(op, st):
@@ -293,6 +293,98 @@ def _r_sort_by(op, st):
     if st.schema is None:
         return None, None, st.rows
     return list(st.schema), st.names, st.rows
+
+
+def _r_distinct(op, st):
+    keys = op.get("keys")
+    if keys is not None:
+        if not isinstance(keys, list):
+            raise _Reject(f"distinct 'keys' must be a list, got {keys!r}")
+        for k in keys:
+            _key_ref(k, st.schema, st.names, what="distinct key")
+    if st.schema is None:
+        return None, None, st.rows
+    return list(st.schema), st.names, st.rows
+
+
+def _r_slice(op, st):
+    start, stop = op.get("start", 0), op.get("stop")
+    try:
+        start_i = int(start)
+        stop_i = None if stop is None else int(stop)
+    except (TypeError, ValueError):
+        raise _Reject(f"slice bounds must be integers, got start={start!r} "
+                      f"stop={stop!r}") from None
+    if start_i < 0 or (stop_i is not None and stop_i < 0):
+        raise _Reject("slice: negative bounds not supported "
+                      f"(start={start_i}, stop={stop_i})")
+    rows = st.rows
+    if rows is not None:
+        hi = rows if stop_i is None else min(stop_i, rows)
+        rows = max(0, hi - min(start_i, rows))
+    elif stop_i is not None:
+        rows = max(0, stop_i - start_i)
+    if st.schema is None:
+        return None, None, rows
+    return list(st.schema), st.names, rows
+
+
+def _r_cross_join(op, st):
+    rest = st.take_rest(op)
+    if not rest:
+        raise _Reject("cross_join needs two input tables")
+    r_schema, r_rows = rest[0]
+    rows = None
+    if st.rows is not None and r_rows is not None:
+        rows = st.rows * r_rows
+    if st.schema is None or r_schema is None:
+        return None, None, rows
+    return list(st.schema) + list(r_schema), None, rows
+
+
+def _r_concat(op, st):
+    rest = st.take_rest(op)
+    rows = st.rows
+    out = list(st.schema) if st.schema is not None else None
+    for r_schema, r_rows in rest:
+        rows = (rows + r_rows if rows is not None and r_rows is not None
+                else None)
+        if out is None or r_schema is None:
+            out = None
+            continue
+        if len(r_schema) != len(out):
+            raise _Reject("concatenate: column counts differ "
+                          f"({len(out)} vs {len(r_schema)})")
+        for a, b in zip(out, r_schema):
+            if (a.id, a.scale, a.child) != (b.id, b.scale, b.child):
+                raise _Reject(f"concatenate dtype mismatch: {a.pretty()} vs "
+                              f"{b.pretty()}")
+    return out, (st.names if out is not None else None), rows
+
+
+def _r_repeat(op, st):
+    count = op.get("count")
+    if isinstance(count, bool) or not isinstance(count, int):
+        raise _Reject(f"repeat count must be an integer, got {count!r}")
+    if count < 0:
+        raise _Reject("repeat: count must be non-negative")
+    rows = st.rows * count if st.rows is not None else None
+    if st.schema is None:
+        return None, None, rows
+    return list(st.schema), st.names, rows
+
+
+def _r_sample(op, st):
+    n = op.get("n")
+    if isinstance(n, bool) or not isinstance(n, int):
+        raise _Reject(f"sample n must be an integer, got {n!r}")
+    if n < 0:
+        raise _Reject(f"sample n must be non-negative, got {n}")
+    # n past the rows without replacement is a run-time error: the live
+    # row count after a filter is data-dependent
+    if st.schema is None:
+        return None, None, n
+    return list(st.schema), st.names, n
 
 
 _KNOWN_AGGS = frozenset({
@@ -449,8 +541,10 @@ def _r_partition(op, st):
 
 #: The rules of the ops the port dispatches.
 _RULES = {
-    "cast": _r_cast, "filter": _r_filter, "sort_by": _r_sort_by,
-    "groupby": _r_groupby, "join": _r_join, "partition": _r_partition,
+    "join": _r_join, "concat": _r_concat, "groupby": _r_groupby,
+    "sort_by": _r_sort_by, "filter": _r_filter, "distinct": _r_distinct,
+    "cast": _r_cast, "cross_join": _r_cross_join, "slice": _r_slice,
+    "repeat": _r_repeat, "sample": _r_sample, "partition": _r_partition,
     "to_rows": _r_to_rows, "from_rows": _r_from_rows,
 }
 

@@ -13,12 +13,14 @@ resident on the device between calls: ``table_upload_wire`` returns an
 id, ``table_plan_resident`` runs a plan over ids and returns a new id,
 ``table_download_wire`` serializes one, ``table_free`` drops it. Every
 entry that runs ops checks them first (``plancheck.check_plan``), before
-any upload or donation. Only ``from_rows`` (a LIST<UINT8> row column or
-a legacy flat UINT8 buffer), ``filter``, ``cast``, ``join`` (inner),
-``groupby``, ``sort_by``, ``partition`` and ``to_rows`` are ported; every
-other op of ``DISPATCH_OPS`` raises :class:`UnsupportedOpError`. The JAX
-package pads wire tables to a shape bucket; the port runs exact shapes,
-which gives the same logical rows.
+any upload or donation. Every op of ``DISPATCH_OPS`` runs but
+``explode`` and ``rlike`` (LIST explode and strings, not ported yet),
+which raise :class:`UnsupportedOpError`; ``table_op_resident`` runs one
+op over resident tables. The JAX package pads wire tables to a shape
+bucket; the port runs exact shapes, which gives the same logical rows.
+Where the JAX entries raise on an input Spark can send (a join with a
+0-row side, a ``concat`` of unnamed tables), the port returns Spark's
+result.
 """
 
 from __future__ import annotations
@@ -174,9 +176,11 @@ DISPATCH_OPS = frozenset({
     "explode", "rlike", "cross_join", "slice", "repeat", "sample",
     "partition", "to_rows", "from_rows",
 })
-#: The ops this slice of the port runs.
-PORTED_OPS = frozenset({"join", "groupby", "filter", "cast", "sort_by",
-                        "partition", "to_rows", "from_rows"})
+#: The ops the port runs: all but LIST explode and the string op.
+PORTED_OPS = DISPATCH_OPS - {"explode", "rlike"}
+#: The join of each ``how``.
+_JOINS = {"inner": "inner_join", "left": "left_join", "right": "right_join",
+          "full": "full_join", "semi": "semi_join", "anti": "anti_join"}
 #: Ops whose only route is a kernel: the row transpose has no second
 #: implementation, so it runs K1a/K1b whatever the tier's gate, and a
 #: decline means an input not ported yet.
@@ -223,15 +227,42 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
         return Table(out, table.names)
     if name == "join":
         how = op.get("how", "inner")
-        if how != "inner":
-            raise UnsupportedOpError(f"join how={how!r} is not ported yet")
+        if how not in _JOINS:
+            raise ValueError(f"unknown join how={how!r}")
         if not rest:
             raise ValueError("join needs two input tables")
-        return ops.inner_join(table, rest[0], op["on"])
+        if how == "left":  # the JAX wire entries pad its build side
+            return ops.left_join(table, rest[0], op["on"], padded=True)
+        return getattr(ops, _JOINS[how])(table, rest[0], op["on"])
+    if name == "concat":
+        return ops.concatenate([table, *rest])
     if name == "groupby":
         aggs = [ops.GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
-        # the JAX wire entries pad to a shape bucket: reduce as they do
-        return ops.groupby_aggregate(table, op["by"], aggs, padded=True)
+        # the JAX wire entries pad to a shape bucket and reduce as they
+        # do, but for a collect, which runs on their exact path
+        collect = any(a.op.startswith("collect") for a in aggs)
+        return ops.groupby_aggregate(table, op["by"], aggs,
+                                     padded=not collect)
+    if name == "distinct":
+        return ops.distinct(table, op.get("keys"))
+    if name == "cross_join":
+        if not rest:
+            raise ValueError("cross_join needs two input tables")
+        return ops.cross_join(table, rest[0])
+    if name == "slice":
+        n = table.row_count
+        start, stop = int(op.get("start", 0)), int(op.get("stop", n))
+        if start < 0 or stop < 0:
+            raise ValueError(
+                f"slice: negative bounds not supported (start={start}, "
+                f"stop={stop})")
+        start = min(start, n)
+        return ops.slice_rows(table, start, max(start, min(stop, n)))
+    if name == "repeat":
+        return ops.repeat(table, int(op["count"]))
+    if name == "sample":
+        return ops.sample(table, int(op["n"]), seed=int(op.get("seed", 0)),
+                          replacement=bool(op.get("replacement", False)))
     if name == "sort_by":
         keys = [ops.SortKey(k["column"], ascending=k.get("ascending", True))
                 for k in op["keys"]]
@@ -343,13 +374,43 @@ def table_plan_resident(
     ``donate=True`` then frees ``table_ids[0]`` when the plan starts, so
     a rejected plan leaves it live."""
     from . import plan as plan_mod
-    from . import plancheck
 
     if not table_ids:
         raise ValueError("table_plan_resident needs at least one input")
     ops = json.loads(plan_json)
     if not isinstance(ops, list):
         raise TypeError("table_plan_resident: plan must be a JSON list of ops")
+    tables = _checked_inputs(ops, table_ids)
+    if donate:
+        table_free(table_ids[0])
+    return _resident_put(plan_mod.run_plan(ops, tables[0], tables[1:]))
+
+
+def table_op_resident(
+    op_json: str, table_ids: Sequence[int], donate: bool = False
+) -> int:
+    """One op over resident tables; the result stays resident.
+    ``table_ids[0]`` is the op's input, the others its extra tables (a
+    join's build side, a concat's tail). The op is checked first
+    (``plancheck.check_plan``); ``donate=True`` then frees
+    ``table_ids[0]``, so a rejected op leaves it live."""
+    from . import plan as plan_mod
+
+    if not table_ids:
+        raise ValueError("table_op_resident needs at least one input")
+    op = json.loads(op_json)
+    tables = _checked_inputs([op], table_ids)
+    if donate:
+        table_free(table_ids[0])
+    rest = plan_mod._take_rest(op, tuple(tables[1:]), list(tables[1:]))
+    return _resident_put(_dispatch_once(op, tables[0], rest, op["op"]))
+
+
+def _checked_inputs(ops, table_ids: Sequence[int]) -> list:
+    """The resident tables of ``table_ids``, after the plan check on
+    their schemas."""
+    from . import plancheck
+
     tables = [_resident_get(t) for t in table_ids]
     plancheck.check_plan(
         ops, schema=plancheck.schema_of_table(tables[0]),
@@ -357,9 +418,7 @@ def table_plan_resident(
         rest=[(plancheck.schema_of_table(t), t.logical_row_count)
               for t in tables[1:]],
         names=tables[0].names)
-    if donate:
-        table_free(table_ids[0])
-    return _resident_put(plan_mod.run_plan(ops, tables[0], tables[1:]))
+    return tables
 
 
 def _check_wire_plan(ops, type_ids, scales, num_rows: int) -> None:

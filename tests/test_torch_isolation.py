@@ -62,7 +62,8 @@ def test_scan_covers_the_package():
             "row_transpose.py", "rows.py", "hashing.py", "bitonic_sort.py",
             "partition.py", "groupby_packed.py", "groupby_chunked.py",
             "graft_entry.py", "plancheck.py", "binaryop.py", "unaryop.py",
-            "cast.py", "config.py", "metrics.py", "scan16.py"} <= names
+            "cast.py", "config.py", "metrics.py", "scan16.py",
+            "compaction.py", "copying.py", "join.py"} <= names
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():
@@ -317,3 +318,58 @@ def test_probe_cases_on_card(c, t, distinct, nulls, probes, queries):
         assert not want[0].any()
     if probes == 1:
         assert int(want[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build_keys,queries", [(20_360, 1 << 20),
+                                                (1, 4097), (4096, 3)])
+def test_semi_shapes_on_card(build_keys, queries):
+    """K2a and K2b at the semi join's shapes (one chunk of the category's
+    unique keys, 2 * next_pow2 slots, every probe row valid) equal their
+    plain versions on the card, and the membership the registry reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(build_keys)
+    keys = rng.choice(1 << 40, build_keys, replace=False).astype(np.int64)
+    probe = np.where(rng.random(queries) < 0.3,
+                     rng.choice(keys, queries), rng.integers(0, 1 << 40,
+                                                             queries))
+
+    def halves(a):
+        u = torch.from_numpy(a).cuda()
+        return (ht._as_i32(u & 0xFFFFFFFF)[None, :],
+                ht._as_i32(u >> 32)[None, :])
+
+    blo, bhi = halves(keys)
+    slots = 2 << max(build_keys - 1, 0).bit_length()
+    bval = torch.ones_like(blo)
+    got = ht.build_table(blo, bhi, bval, table_slots=slots)
+    want = ht.build_table_plain(blo, bhi, bval, table_slots=slots)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plo, phi = halves(probe)
+    pval = torch.ones_like(plo)
+    found = ht.probe_table(plo, phi, pval, *got[1:4])
+    plain = ht.probe_table_plain(plo, phi, pval, *want[1:4])
+    torch.cuda.synchronize()
+    for a, b in zip(found, plain):
+        assert torch.equal(a, b)
+    member = np.isin(probe, keys)
+    np.testing.assert_array_equal(found[0][0].cpu().numpy() != 0, member)
+
+
+@pytest.mark.cuda
+def test_scan16_flushes_subnormals_on_card():
+    """scan16 flushes subnormals in what each add reads and returns, bit
+    for bit as its plain version and XLA's CPU code."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tiny = np.finfo(np.float64).tiny
+    pool = np.array([5e-324, 1e-310, -1e-310, 3 * tiny, -2.5 * tiny, 1.0,
+                     -1.0, 1e-300, -0.0])
+    rng = np.random.default_rng(5)
+    for n in (2, 17, 4097, 70_000):
+        v = torch.from_numpy(pool[rng.integers(0, pool.shape[0], n)]).cuda()
+        got = sc.scan_sum16(v).view(torch.int64)
+        want = sc.scan_sum16_plain(v.cpu()).view(torch.int64)
+        assert torch.equal(got.cpu(), want)

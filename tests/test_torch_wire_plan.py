@@ -178,8 +178,9 @@ def test_flat_rows_need_num_rows_and_match_the_buffer():
 
 def test_unported_op_in_a_wire_plan_raises_typed():
     wire = _list_wire(_fact_rows(16, 3))
-    with pytest.raises(rb.UnsupportedOpError, match="distinct"):
-        rb.table_plan_wire(json.dumps([FROM_ROWS, {"op": "distinct"}]),
+    with pytest.raises(rb.UnsupportedOpError, match="explode"):
+        rb.table_plan_wire(json.dumps([FROM_ROWS,
+                                       {"op": "explode", "column": 0}]),
                            *wire, device="cpu")
     with pytest.raises(TypeError, match="JSON list"):
         rb.table_plan_wire(json.dumps(FROM_ROWS), *wire, device="cpu")
