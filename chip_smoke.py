@@ -71,6 +71,25 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     repeat, sample with and without replacement, collect_list/collect_set
     by day, a donated input) and at the ops level (distinct_capped,
     drop_nulls), byte for byte against the port's own CPU run.
+(k) STRING columns — resident plans over (a)'s batch and SF100 item and
+    customer with dsdgen-shaped strings: (k1) inner join with item
+    (carrying i_brand/i_category/i_class; K1b, K2a, K2b), rlike
+    '^(Books|Electronics|Music)$' on i_category, SUM/COUNT(quantity) by
+    i_brand, ORDER BY the sum desc, brand (q3/q52/q55); (k2) the rows
+    with a customer, inner join with customer (K2a, K2b), SUM(quantity)
+    by (c_customer_id, c_first_name, c_last_name), inner join on the
+    16-byte c_customer_id with the birth country, hash partition on
+    c_customer_id into 200 (q11/q74); (k3) CAST of a 2^23-row price
+    column and an INT64 column to STRING and the price back. Each equals
+    the port's own CPU run byte for byte and a numpy oracle ((k1)'s regex
+    also Python's re.fullmatch; (k3)'s strings Java's Double.toString
+    layout on a sample, its round trip bit-exact); then 5 timed runs, the
+    host syncs of one run and a profiled window, and the DFA scan and
+    the Murmur3 string chain alone under the profiler. (k4) runs the
+    rest of the string surface once at 2^20 rows against the CPU's
+    bytes: explode, distinct, a descending sort on a nullable string,
+    concat and cross_join of two pad widths, rlike, casts with
+    unparseable rows, the regex span ops, comparisons and ||.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -87,7 +106,8 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     those tables (``phase_probe_cases``: the groupby's chunks, the
     one-home-slot chain, max_probes 2, null, absent and unaligned
     queries, more chunks than the grid's y limit); K2a and K2b also at
-    (i1)'s semi shapes. The registers, spills
+    (i1)'s semi shapes and (k2)'s 2,000,000-key customer join. The
+    registers, spills
     and shared memory that ``nvcc -Xptxas -v`` reported for each kernel
     of the build are printed first.
 
@@ -2280,6 +2300,572 @@ def phase_remaining_ops(rb, d: dict, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (k): STRING columns through the wire and the dispatch plane
+# ---------------------------------------------------------------------------
+
+# dsdgen's vocabularies, cut to the shapes the cells need: i_brand is two
+# brand syllables and " #n" (11-20 bytes, 1,000 brands), i_category one of
+# the 10 TPC-DS categories, i_class 32 class names; c_customer_id the 16
+# letters of mk_bkey, the names and birth countries from fixed lists
+BRAND_SYLLABLES = [b"amalg", b"edu pack", b"export", b"import", b"scholar",
+                   b"univ", b"corp", b"brand", b"maxi", b"nameless"]
+CATEGORIES = [b"Women", b"Men", b"Children", b"Shoes", b"Music", b"Jewelry",
+              b"Home", b"Sports", b"Books", b"Electronics"]
+CLASSES = [b"dresses", b"shirts", b"pants", b"accessories", b"athletic",
+           b"kids", b"infants", b"toddlers", b"newborn", b"womens", b"mens",
+           b"swimwear", b"fragrances", b"pop", b"rock", b"country",
+           b"classical", b"jewelry boxes", b"bracelets", b"rings", b"bedding",
+           b"furniture", b"lighting", b"golf", b"tennis", b"fiction",
+           b"history", b"reference", b"computers", b"televisions", b"cameras",
+           b"stereo"]
+FIRST_NAMES = [b"James", b"Mary", b"John", b"Patricia", b"Robert",
+               b"Jennifer", b"Michael", b"Linda", b"William", b"Elizabeth",
+               b"David", b"Barbara", b"Richard", b"Susan", b"Joseph",
+               b"Jessica", b"Thomas", b"Sarah", b"Charles", b"Karen",
+               b"Christopher", b"Nancy", b"Daniel", b"Lisa", b"Matthew",
+               b"Betty", b"Anthony", b"Margaret", b"Mark", b"Sandra",
+               "José".encode(), "Zoë".encode()]
+LAST_NAMES = [b"Smith", b"Johnson", b"Williams", b"Brown", b"Jones",
+              b"Garcia", b"Miller", b"Davis", b"Rodriguez", b"Martinez",
+              b"Hernandez", b"Lopez", b"Gonzalez", b"Wilson", b"Anderson",
+              b"Thomas", b"Taylor", b"Moore", b"Jackson", b"Martin", b"Lee",
+              b"Perez", b"Thompson", b"White", b"Harris", b"Sanchez",
+              b"Clark", b"Ramirez", b"Lewis", b"Robinson", "Müller".encode(),
+              "Nakamura".encode()]
+COUNTRIES = [b"UNITED STATES", b"CANADA", b"MEXICO", b"GERMANY", b"FRANCE",
+             b"JAPAN", b"CHINA", b"INDIA", b"BRAZIL", b"NIGERIA",
+             b"NEW ZEALAND", b"SOUTH AFRICA", b"FIJI", b"PERU", b"SPAIN",
+             "CÔTE D'IVOIRE".encode()]
+NAME_NULLS = 0.035
+K1_PATTERN = "^(Books|Electronics|Music)$"
+K3_ROWS = 1 << 23
+K4_ROWS = 1 << 20
+STRING_PLANS = {
+    # SUM/COUNT(ss_quantity) by i_brand over three categories, ORDER BY
+    # the sum desc, brand (TPC-DS q3/q52/q55's shape)
+    "k1": [FROM_FACT_ROWS, {"op": "join", "how": "inner", "on": [0]},
+           {"op": "rlike", "column": 6, "pattern": K1_PATTERN},
+           {"op": "groupby", "by": [5], "aggs": [
+               {"column": 3, "agg": "sum"}, {"column": 3, "agg": "count"}]},
+           {"op": "sort_by", "keys": [{"column": 1, "ascending": False},
+                                      {"column": 0}]}],
+    # a customer's total by (c_customer_id, c_first_name, c_last_name),
+    # joined on c_customer_id with the birth country, then the shuffle
+    # on c_customer_id (TPC-DS q11/q74's shape)
+    "k2": [FROM_FACT_ROWS, {"op": "join", "how": "inner", "on": [1]},
+           {"op": "groupby", "by": [5, 6, 7],
+            "aggs": [{"column": 3, "agg": "sum"}]},
+           {"op": "join", "how": "inner", "on": [0]},
+           {"op": "partition", "kind": "hash", "keys": [0],
+            "num": EXCHANGE_PARTITIONS}],
+    # CAST(price AS STRING), CAST(bigint AS STRING), and the price's
+    # round trip CAST(CAST(price AS STRING) AS DOUBLE)
+    "k3": [{"op": "cast", "column": 0, "type_id": 23},
+           {"op": "cast", "column": 1, "type_id": 23},
+           {"op": "cast", "column": 2, "type_id": 23},
+           {"op": "cast", "column": 2, "type_id": 10}],
+}
+STRING_KERNELS = {"k1": ("unpack_rows", "build_table", "probe_table"),
+                  "k2": ("unpack_rows", "build_table", "probe_table"),
+                  "k3": ()}
+
+
+def string_wire(vocab, idx: np.ndarray, valid=None):
+    """(offsets + payload bytes, validity bytes | None) of a STRING column
+    whose row i is ``vocab[idx[i]]`` (null where ``valid`` is False)."""
+    lens_v = np.array([len(v) for v in vocab], np.int32)
+    mat_v = np.zeros((len(vocab), max(lens_v.max(), 1)), np.uint8)
+    for i, v in enumerate(vocab):
+        mat_v[i, :len(v)] = np.frombuffer(v, np.uint8)
+    lens = lens_v[idx]
+    if valid is not None:
+        lens = np.where(valid, lens, 0).astype(np.int32)
+    return padded_wire(mat_v[idx], lens, valid)
+
+
+def padded_wire(mat: np.ndarray, lens: np.ndarray, valid=None):
+    offs = np.zeros(lens.shape[0] + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    payload = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]
+    return (offs.tobytes() + payload.tobytes(),
+            None if valid is None else valid.astype(np.uint8).tobytes())
+
+
+def customer_ids(sk: np.ndarray) -> np.ndarray:
+    """dsdgen's c_customer_id: 16 letters, "AAAAAAAA" then the key's eight
+    nibbles as 'A' + nibble, the low nibble first."""
+    n = sk.shape[0]
+    mat = np.full((n, 16), ord("A"), np.uint8)
+    for k in range(8):
+        mat[:, 8 + k] += ((sk >> (4 * k)) & 15).astype(np.uint8)
+    return mat
+
+
+def make_string_data(rng, d: dict) -> dict:
+    """(k)'s tables: SF100 item with i_brand/i_category/i_class, SF100
+    customer with c_customer_id and ~3.5 % null names, the (c_customer_id,
+    c_birth_country) side, (k2)'s fact rows (those of (a)'s batch whose
+    ss_customer_sk is not null: Spark infers isnotnull for the inner
+    join's key and pushes it into the scan), (k3)'s prices and bigints."""
+    brands = [a + b + b" #" + str(c + 1).encode() for a in BRAND_SYLLABLES
+              for b in BRAND_SYLLABLES for c in range(10)]
+    brand_idx = d["i_brand_id"] - 1_001_001
+    cat_idx = d["i_category_id"] - 1
+    class_idx = rng.integers(0, len(CLASSES), ITEM_ROWS)
+    cols = [string_wire(brands, brand_idx), string_wire(CATEGORIES, cat_idx),
+            string_wire(CLASSES, class_idx)]
+    item = ([4, 23, 23, 23], [0] * 4,
+            [d["i_item_sk"].tobytes()] + [c[0] for c in cols],
+            [None] * 4, ITEM_ROWS)
+    sk = np.arange(1, CUSTOMER_ROWS + 1, dtype=np.int64)
+    ids = customer_ids(sk)
+    id_wire = padded_wire(ids, np.full(CUSTOMER_ROWS, 16, np.int32))
+    first_ok = rng.random(CUSTOMER_ROWS) > NAME_NULLS
+    last_ok = rng.random(CUSTOMER_ROWS) > NAME_NULLS
+    first = string_wire(FIRST_NAMES, rng.integers(0, len(FIRST_NAMES),
+                                                  CUSTOMER_ROWS), first_ok)
+    last = string_wire(LAST_NAMES, rng.integers(0, len(LAST_NAMES),
+                                                CUSTOMER_ROWS), last_ok)
+    country_idx = rng.integers(0, len(COUNTRIES), CUSTOMER_ROWS)
+    country = string_wire(COUNTRIES, country_idx)
+    # the join key at the fact's customer_sk index: a join's "on" names
+    # one column index on both sides
+    customer = ([23, 4, 23, 23], [0] * 4,
+                [id_wire[0], sk.tobytes(), first[0], last[0]],
+                [None, None, first[1], last[1]], CUSTOMER_ROWS)
+    id_country = ([23, 23], [0, 0], [id_wire[0], country[0]], [None, None],
+                  CUSTOMER_ROWS)
+    keep = d["customer_ok"]
+    rows = d["rows"][keep]
+    n2 = rows.shape[0]
+    offs = (np.arange(n2 + 1, dtype=np.int64) * 32).astype(np.int32)
+    fact2 = ([24], [5], [offs.tobytes() + rows.tobytes()], [None], n2)
+    price = np.round(rng.random(K3_ROWS) * 200, 2)
+    bigint = rng.integers(-2**63, 2**63 - 1, K3_ROWS, dtype=np.int64,
+                          endpoint=True)
+    bigint[:4] = [0, -1, -2**63, 2**63 - 1]
+    casts = ([10, 4, 10], [0, 0, 0],
+             [price.tobytes(), bigint.tobytes(), price.tobytes()],
+             [None] * 3, K3_ROWS)
+    return {"brands": brands, "brand_idx": brand_idx, "cat_idx": cat_idx,
+            "item_wire": item, "customer_wire": customer,
+            "id_country_wire": id_country, "fact2_wire": fact2,
+            "fact2_rows": n2, "cast_wire": casts, "price": price,
+            "bigint": bigint, "country_idx": country_idx, "ids": ids,
+            "first_ok": first_ok, "last_ok": last_ok}
+
+
+def wire_strings(wire, col: int) -> list:
+    """Column ``col`` of a wire result as bytes values (None for null)."""
+    type_ids, _, datas, valids, n = wire
+    if type_ids[col] != 23:
+        raise AssertionError(f"column {col} is not STRING")
+    offs = np.frombuffer(datas[col], np.int32, n + 1)
+    payload = datas[col][4 * (n + 1):]
+    valid = (np.ones(n, bool) if valids[col] is None
+             else np.frombuffer(valids[col], np.uint8, n).astype(bool))
+    return [payload[offs[i]:offs[i + 1]] if valid[i] else None
+            for i in range(n)]
+
+
+def wire_values(wire, col: int, dtype) -> np.ndarray:
+    return np.frombuffer(wire[2][col], dtype, wire[4])
+
+
+def check_k1(d: dict, sd: dict, wire) -> dict:
+    """(k1) against numpy and Python's ``re.fullmatch``: the kept
+    categories, per brand the quantity sum and count, the order."""
+    keep_cat = np.array([re.fullmatch(K1_PATTERN.encode(), c) is not None
+                         for c in CATEGORIES])
+    m = keep_cat[sd["cat_idx"][d["item_sk"]]]
+    brand = sd["brand_idx"][d["item_sk"]][m]
+    qok, qty = d["quantity_ok"][m], d["quantity"][m].astype(np.int64)
+    total = np.bincount(brand[qok], weights=qty[qok], minlength=1000)
+    count = np.bincount(brand[qok], minlength=1000)
+    seen = np.bincount(brand, minlength=1000) > 0
+    ids = np.flatnonzero(seen)
+    names = [sd["brands"][i] for i in ids]
+    order = sorted(range(ids.shape[0]),
+                   key=lambda i: (-int(total[ids[i]]), names[i]))
+    want_names = [names[i] for i in order]
+    got_names = wire_strings(wire, 0)
+    checks = {
+        "rows": wire[4] == ids.shape[0],
+        "brand": got_names == want_names,
+        "sum": np.array_equal(wire_values(wire, 1, np.int64),
+                              total[ids[order]].astype(np.int64)),
+        "count": np.array_equal(wire_values(wire, 2, np.int64),
+                                count[ids[order]]),
+        "categories": [c.decode() for c, k in zip(CATEGORIES, keep_cat) if k]
+        == ["Music", "Books", "Electronics"],
+    }
+    return {"checks": checks, "rows_kept": int(m.sum()),
+            "brands": int(ids.shape[0])}
+
+
+def check_k2(d: dict, sd: dict, wire) -> dict:
+    """(k2) against numpy: the customers that bought, each with its sum,
+    names and birth country, and every row in the partition Spark's
+    Murmur3 of the 16-byte id gives (pmod 200, non-decreasing)."""
+    keep = d["customer_ok"]
+    cust = d["customer_sk"][keep]
+    qok = d["quantity_ok"][keep]
+    total = np.bincount(cust[qok], weights=d["quantity"][keep][qok],
+                        minlength=CUSTOMER_ROWS + 1).astype(np.int64)
+    seen = np.bincount(cust, minlength=CUSTOMER_ROWS + 1) > 0
+    n = wire[4]
+    ids = np.frombuffer(wire[2][0], np.uint8, offset=4 * (n + 1)).reshape(n, 16)
+    got_sk = ((ids[:, 8:].astype(np.int64) - 65)
+              << (4 * np.arange(8))[None, :]).sum(axis=1)
+    h = murmur3_string_np(ids)
+    part = np.mod(h.view(np.int32).astype(np.int64), EXCHANGE_PARTITIONS)
+    countries = wire_strings(wire, 4)
+    checks = {
+        "rows": wire[4] == int(seen.sum()),
+        "customers": np.array_equal(np.sort(got_sk), np.flatnonzero(seen)),
+        "sum": np.array_equal(wire_values(wire, 3, np.int64), total[got_sk]),
+        "country": countries == [COUNTRIES[i]
+                                 for i in sd["country_idx"][got_sk - 1]],
+        "first_null": np.array_equal(
+            np.array([v is None for v in wire_strings(wire, 1)]),
+            ~sd["first_ok"][got_sk - 1]),
+        "partition_order": bool(np.all(np.diff(part) >= 0)),
+    }
+    return {"checks": checks, "rows_in": int(sd["fact2_rows"]),
+            "groups": int(wire[4])}
+
+
+def murmur3_string_np(mat: np.ndarray) -> np.ndarray:
+    """Spark's Murmur3 (seed 42) of equal-length byte strings whose length
+    is a multiple of 4 (no tail), as uint32."""
+    n, width = mat.shape
+    h = np.full(n, 42, np.uint32)
+    words = mat.view("<u4")
+    for w in range(width // 4):
+        h = _mix_h1(h, _mix_k1(words[:, w].copy()))
+    h = h ^ np.uint32(width)
+    h ^= h >> np.uint32(16)
+    h = h * np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def java_double_string(v: float) -> str:
+    """Java ``Double.toString``'s layout of a finite double, the rules the
+    JAX package's tests encode: plain decimal in [1e-3, 1e7) with at
+    least one fraction digit, else the shortest digits as d.dddE[-]x."""
+    if v == 0.0:
+        return "-0.0" if np.signbit(v) else "0.0"
+    if 1e-3 <= abs(v) < 1e7:
+        return f"{v:.1f}" if v == int(v) else repr(float(v))
+    s = repr(abs(float(v)))
+    m, e10 = (s.split("e")[0], int(s.split("e")[1])) if "e" in s else (s, 0)
+    ip, _, fp = m.partition(".")
+    raw = ip + fp
+    digs = raw.lstrip("0").rstrip("0") or "0"
+    exp10 = e10 - len(fp) + (len(raw) - len(raw.rstrip("0")))
+    sci = len(digs) - 1 + exp10
+    return f"{'-' if v < 0 else ''}{digs[0]}.{digs[1:] or '0'}E{sci}"
+
+
+def check_k3(sd: dict, wire) -> dict:
+    """(k3): the price's round trip gives back its bits; a sample of the
+    price strings follows Java's Double.toString, of the bigint strings
+    Python's ``str``."""
+    price, bigint = sd["price"], sd["bigint"]
+    back = wire_values(wire, 2, np.float64)
+    sample = np.unique(np.concatenate([np.arange(4), np.random.default_rng(
+        1).integers(0, K3_ROWS, 20_000)]))
+    type_ids, _, datas, _, n = wire
+    pstr, bstr = (np.frombuffer(datas[c], np.int32, n + 1) for c in (0, 1))
+    def at(col, offs, i):
+        return datas[col][4 * (n + 1) + offs[i]:4 * (n + 1) + offs[i + 1]]
+    checks = {
+        "types": type_ids == [23, 23, 10],
+        "round_trip_bits": np.array_equal(back.view(np.uint64),
+                                          price.view(np.uint64)),
+        "java_strings": all(at(0, pstr, i).decode()
+                            == java_double_string(price[i]) for i in sample),
+        "bigint_strings": all(at(1, bstr, i).decode() == str(bigint[i])
+                              for i in sample),
+    }
+    return {"checks": checks, "sampled": int(sample.shape[0])}
+
+
+STRING_CHECKS = {"k1": check_k1, "k2": check_k2}
+
+
+def op_profile(fn, tag: str, nbytes: int, runs: int = 3) -> dict:
+    """Launches and device time a call of one plain op, from
+    ``torch.profiler`` (the DFA scan and the Murmur3 string chain run
+    small ops a pad column), beside the bound of ``nbytes`` moved once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    out = {"launches": sum(e.count for e in events) / runs,
+           "device_ms": sum(e.self_device_time_total for e in events)
+           / 1e3 / runs, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"{tag}: {out['launches']:g} launches, {out['device_ms']:.3f} ms of "
+        f"device time a call (bound {out['bound_ms']:.4f} ms)")
+    return out
+
+
+def phase_strings(rb, kernels, d: dict, sd: dict) -> dict:
+    """(k1)-(k3): resident plans through ``table_upload_wire`` +
+    ``table_plan_resident``, each run once, checked against numpy and
+    byte for byte against the port's own CPU run, then 5 timed runs, the
+    host syncs of one run and a profiled window."""
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    inputs = {"k1": [d["fact_wire"], sd["item_wire"]],
+              "k2": [sd["fact2_wire"], sd["customer_wire"],
+                     sd["id_country_wire"]],
+              "k3": [sd["cast_wire"]]}
+    out = {}
+    config.set_flag("METRICS", True)
+    try:
+        for tag, plan_ops in STRING_PLANS.items():
+            plan = json.dumps(plan_ops)
+            ids = [rb.table_upload_wire(*w, device=DEVICE) for w in inputs[tag]]
+            torch.cuda.synchronize()
+            metrics.reset()
+            kernels.reset_launches()
+            res = rb.table_plan_resident(plan, ids)
+            torch.cuda.synchronize()
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            tier = metrics.counter_values(["kernel.launches", "kernel.declines"])
+            wire = rb.table_download_wire(res)
+            rb.table_free(res)
+            got = (check_k3(sd, wire) if tag == "k3"
+                   else STRING_CHECKS[tag](d, sd, wire))
+            cpu = [rb.table_upload_wire(*w, device="cpu") for w in inputs[tag]]
+            ref = rb.table_plan_resident(plan, cpu)
+            got["checks"]["bytes_equal_cpu"] = (
+                tuple(rb.table_download_wire(ref)) == tuple(wire))
+            for t in cpu + [ref]:
+                rb.table_free(t)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = rb.table_plan_resident(plan, ids)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                rb.table_free(res)
+            median = statistics.median(times)
+            syncs = count_syncs(plan_runner(rb, plan, ids))
+            log(f"({tag}) {got}; wall median {median:.2f} ms over 5 runs (all: "
+                f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
+                f"launches {launches}; tier {tier}")
+            profile = profile_plan(plan_runner(rb, plan, ids), median,
+                                   f"({tag})")
+            for t in ids:
+                rb.table_free(t)
+            bad = [k for k, ok in got["checks"].items() if not ok]
+            if bad:
+                raise AssertionError(f"({tag}) differs: {bad}")
+            missing = [k for k in STRING_KERNELS[tag] if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"({tag}) never launched {missing}")
+            out[tag] = {"launches": launches, "tier": tier, "wall_ms": median,
+                        "syncs": syncs, "profile": profile, **got}
+    finally:
+        config.clear_flag("METRICS")
+    out["plain_ops"] = string_op_profiles(rb, sd)
+    return out
+
+
+def string_op_profiles(rb, sd: dict) -> dict:
+    """The DFA scan of (k1)'s rlike over its 2^23 joined category strings
+    (pad 11) and the Murmur3 string chain of (k2)'s partition over the
+    2,000,000 customer ids (pad 16), alone: launches and device time a
+    call."""
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import hashing, regex
+
+    cats = Column.from_strings(
+        [CATEGORIES[i] for i in range(10)], device=DEVICE)
+    idx = torch.from_numpy(sd["cat_idx"][np.random.default_rng(2).integers(
+        0, ITEM_ROWS, FACT_ROWS)]).to(DEVICE)
+    joined = Column(cats.data[idx], cats.dtype, None, cats.lengths[idx])
+    ids = torch.from_numpy(sd["ids"]).to(DEVICE)
+    keys = Table([Column(ids, joined.dtype, None,
+                         torch.full((ids.shape[0],), 16, dtype=torch.int32,
+                                    device=DEVICE))])
+    n, pad = joined.data.shape
+    m = ids.shape[0]
+    return {
+        # bytes and int32 lengths in, a bool a row out
+        "dfa_scan": op_profile(lambda: regex.contains_re(joined, K1_PATTERN),
+                               f"(k) DFA scan, {n} x pad {pad}",
+                               n * (pad + 4 + 1)),
+        # bytes and int32 lengths in, an int32 hash a row out
+        "murmur3_string": op_profile(
+            lambda: hashing.murmur3_table(keys, [0]),
+            f"(k) Murmur3 string chain, {m} x pad 16", m * (16 + 4 + 4)),
+    }
+
+
+def string_kernel_records(d: dict, sd: dict, qk: dict) -> list:
+    """K2a and K2b at (k2)'s join: the build over SF100's 2,000,000
+    customer keys (the largest build of any cell) and the probe with the
+    fact rows that have a customer. Bytes as the join's records count
+    them."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+    from spark_rapids_jni_tpu_torch.kernels import registry
+
+    la = qk["k2"]["launches"]
+    sk = np.arange(1, CUSTOMER_ROWS + 1, dtype=np.int64)
+    blo, bhi = key_halves(sk, dt.INT64)
+    bval = torch.ones_like(blo)
+    nb = blo.shape[1]
+    ns = 2 * registry._next_pow2(nb)
+    built = ht.build_table(blo, bhi, bval, table_slots=ns)
+    rounds = build_rounds(blo, bhi, bval, built, ns, ht.MAX_PROBES)
+    recs = [kernel_record(
+        ht.BUILD, "customer", f"1x{nb} keys, {ns} slots", la["build_table"],
+        lambda: ht.build_table(blo, bhi, bval, table_slots=ns),
+        lambda: ht.build_table_plain(blo, bhi, bval, table_slots=ns),
+        12 * nb + 4 * nb + 12 * ns + 8, 20 * nb,
+        note=f"(k2)'s build; regime {ht.build_regime(nb, ns)}, "
+             f"{rounds} probe rounds")]
+    plo, phi = key_halves(d["customer_sk"][d["customer_ok"]], dt.INT64)
+    pval = torch.ones_like(plo)
+    npb = plo.shape[1]
+    tables = built[1:4]
+    recs.append(kernel_record(
+        ht.PROBE, "customer", f"1x{npb} keys, {ns} slots", la["probe_table"],
+        lambda: ht.probe_table(plo, phi, pval, *tables),
+        lambda: ht.probe_table_plain(plo, phi, pval, *tables),
+        12 * npb + 12 * ns + 8 * npb + 4, 20 * npb,
+        note="(k2)'s probe: the fact rows with a customer"))
+    return recs
+
+
+def same_column(a, b, what: str) -> None:
+    """Two columns' host buffers equal (data, validity, lengths, type)."""
+    from spark_rapids_jni_tpu_torch import interop
+    from spark_rapids_jni_tpu_torch.column import Table
+
+    same_buffers(interop.table_to_buffers(Table([a])),
+                 interop.table_to_buffers(Table([b])), what)
+
+
+def phase_string_ops(rb, sd: dict, seed: int) -> dict:
+    """(k4): the rest of the string surface once at 2^20 rows on the card,
+    byte for byte against the port's own CPU run: explode/explode_outer,
+    the regex span ops, comparisons and ||, distinct on strings, a
+    descending sort on a nullable string, concat and cross_join of tables
+    of two pad widths, STRING -> BOOL/INT/DECIMAL64 with unparseable
+    rows; the strings hold non-ASCII UTF-8."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch import interop
+    from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.ops import binaryop, lists, regex
+    from spark_rapids_jni_tpu_torch.ops import strings as strings_mod
+    from spark_rapids_jni_tpu_torch.ops.cast import cast
+
+    rng = np.random.default_rng(seed + 11)
+    n = K4_ROWS
+    words = sd["brands"][:200] + CATEGORIES + CLASSES + FIRST_NAMES[-2:] + [
+        "Électron".encode(), "東京".encode(), b""]
+    numbers = [b"0", b"42", b" -17 ", b"3.75", b"1e3", b"abc", b"", b"true",
+               b"NO", b"9223372036854775808", b"-12.345", "１２".encode(),
+               b"99999999999999999.99", b"+0.5", b"y"]
+    s_ok = rng.random(n) > 0.05
+    s_idx = rng.integers(0, len(words), n)
+    n_idx = rng.integers(0, len(numbers), n)
+    lens = rng.integers(0, 5, n).astype(np.int32)
+    l_ok = rng.random(n) > 0.1
+    lens = np.where(l_ok, lens, 0).astype(np.int32)
+    payload = rng.integers(-50, 50, int(lens.sum())).astype(np.int32)
+    list_wire = (np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+                 .tobytes() + payload.tobytes(),
+                 l_ok.astype(np.uint8).tobytes())
+    s_wire = string_wire(words, s_idx, s_ok)
+    table = ([23, 23, 24, 4], [0, 0, 3, 0],
+             [s_wire[0], string_wire(numbers, n_idx)[0], list_wire[0],
+              np.arange(n, dtype=np.int64).tobytes()],
+             [s_wire[1], None, list_wire[1], None], n)
+    # (s, numbers, row) without the LIST column, and a 64-row table of
+    # the same schema whose strings have another pad width
+    flat = ([23, 23, 4], [0, 0, 0], [table[2][i] for i in (0, 1, 3)],
+            [table[3][i] for i in (0, 1, 3)], n)
+    short = string_wire(CATEGORIES, rng.integers(0, 10, 64))
+    short_wire = ([23, 23, 4], [0, 0, 0],
+                  [short[0], short[0], np.arange(64, dtype=np.int64).tobytes()],
+                  [None] * 3, 64)
+    cases = {
+        "explode": ([table], {"op": "explode", "column": 2}),
+        "distinct": ([table], {"op": "distinct", "keys": [0]}),
+        "sort desc nullable": ([table], {"op": "sort_by", "keys": [
+            {"column": 0, "ascending": False}, {"column": 3}]}),
+        "concat two pads": ([flat, short_wire], {"op": "concat"}),
+        "cross_join two pads": ([short_wire, short_wire],
+                                {"op": "cross_join"}),
+        "rlike": ([table], {"op": "rlike", "column": 0,
+                            "pattern": r"#\d$|^[A-Z][a-z]+s$"}),
+        "cast to int": ([table], {"op": "cast", "column": 1, "type_id": 4}),
+    }
+    out = {}
+    for what, (wires, op) in cases.items():
+        got = []
+        for dev in (DEVICE, "cpu"):
+            ids = [rb.table_upload_wire(*w, device=dev) for w in wires]
+            res = rb.table_op_resident(json.dumps(op), ids)
+            got.append(rb.table_download_wire(res))
+            for t in ids + [res]:
+                rb.table_free(t)
+        if tuple(got[0]) != tuple(got[1]):
+            raise AssertionError(f"(k4) {what}: the card's bytes differ from "
+                                 "the CPU's")
+        out[what] = int(got[0][4])
+    vals = [None if not ok else words[i] for i, ok in zip(s_idx, s_ok)]
+    nums = [numbers[i] for i in n_idx]
+    cols = {dev: (Column.from_strings(vals, device=dev),
+                  Column.from_strings(nums, device=dev))
+            for dev in (DEVICE, "cpu")}
+    ops_level = {
+        "find_re": lambda s, u: regex.find_re(s, r"\d+"),
+        "extract_re": lambda s, u: regex.extract_re(s, r"#(\d+)"),
+        "replace_re": lambda s, u: regex.replace_re(s, r"[aeiou]+", "*"),
+        "count_re": lambda s, u: regex.count_re(s, r"a"),
+        "matches_re": lambda s, u: regex.matches_re(s, r"[a-z ]+"),
+        "lt": lambda s, u: binaryop.lt(s, u),
+        "eq": lambda s, u: binaryop.eq(s, u),
+        "concat ||": lambda s, u: binaryop.add(s, u),
+        "to bool": lambda s, u: cast(u, dt.BOOL8),
+        "to int32": lambda s, u: cast(u, dt.INT32),
+        "to decimal64": lambda s, u: cast(u, dt.decimal64(-2)),
+        "to float64": lambda s, u: cast(u, dt.FLOAT64),
+        "dictionary": lambda s, u: strings_mod.dictionary_encode(s)[1],
+    }
+    for what, fn in ops_level.items():
+        same_column(fn(*cols[DEVICE]), fn(*cols["cpu"]), f"(k4) {what}")
+    list_cols = {dev: rb._table_from_wire(*table[:5], torch.device(dev))
+                 for dev in (DEVICE, "cpu")}
+    for what, fn in (("explode_outer", lambda t: lists.explode_outer(t, 2)),
+                     ("explode_position",
+                      lambda t: lists.explode_position(t, 2, outer=True))):
+        same_buffers(interop.table_to_buffers(fn(list_cols[DEVICE])),
+                     interop.table_to_buffers(fn(list_cols["cpu"])),
+                     f"(k4) {what}")
+    log(f"(k4) string ops at {n} rows: equal to the CPU run's bytes; rows out "
+        f"{out}; ops-level {sorted(ops_level)} and explode_outer/position "
+        f"equal")
+    return out
+
+
 def ptxas_lines(text: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
     name, registers, static shared memory and spills."""
@@ -2346,6 +2932,7 @@ def main(argv=None) -> int:
     g = make_groupby_data(rng, GROUPBY_ROWS, GROUPBY_KEYS)
     q = make_query_step_data(rng, QS_ROWS, QS_ITEMS)
     dd = make_dispatch_data(rng, d)
+    sd = make_string_data(rng, d)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -2361,6 +2948,8 @@ def main(argv=None) -> int:
         "wire_plan": lambda: phase_wire_plan(kernels, d),
         "dispatch": lambda: phase_dispatch(rb, kernels, d, dd),
         "remaining_ops": lambda: phase_remaining_ops(rb, d, args.seed),
+        "strings": lambda: phase_strings(rb, kernels, d, sd),
+        "string_ops": lambda: phase_string_ops(rb, sd, args.seed),
     }
     res = {}
     for name, fn in phases.items():
@@ -2407,6 +2996,12 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("dispatch kernels")
+    if "strings" in res:
+        try:
+            recs += string_kernel_records(d, sd, res["strings"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("string kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2423,6 +3018,7 @@ def main(argv=None) -> int:
         "groupby_profile": res["groupby"]["profile"],
         "query_step": res["query_step"], "wire_plan": res["wire_plan"],
         "dispatch": res["dispatch"], "remaining_ops": res["remaining_ops"],
+        "strings": res["strings"], "string_ops": res["string_ops"],
         **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

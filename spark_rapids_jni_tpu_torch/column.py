@@ -1,10 +1,11 @@
 """Column / Table over torch tensors — the port of ``column.py``.
 
 A column is a data tensor plus an optional bool validity tensor (True =
-valid, Arrow/cudf polarity). LIST columns keep the JAX package's padded
-layout: ``data`` is an ``(n, pad)`` matrix of child storage values and
-``lengths`` the int32 element counts; packed rows are LIST<UINT8> with
-every length equal to the row size.
+valid, Arrow/cudf polarity). LIST and STRING columns keep the JAX
+package's padded layout: ``data`` is an ``(n, pad)`` matrix (LIST: child
+storage values; STRING: uint8 bytes, zero past each row's length) and
+``lengths`` the int32 element or byte counts; packed rows are
+LIST<UINT8> with every length equal to the row size.
 
 ``Table.logical_rows`` is carried so the port's tables read like the JAX
 package's, but the port runs on exact shapes and never pads: it is
@@ -57,6 +58,8 @@ def storage_to_host(data: torch.Tensor, dtype: dt.DType) -> np.ndarray:
     """Inverse of :func:`host_to_storage`: the host buffer in the JAX
     package's storage dtype (FLOAT64 as uint64 bits)."""
     arr = data.cpu().numpy()
+    if not dtype.is_fixed_width:  # STRING bytes, LIST children
+        return arr
     if dtype.storage_dtype == torch.int64 and dtype.host_dtype == np.uint64:
         arr = arr.view(np.uint64)
     return arr
@@ -70,6 +73,8 @@ class Column:
       * fixed-width: ``data.shape == (n,)`` of ``dtype.storage_dtype``
         (DECIMAL128: ``(n, 2)`` int64 limbs).
       * LIST: ``data.shape == (n, pad)``, ``lengths.shape == (n,)`` int32.
+      * STRING: ``data.shape == (n, pad)`` uint8, ``lengths.shape ==
+        (n,)`` int32, bytes past ``lengths[i]`` are zero.
       * ``validity`` is None (no nulls) or an ``(n,)`` bool tensor.
     """
 
@@ -81,6 +86,12 @@ class Column:
     @property
     def row_count(self) -> int:
         return int(self.data.shape[0])
+
+    @property
+    def pad_width(self) -> int:
+        if not self.dtype.is_string:
+            raise TypeError("pad_width only applies to STRING columns")
+        return int(self.data.shape[1])
 
     @property
     def list_child_dtype(self) -> dt.DType:
@@ -111,6 +122,47 @@ class Column:
                 raise ValueError("validity shape mismatch")
             valid = torch.from_numpy(v).to(dev)
         return Column(data, dtype, valid)
+
+    @staticmethod
+    def from_strings(
+        values: Sequence[Optional[Union[str, bytes]]],
+        pad_width: Optional[int] = None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "Column":
+        """Build a STRING column (the padded byte matrix) on ``device``;
+        None is null. ``str`` values are UTF-8 with surrogateescape, so
+        arbitrary bytes round-trip."""
+        dev = resolve_device(device)
+        raw = [v.encode("utf-8", "surrogateescape") if isinstance(v, str)
+               else v for v in values]
+        max_len = max((len(v) for v in raw if v is not None), default=0)
+        pad = pad_width if pad_width is not None else max(max_len, 1)
+        if max_len > pad:
+            raise ValueError(
+                f"string of length {max_len} exceeds pad width {pad}")
+        mat = np.zeros((len(raw), pad), np.uint8)
+        lens = np.zeros((len(raw),), np.int32)
+        valid = np.array([v is not None for v in raw], np.bool_)
+        for i, v in enumerate(raw):
+            if v is not None:
+                mat[i, :len(v)] = np.frombuffer(v, np.uint8)
+                lens[i] = len(v)
+        return Column(torch.from_numpy(mat).to(dev), dt.STRING,
+                      None if valid.all() else torch.from_numpy(valid).to(dev),
+                      torch.from_numpy(lens).to(dev))
+
+    def to_pylist(self) -> list:
+        """Host values with None for nulls: ``str`` for STRING columns
+        (surrogateescape), else the values of :meth:`to_numpy`."""
+        valid = (np.ones(self.row_count, np.bool_) if self.validity is None
+                 else self.validity.cpu().numpy())
+        if self.dtype.is_string:
+            mat = self.data.cpu().numpy()
+            lens = self.lengths.cpu().numpy()
+            return [bytes(mat[i, :lens[i]]).decode("utf-8", "surrogateescape")
+                    if valid[i] else None for i in range(self.row_count)]
+        vals = self.to_numpy().tolist()
+        return [v if ok else None for v, ok in zip(vals, valid)]
 
     def to_numpy(self) -> np.ndarray:
         """Raw data on the host (nulls carry unspecified payload);
@@ -177,16 +229,18 @@ class Table:
         dtypes: Optional[dict] = None,
         device: Union[str, torch.device] = "cuda",
     ) -> "Table":
-        """Host constructor from numpy arrays or lists with None for nulls
-        (fixed-width types only in this slice of the port)."""
+        """Host constructor from numpy arrays or lists with None for nulls;
+        a list of ``str``/``bytes`` makes a STRING column."""
         dev = resolve_device(device)
         cols, names = [], []
         for name, values in data.items():
             want = (dtypes or {}).get(name)
             arr = np.asarray(values)
-            if arr.dtype == object:
+            present = [v for v in values if v is not None]
+            if present and all(isinstance(v, (str, bytes)) for v in present):
+                cols.append(Column.from_strings(list(values), device=dev))
+            elif arr.dtype == object:
                 mask = np.array([v is not None for v in values])
-                present = [v for v in values if v is not None]
                 if present and all(isinstance(v, bool) for v in present):
                     filled = np.array([bool(v) for v in values], np.bool_)
                 else:

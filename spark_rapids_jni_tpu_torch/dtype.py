@@ -258,6 +258,7 @@ FLOAT32 = DType(TypeId.FLOAT32)
 FLOAT64 = DType(TypeId.FLOAT64)
 BOOL8 = DType(TypeId.BOOL8)
 LIST = DType(TypeId.LIST)
+STRING = DType(TypeId.STRING)
 
 
 def decimal32(scale: int) -> DType:

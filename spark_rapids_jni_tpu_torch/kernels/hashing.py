@@ -123,6 +123,17 @@ def _column_words(col: Column) -> list:
     return [x & _M32, (x >> 32) & _M32]
 
 
+def chain_plain(col: Column, h: torch.Tensor) -> torch.Tensor:
+    """The running hash ``h`` (int64 holding u32) updated by one
+    fixed-width key column; null rows keep ``h``."""
+    words = _column_words(col)
+    nxt = h
+    for w in words:
+        nxt = _mix_h1(nxt, _mix_k1(w))
+    nxt = _fmix(nxt, 4 * len(words))
+    return nxt if col.validity is None else torch.where(col.validity, nxt, h)
+
+
 def murmur3_plain(cols: Sequence[Column], seed: int = DEFAULT_SEED):
     """Reference for K5: the chained hash of ``cols`` as an (n,) int32
     tensor."""
@@ -130,12 +141,7 @@ def murmur3_plain(cols: Sequence[Column], seed: int = DEFAULT_SEED):
     h = torch.full((n,), seed & _M32, dtype=torch.int64,
                    device=cols[0].data.device)
     for c in cols:
-        words = _column_words(c)
-        nxt = h
-        for w in words:
-            nxt = _mix_h1(nxt, _mix_k1(w))
-        nxt = _fmix(nxt, 4 * len(words))
-        h = nxt if c.validity is None else torch.where(c.validity, nxt, h)
+        h = chain_plain(c, h)
     return ((h ^ 2**31) - 2**31).to(torch.int32)
 
 

@@ -1,10 +1,11 @@
-"""The port's op library: the fixed-width slice of the JAX package's
-``ops/`` (keys, gather, filter, sort, groupby with its capped and
+"""The port's op library: the JAX package's ``ops/`` that the dispatch
+plane reaches (keys, gather, filter, sort, groupby with its capped and
 packed-key two-level forms, the joins of every kind with their capped,
 count and chunked forms, compaction, the copy family with ``sample``,
-binary and unary ops, casts, Murmur3 hashing, partitioning)."""
+binary and unary ops, casts, Murmur3 hashing, partitioning, the STRING
+casts and comparisons, regular expressions, LIST explode)."""
 
-from . import compute, keys
+from . import compute, keys, lists, regex
 from .binaryop import add, binary_op, div, eq, ge, gt, le, lt, mul, ne, sub
 from .cast import cast
 from .compaction import distinct, distinct_capped, distinct_count, drop_nulls
@@ -15,6 +16,13 @@ from .copying import (
 from .filter import filter_table, filter_table_capped
 from .gather import gather_column, gather_table
 from .groupby import GroupbyAgg, groupby_aggregate, groupby_aggregate_capped
+from .lists import (
+    count_elements, explode, explode_outer, explode_position,
+    extract_list_element, list_contains,
+)
+from .regex import (
+    contains_re, count_re, extract_re, find_re, matches_re, replace_re, rlike,
+)
 from .join import (
     anti_join, full_join, inner_join, inner_join_batched, inner_join_batches,
     inner_join_capped, inner_join_count, left_join, left_join_capped,
@@ -35,5 +43,8 @@ __all__ = [
     "sequence", "cross_join", "scatter", "slice_rows", "split", "repeat",
     "sample", "SortKey", "argsort_table", "sort_table", "binary_op", "add",
     "sub", "mul", "div", "eq", "ne", "lt", "le", "gt", "ge", "unary_op",
-    "is_null", "is_not_null", "is_nan", "cast",
+    "is_null", "is_not_null", "is_nan", "cast", "lists", "regex",
+    "count_elements", "explode", "explode_outer", "explode_position",
+    "extract_list_element", "list_contains", "contains_re", "count_re",
+    "extract_re", "find_re", "matches_re", "replace_re", "rlike",
 ]

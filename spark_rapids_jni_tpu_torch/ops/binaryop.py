@@ -23,7 +23,8 @@ comparisons promote as ``jnp`` does (an integer against FLOAT32 compares
 in FLOAT32). torch computes little with uint16/32/64, so those travel as
 int64 carriers (``compute.to_carrier``): unsigned division, remainder,
 order and right shifts of the 64-bit carrier are written out here.
-DECIMAL128 and STRING operands raise :class:`NotImplementedError`.
+STRING operands go to ``strings.binary_op`` (comparisons and ``add``,
+Spark ``||``); DECIMAL128 operands raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -104,9 +105,9 @@ def _int64_values(col: Column) -> torch.Tensor:
 def binary_op(op: str, a: Column, b: Column) -> Column:
     """Elementwise ``a <op> b`` with Spark null semantics."""
     if a.dtype.is_string or b.dtype.is_string:
-        raise NotImplementedError(
-            "STRING binary ops are not ported yet (ROADMAP Queue 1 item 8, "
-            "strings)")
+        from . import strings
+
+        return strings.binary_op(op, a, b)
     if dt.TypeId.DECIMAL128 in (a.dtype.id, b.dtype.id):
         raise NotImplementedError(
             "DECIMAL128 binary ops are not ported yet (ROADMAP Queue 1 "

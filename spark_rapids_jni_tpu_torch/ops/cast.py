@@ -6,8 +6,8 @@ saturates to the target's range and maps NaN to 0 (the bounds are taken
 in float64, never through torch's conversion of NaN, inf or
 out-of-range values, which CUDA leaves undefined); anything -> BOOL8 is
 ``!= 0``; floating -> decimal rounds half to even; decimal rescaling
-truncates toward zero. DECIMAL128 and STRING casts raise
-:class:`NotImplementedError`.
+truncates toward zero. Casts to and from STRING are ``strings.cast``.
+DECIMAL128 casts raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ def cast(col: Column, to: dt.DType) -> Column:
     if col.dtype == to:
         return col
     if col.dtype.is_string or to.is_string:
-        raise NotImplementedError(
-            "STRING casts are not ported yet (ROADMAP Queue 1 item 8, "
-            "strings)")
+        from . import strings
+
+        return strings.cast(col, to)
     if dt.TypeId.DECIMAL128 in (col.dtype.id, to.id):
         raise NotImplementedError(
             "DECIMAL128 casts are not ported yet (ROADMAP Queue 1 item 5, "

@@ -1,7 +1,7 @@
 """Copy-family ops (port of ``ops/copying.py``, cudf ``concatenate`` /
 ``interleave_columns`` / ``copy_if_else`` / ``sequence`` /
 ``cross_join`` / ``scatter`` / ``slice`` / ``split`` / ``repeat`` /
-``sample``), over fixed-width and LIST columns.
+``sample``), over fixed-width, STRING and LIST columns.
 
 ``sample`` draws the JAX package's rows bit for bit: its PRNG is JAX's
 threefry2x32 (``jax.random.PRNGKey``, ``permutation`` and ``randint``
@@ -31,16 +31,21 @@ def _names(table: Table, prefix: str) -> list:
 
 def concatenate_columns(cols: Sequence[Column]) -> Column:
     """Vertical concatenation of same-dtype columns. A validity vector
-    comes out when any input has one; LIST columns keep their lengths."""
+    comes out when any input has one; STRING columns are repadded to the
+    widest pad first; STRING and LIST columns keep their lengths."""
     if not cols:
         raise ValueError("concatenate needs at least one column")
     d = cols[0].dtype
     for c in cols[1:]:
         if c.dtype != d:
             raise TypeError(f"concatenate dtype mismatch: {d} vs {c.dtype}")
+    if d.is_string:
+        from .strings import common_pad
+
+        cols = common_pad(cols)
     data = torch.cat([c.data for c in cols], 0)
     lengths = None
-    if d.id == dt.TypeId.LIST:
+    if d.id == dt.TypeId.LIST or d.is_string:
         lengths = torch.cat([c.lengths for c in cols])
     valid = None
     if any(c.validity is not None for c in cols):
@@ -104,12 +109,20 @@ def copy_if_else(mask: Column, lhs, rhs) -> Column:
     if lhs_col.dtype != rhs_col.dtype:
         raise TypeError(
             f"copy_if_else dtype mismatch: {lhs_col.dtype} vs {rhs_col.dtype}")
-    data = torch.where(pred, lhs_col.data, rhs_col.data)
+    lengths = None
+    if lhs_col.dtype.is_string:
+        from .strings import common_pad
+
+        lhs_col, rhs_col = common_pad([lhs_col, rhs_col])
+        data = torch.where(pred[:, None], lhs_col.data, rhs_col.data)
+        lengths = torch.where(pred, lhs_col.lengths, rhs_col.lengths)
+    else:
+        data = torch.where(pred, lhs_col.data, rhs_col.data)
     valid = None
     if lhs_col.validity is not None or rhs_col.validity is not None:
         valid = torch.where(pred, compute.valid_mask(lhs_col),
                             compute.valid_mask(rhs_col))
-    return Column(data, lhs_col.dtype, valid)
+    return Column(data, lhs_col.dtype, valid, lengths)
 
 
 def sequence(n: int, start=0, step=1, dtype: dt.DType = dt.INT32,
@@ -145,6 +158,10 @@ def scatter(source: Table, indices, target: Table) -> Table:
     for s, t in zip(source.columns, target.columns):
         if s.dtype != t.dtype:
             raise TypeError(f"scatter dtype mismatch: {s.dtype} vs {t.dtype}")
+        if s.dtype.is_string:
+            from .strings import common_pad
+
+            s, t = common_pad([s, t])
         data = t.data.clone()
         data[idx] = s.data
         valid = None

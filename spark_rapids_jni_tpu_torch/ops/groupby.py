@@ -11,7 +11,9 @@ rows); ``min``/``max``/``first``/``last`` keep the input type (first and
 last: the first and last valid value); ``collect_list``/``collect_set``
 are LIST columns of ``(groups, pad)`` child values with per-group
 lengths, nulls dropped, sets ascending. A group with no valid value is
-null. DECIMAL128 values raise :class:`NotImplementedError`.
+null. STRING keys group by their bytes; a STRING value takes only
+``count`` (the JAX package's groupby refuses every aggregation of one,
+ROADMAP Queue 3). DECIMAL128 values raise :class:`NotImplementedError`.
 
 Sums are cumsum differences over the sorted rows, as in the JAX package:
 exact for integers even when the running sum wraps. A floating cumsum adds
@@ -249,6 +251,8 @@ def _out_dtype(op: str, d: dt.DType) -> dt.DType:
 
 
 def _check_value(col: Column, op: str) -> None:
+    if col.dtype.is_string and op != "count":
+        raise TypeError(f"aggregation {op!r} not supported on STRING values")
     if col.dtype.id == dt.TypeId.DECIMAL128:
         raise NotImplementedError(
             "DECIMAL128 aggregation is not ported yet (ops/int128 slice, "
@@ -337,11 +341,11 @@ def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
     its largest segment id and ``scan_rows`` the length the JAX package
     scans. Every float result is flushed as XLA's CPU code flushes it."""
     d = col.dtype
-    vals = compute.values(Column(data, d))
     n_valid = segsum(valid.to(torch.int64), starts, ends)
-    has = n_valid > 0
     if op == "count":
         return Column(n_valid, dt.INT64, None)
+    vals = compute.values(Column(data, d))
+    has = n_valid > 0
     if op in ("first", "last"):
         ranks = (torch.ones_like(n_valid) if op == "first" else n_valid)
         rows = _valid_rank_rows(valid, starts, ranks[:, None])[:, 0]

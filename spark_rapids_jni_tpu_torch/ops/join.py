@@ -93,6 +93,21 @@ def _key_words(cols: Sequence[Column], occupied: Optional[torch.Tensor]):
     return words, valid
 
 
+def _equalize_string_keys(lcols, rcols):
+    """String key pairs repadded to one width, so both sides give the
+    same number of order words (pad bytes are zero; lengths stay). A
+    STRING key against a non-STRING one raises ``TypeError``."""
+    lcols, rcols = list(lcols), list(rcols)
+    for i, (lc, rc) in enumerate(zip(lcols, rcols)):
+        if lc.dtype.is_string or rc.dtype.is_string:
+            if not (lc.dtype.is_string and rc.dtype.is_string):
+                raise TypeError("join key dtypes differ: STRING vs non-STRING")
+            from .strings import common_pad
+
+            lcols[i], rcols[i] = common_pad([lc, rc])
+    return lcols, rcols
+
+
 def _dense_ids(lwords, rwords):
     """One dense id per distinct key tuple over both sides, in the key
     order (ids of a one-word key from a 1-D ``torch.unique``)."""
@@ -121,10 +136,10 @@ def match_ranges(
     ``lo`` is the lower bound the JAX package's binary search returns
     (for rows that match nothing too); rows with a null key or
     ``left_valid`` False match nothing."""
-    lwords, lvalid = _key_words([left.column(c) for c in left_on],
-                                left_valid)
-    rwords, rvalid = _key_words([right.column(c) for c in right_on],
-                                right_valid)
+    lcols, rcols = _equalize_string_keys([left.column(c) for c in left_on],
+                                         [right.column(c) for c in right_on])
+    lwords, lvalid = _key_words(lcols, left_valid)
+    rwords, rvalid = _key_words(rcols, right_valid)
     nl = lvalid.shape[0]
     kid = _dense_ids(lwords, rwords)
     lkid, rkid = kid[:nl], kid[nl:]
@@ -395,12 +410,19 @@ def _coalesce_key(lc: Column, rc: Column, left_idx, right_idx, left_ok,
     if lc.dtype != rc.dtype:
         raise TypeError(
             f"outer-join key dtypes differ: {lc.dtype} vs {rc.dtype}")
+    if lc.dtype.is_string:
+        from .strings import common_pad
+
+        lc, rc = common_pad([lc, rc])
     lg = _gather_clipped(Table([lc]), left_idx).columns[0]
     rg = _gather_clipped(Table([rc]), right_idx).columns[0]
-    data = torch.where(left_ok, lg.data, rg.data)
+    pick = left_ok.reshape(left_ok.shape + (1,) * (lg.data.dim() - 1))
+    data = torch.where(pick, lg.data, rg.data)
     valid = torch.where(left_ok, compute.valid_mask(lg) & left_ok,
                         compute.valid_mask(rg) & right_ok)
-    return Column(data, lc.dtype, valid)
+    lengths = (None if lg.lengths is None
+               else torch.where(left_ok, lg.lengths, rg.lengths))
+    return Column(data, lc.dtype, valid, lengths)
 
 
 def _outer_output(left, right, left_on, right_on, left_idx, right_idx,

@@ -1,4 +1,4 @@
-"""Order-preserving key words (port of ``ops/keys.py`` for fixed widths).
+"""Order-preserving key words (port of ``ops/keys.py``).
 
 The JAX package maps each column to uint64 words whose unsigned order is
 the column's order. torch has no unsigned 64-bit comparisons, so the port
@@ -6,7 +6,9 @@ carries each word as int64 with the top bit flipped: ``s = u ^ 2**63``.
 Signed order of ``s`` equals unsigned order of ``u``, ``~s`` corresponds
 to ``~u``, and :func:`to_unsigned_bits` recovers ``u``'s bit pattern
 (for the hash table's 32-bit halves). For signed integers the word is
-simply the value widened to int64.
+simply the value widened to int64. A STRING column gives pad/8
+big-endian words of its zero-padded bytes (memcmp order), then its
+length as the tiebreaker word (embedded NULs).
 
 The packed-key helpers (:func:`minmax_host`, :func:`fold_fields`,
 :func:`peel_fields`) work on relative words ``carrier - min carrier``,
@@ -44,10 +46,10 @@ def column_order_keys(col: Column) -> list[torch.Tensor]:
     """int64 carrier word(s) whose signed order == the column's order."""
     d = col.dtype
     data = col.data
-    if d.id == dt.TypeId.LIST or d.is_string:
-        raise NotImplementedError(
-            f"{d.id.name} order keys are not ported yet (strings slice)"
-        )
+    if d.is_string:
+        return _string_order_keys(col)
+    if d.id == dt.TypeId.LIST:
+        raise TypeError("LIST columns have no order keys")
     if d.id == dt.TypeId.DECIMAL128:
         raise NotImplementedError(
             "DECIMAL128 order keys are not ported yet (ops/int128 slice)"
@@ -65,6 +67,22 @@ def column_order_keys(col: Column) -> list[torch.Tensor]:
     # signed ints, decimals, timestamps, durations: the widened value IS
     # the carrier (u = widened ^ 2**63, s = u ^ 2**63)
     return [data.to(torch.int64)]
+
+
+def _string_order_keys(col: Column) -> list[torch.Tensor]:
+    """pad/8 words of 8 bytes each, big-endian (so signed carrier order
+    is memcmp order), then the length word."""
+    mat = col.data
+    n, pad = mat.shape
+    nwords = (pad + 7) // 8
+    if pad != 8 * nwords:
+        mat = torch.nn.functional.pad(mat, (0, 8 * nwords - pad))
+    # bytes reversed within each word, read as little-endian int64
+    words = (mat.reshape(n, nwords, 8).flip(2).contiguous()
+             .view(torch.int64).reshape(n, nwords).T.contiguous())
+    out = [w ^ SIGN64 for w in words]
+    out.append(col.lengths.to(torch.int64) ^ SIGN64)
+    return out
 
 
 def to_unsigned_bits(word: torch.Tensor) -> torch.Tensor:

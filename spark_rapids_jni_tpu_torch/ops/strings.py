@@ -1,0 +1,660 @@
+"""STRING columns in the dispatch plane (the part of ``ops/strings.py``
+the wire ops reach): repadding, comparisons and ``||``, Spark CAST to and
+from STRING, and the order-preserving dictionary codes of string keys.
+
+A STRING column is an ``(n, pad)`` uint8 matrix, zero past each row's
+length, plus int32 ``lengths``. Every op here is vector byte arithmetic
+over that matrix, as in the JAX package; the result pad widths of the
+formatters are constants of the source type, so no op syncs with the
+host.
+
+CAST follows Spark's non-ANSI contract: a string that does not parse
+gives null. STRING -> FLOAT parses through the Eisel-Lemire core and
+FLOAT -> STRING formats through Ryu (``ops/ryu.py``) with Java's
+``Double.toString`` layout. DECIMAL128 <-> STRING waits for
+``ops/int128.py`` (ROADMAP Queue 1). The rest of the JAX module's
+function library (``length`` ... ``translate``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Union
+
+import numpy as np
+import torch
+
+from .. import dtype as dt
+from ..column import Column
+from . import compute
+from . import keys as keys_mod
+from .ryu import decimal_to_bits, lshr, shortest_decimal32, shortest_decimal64
+
+
+def _require_string(col: Column):
+    if not col.dtype.is_string:
+        raise TypeError("expected a STRING column")
+
+
+def _cols(pad: int, device) -> torch.Tensor:
+    """(1, pad) int32 byte positions."""
+    return torch.arange(pad, dtype=torch.int32, device=device)[None, :]
+
+
+@functools.lru_cache(maxsize=1024)
+def const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor on ``device``, copied there once (a copy
+    from host memory per call would sync the host)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def row_cumsum(mask: torch.Tensor) -> torch.Tensor:
+    """Running int64 sum along each row of an (n, pad) matrix. The scan
+    runs down the columns of the transposed matrix: torch's scan along a
+    short innermost dimension is slow on the card."""
+    return torch.cumsum(mask.T.contiguous().to(torch.int64), dim=0).T
+
+
+def _in_str(col: Column) -> torch.Tensor:
+    return _cols(col.data.shape[1], col.data.device) < col.lengths[:, None]
+
+
+def _case_map(col: Column, to_upper: bool) -> Column:
+    lo, hi = (ord("a"), ord("z")) if to_upper else (ord("A"), ord("Z"))
+    mat = col.data
+    shift = ((mat >= lo) & (mat <= hi)).to(torch.uint8) * 32
+    out = mat - shift if to_upper else mat + shift
+    return Column(out, dt.STRING, col.validity, col.lengths)
+
+
+def lower(col: Column) -> Column:
+    """ASCII lower case."""
+    _require_string(col)
+    return _case_map(col, False)
+
+
+def _shift_left(col: Column, shift: torch.Tensor,
+                new_len: torch.Tensor) -> Column:
+    """Row-wise left shift by a per-row amount, zeroing past new_len."""
+    pad = col.data.shape[1]
+    j = _cols(pad, col.data.device)
+    src = (j + shift[:, None]).clamp(0, pad - 1).to(torch.int64)
+    out = torch.gather(col.data, 1, src)
+    out = torch.where(j < new_len[:, None], out, 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, new_len.to(torch.int32))
+
+
+def _strip_counts(col: Column, chars: bytes, from_left: bool):
+    """Count of strip-set bytes at the left (or right) edge of each row."""
+    in_set = torch.zeros(col.data.shape, dtype=torch.bool,
+                         device=col.data.device)
+    for ch in chars:
+        in_set = in_set | (col.data == ch)
+    boundary = _in_str(col) & ~in_set
+    has = boundary.any(dim=1)
+    boundary = boundary.to(torch.uint8)
+    lens = col.lengths.to(torch.int64)
+    if from_left:
+        return torch.where(has, boundary.argmax(dim=1), lens)
+    pad = col.data.shape[1]
+    last = pad - 1 - boundary.flip(1).argmax(dim=1)
+    return torch.where(has, lens - last - 1, lens)
+
+
+def strip(col: Column, chars: Union[str, bytes] = b" ") -> Column:
+    """Trim the byte set from both ends (Spark ``trim``: spaces)."""
+    _require_string(col)
+    cset = chars.encode() if isinstance(chars, str) else bytes(chars)
+    left = _strip_counts(col, cset, True)
+    right = _strip_counts(col, cset, False)
+    new_len = (col.lengths - left - right).clamp(min=0)
+    return _shift_left(col, left, new_len)
+
+
+def concat(a: Column, b: Column) -> Column:
+    """Rowwise concatenation (Spark ``concat``: null if either is)."""
+    _require_string(a)
+    _require_string(b)
+    n, pad_a = a.data.shape
+    pad_b = b.data.shape[1]
+    out_pad = pad_a + pad_b
+    out = torch.zeros((n, out_pad), dtype=torch.uint8, device=a.data.device)
+    out[:, :pad_a] = a.data
+    j = _cols(out_pad, a.data.device)
+    src = j - a.lengths[:, None]
+    b_g = torch.gather(b.data, 1, src.clamp(0, pad_b - 1).to(torch.int64))
+    out = torch.where((src >= 0) & (src < pad_b), b_g, out)
+    new_len = a.lengths + b.lengths
+    out = torch.where(j < new_len[:, None], out, 0).to(torch.uint8)
+    return Column(out, dt.STRING, compute.merge_validity(a, b), new_len)
+
+
+def repad(col: Column, pad: int) -> Column:
+    """The column at another pad width (>= its longest string)."""
+    _require_string(col)
+    n, old = col.data.shape
+    if pad == old:
+        return col
+    if pad > old:
+        out = torch.zeros((n, pad), dtype=torch.uint8, device=col.data.device)
+        out[:, :old] = col.data
+    else:
+        out = torch.where(_cols(pad, col.data.device) < col.lengths[:, None],
+                          col.data[:, :pad], 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, col.lengths)
+
+
+def common_pad(cols) -> list:
+    """STRING columns repadded to their widest pad."""
+    pad = max(c.data.shape[1] for c in cols)
+    return [repad(c, pad) for c in cols]
+
+
+def binary_op(op: str, a: Column, b: Column) -> Column:
+    """Comparisons in memcmp order (through the order words) and ``add``
+    (Spark ``||``)."""
+    _require_string(a)
+    _require_string(b)
+    a, b = common_pad([a, b])
+    if op == "add":
+        return concat(a, b)
+    n = a.data.shape[0]
+    eq = torch.ones(n, dtype=torch.bool, device=a.data.device)
+    lt = torch.zeros_like(eq)
+    for x, y in zip(keys_mod.column_order_keys(a),
+                    keys_mod.column_order_keys(b)):
+        lt = lt | (eq & (x < y))
+        eq = eq & (x == y)
+    table = {"eq": eq, "ne": ~eq, "lt": lt, "le": lt | eq,
+             "gt": ~(lt | eq), "ge": ~lt}
+    if op not in table:
+        raise TypeError(f"binary op {op!r} not supported for strings")
+    return Column(table[op], dt.BOOL8, compute.merge_validity(a, b))
+
+
+# ---------------------------------------------------------------------------
+# CAST
+# ---------------------------------------------------------------------------
+
+
+def _int128_error(direction: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{direction} casts are not ported yet (ROADMAP Queue 1, "
+        "ops/int128.py)")
+
+
+def cast(col: Column, to: dt.DType) -> Column:
+    """Spark CAST between STRING and bool, the integers, the floats and
+    DECIMAL32/64 (non-ANSI: unparseable strings are null)."""
+    if col.dtype.is_string and to.is_string:
+        return col
+    if col.dtype.is_string:
+        if to.id == dt.TypeId.DECIMAL128:
+            raise _int128_error("STRING -> DECIMAL128")
+        if to.is_boolean:
+            return _parse_bool(col)
+        if to.is_integer:
+            return _parse_int(col, to)
+        if to.is_floating:
+            return _parse_float(col, to)
+        if to.is_decimal:
+            return _parse_decimal(col, to)
+        raise TypeError(f"cast STRING -> {to} not supported")
+    if to.is_string:
+        if col.dtype.id == dt.TypeId.DECIMAL128:
+            raise _int128_error("DECIMAL128 -> STRING")
+        if col.dtype.is_boolean:
+            return _format_bool(col)
+        if col.dtype.is_integer:
+            return _format_int(col)
+        if col.dtype.is_decimal:
+            return _format_decimal(col)
+        if col.dtype.is_floating:
+            return _format_float(col)
+        raise TypeError(f"cast {col.dtype} -> STRING not supported")
+    raise TypeError(f"not a string cast: {col.dtype} -> {to}")
+
+
+_WS = b" \t\r\n\x0b\x0c"
+_POW10 = [10 ** k for k in range(19)]
+
+
+def _pow10(device) -> torch.Tensor:
+    return const(tuple(_POW10), torch.int64, device)
+
+
+def _first_true(mask: torch.Tensor, default: torch.Tensor) -> torch.Tensor:
+    """Index of each row's first True, else ``default``."""
+    return torch.where(mask.any(dim=1), mask.to(torch.uint8).argmax(dim=1),
+                       default)
+
+
+def _parse_parts(col: Column) -> dict:
+    """The shared scanner: whitespace-trimmed sign/digits/dot/exponent
+    decomposition of every row."""
+    c = strip(col, _WS)
+    mat, lens = c.data, c.lengths.to(torch.int64)
+    pad = mat.shape[1]
+    j = _cols(pad, mat.device).to(torch.int64)
+    in_str = j < lens[:, None]
+    first = mat[:, 0]
+    neg = (first == ord("-")) & (lens > 0)
+    start = (neg | ((first == ord("+")) & (lens > 0))).to(torch.int64)
+    isdigit = (mat >= ord("0")) & (mat <= ord("9")) & in_str
+    isdot = (mat == ord(".")) & in_str
+    is_e = ((mat == ord("e")) | (mat == ord("E"))) & in_str
+    return {
+        "col": c, "mat": mat, "lens": lens, "j": j, "in_str": in_str,
+        "neg": neg, "start": start, "isdigit": isdigit, "isdot": isdot,
+        "ndots": isdot.sum(dim=1), "nes": is_e.sum(dim=1),
+        "dotpos": _first_true(isdot, lens), "epos": _first_true(is_e, lens),
+        "pad": pad,
+    }
+
+
+def _weighted_int(digits_mask, mat, max_digits: int = 18):
+    """(value of the masked digit run as int64, digit count, overflow).
+
+    Overflow counts significant digits (after leading zeros); 19 are
+    accepted when the int64 sum did not wrap (value >= 10^18)."""
+    cum = row_cumsum(digits_mask)
+    total = cum[:, -1:]
+    rank = (total - cum).clamp(0, max_digits)
+    w = torch.where(digits_mask, _pow10(mat.device)[rank], 0)
+    dig = mat.to(torch.int64) - ord("0")
+    val = torch.where(digits_mask, dig * w, 0).sum(dim=1)
+    nonzero = digits_mask & (mat != ord("0"))
+    lead_zero = digits_mask & (row_cumsum(nonzero) == 0)
+    sig = total[:, 0] - lead_zero.sum(dim=1)
+    if max_digits >= 18:
+        overflow = (sig > 19) | ((sig == 19) & (val < 10**18))
+    else:
+        overflow = sig > max_digits
+    return val, total[:, 0], overflow
+
+
+def _int_syntax_ok(p, int_mask, frac_mask):
+    """Bytes after the sign are digits or one dot (fraction digits are
+    allowed and truncated: Spark's '3.7' -> 3)."""
+    body = p["in_str"] & (p["j"] >= p["start"][:, None])
+    ok_bytes = (~body | p["isdigit"] | p["isdot"]).all(dim=1)
+    some_digit = (int_mask | frac_mask).any(dim=1)
+    return (ok_bytes & (p["ndots"] <= 1) & (p["lens"] > p["start"])
+            & some_digit)
+
+
+def _valid(col: Column, ok: torch.Tensor) -> torch.Tensor:
+    return ok if col.validity is None else col.validity & ok
+
+
+def _store(vals: torch.Tensor, to: dt.DType, valid) -> Column:
+    """int64 (or float) values -> a column of ``to`` (integer values wrap
+    to its width)."""
+    want = compute.TORCH_OF[to.value_dtype]
+    if not want.is_floating_point and want != torch.bool:
+        vals = compute.from_carrier(vals, want)
+    return compute.from_values(vals, to, valid)
+
+
+def _parse_int(col: Column, to: dt.DType) -> Column:
+    p = _parse_parts(col)
+    j = p["j"]
+    int_mask = (p["isdigit"] & (j >= p["start"][:, None])
+                & (j < p["dotpos"][:, None]))
+    frac_mask = p["isdigit"] & (j > p["dotpos"][:, None])
+    val, _, overflow = _weighted_int(int_mask, p["mat"])
+    ok = _int_syntax_ok(p, int_mask, frac_mask) & ~overflow & (p["nes"] == 0)
+    signed = torch.where(p["neg"], -val, val)
+    info = np.iinfo(to.host_dtype)
+    if info.max > 2**63:  # UINT64: the non-negative int64 values
+        in_range = signed >= 0
+    else:
+        in_range = (signed >= int(info.min)) & (signed <= int(info.max))
+    ok = ok & in_range
+    return _store(torch.where(ok, signed, 0), to, _valid(col, ok))
+
+
+_SPECIALS = {
+    b"nan": float("nan"), b"inf": float("inf"), b"infinity": float("inf"),
+    b"+inf": float("inf"), b"+infinity": float("inf"),
+    b"-inf": -float("inf"), b"-infinity": -float("inf"),
+}
+
+
+def _literal_eq(low: Column, lit: bytes) -> torch.Tensor:
+    """Rows equal to ``lit``; ``low`` is already lower-cased."""
+    m = len(lit)
+    n, pad = low.data.shape
+    if m > pad:
+        return torch.zeros(n, dtype=torch.bool, device=low.data.device)
+    want = const(tuple(lit), torch.uint8, low.data.device)
+    return (low.data[:, :m] == want[None, :]).all(dim=1) & (low.lengths == m)
+
+
+def _parse_float(col: Column, to: dt.DType) -> Column:
+    p = _parse_parts(col)
+    c, j, mat = p["col"], p["j"], p["mat"]
+    dotpos, epos = p["dotpos"][:, None], p["epos"][:, None]
+    int_mask = (p["isdigit"] & (j >= p["start"][:, None]) & (j < dotpos)
+                & (j < epos))
+    frac_mask = p["isdigit"] & (j > dotpos) & (j < epos)
+    mant_mask = int_mask | frac_mask
+    # the mantissa as one exact u64 over its top 19 significant digits;
+    # digits below that window shift into the decimal exponent
+    cum = row_cumsum(mant_mask)
+    total = cum[:, -1]
+    rank = total[:, None] - cum
+    dig = mat.to(torch.int64) - ord("0")
+    nz_seen = row_cumsum(mant_mask & (dig != 0))
+    lead = (mant_mask & (nz_seen == 0)).sum(dim=1)
+    hi_cut = total - lead
+    lo_cut = (hi_cut - 19).clamp(min=0)
+    in_window = (mant_mask & (rank < hi_cut[:, None])
+                 & (rank >= lo_cut[:, None]))
+    w_rank = (rank - lo_cut[:, None]).clamp(0, 18)
+    mant_w = torch.where(in_window, dig * _pow10(mat.device)[w_rank],
+                         0).sum(dim=1)
+    n_frac = frac_mask.sum(dim=1)
+    # exponent: an optional sign, then digits after e/E
+    e_start = p["epos"] + 1
+    e_first = torch.gather(mat, 1, e_start.clamp(0, p["pad"] - 1)[:, None])[:, 0]
+    in_e = e_start < p["lens"]
+    e_neg = (e_first == ord("-")) & in_e
+    e_sign = e_neg | ((e_first == ord("+")) & in_e)
+    e_body_from = (e_start + e_sign.to(torch.int64))[:, None]
+    e_digits = p["isdigit"] & (j >= e_body_from)
+    e_val, e_count, _ = _weighted_int(e_digits, mat, max_digits=3)
+    has_e = p["nes"] > 0
+    exp = torch.where(has_e, torch.where(e_neg, -e_val, e_val), 0)
+    is64 = to.id == dt.TypeId.FLOAT64
+    bits = decimal_to_bits(mant_w, exp - n_frac + lo_cut, bits64=is64)
+    # the sign goes onto the bit pattern, and FLOAT32 never passes
+    # through FLOAT64 arithmetic
+    if is64:
+        value = (bits | (p["neg"].to(torch.int64) << 63)).view(torch.float64)
+    else:
+        b32 = bits | (p["neg"].to(torch.int64) << 31)
+        value = ((b32 ^ 2**31) - 2**31).to(torch.int32).view(torch.float32)
+
+    body = p["in_str"] & (j >= p["start"][:, None]) & (j < epos)
+    ok_mant = (~body | p["isdigit"] | p["isdot"]).all(dim=1)
+    e_body = p["in_str"] & (j >= e_body_from)
+    ok_exp = (~e_body | p["isdigit"]).all(dim=1) & (~has_e | (e_count > 0))
+    some_digit = mant_mask.sum(dim=1) > 0
+    ok = (ok_mant & ok_exp & some_digit & (p["ndots"] <= 1) & (p["nes"] <= 1)
+          & ((p["ndots"] == 0) | (p["dotpos"] <= p["epos"])))
+    low = lower(c)
+    for lit, sval in _SPECIALS.items():
+        hit = _literal_eq(low, lit)
+        value = torch.where(hit, sval, value)
+        ok = ok | hit
+    return compute.from_values(torch.where(ok, value, 0.0), to,
+                               _valid(col, ok))
+
+
+_TRUE = (b"t", b"true", b"y", b"yes", b"1")
+_FALSE = (b"f", b"false", b"n", b"no", b"0")
+
+
+def _parse_bool(col: Column) -> Column:
+    low = lower(strip(col, _WS))
+    is_true = torch.zeros(col.row_count, dtype=torch.bool,
+                          device=col.data.device)
+    is_false = torch.zeros_like(is_true)
+    for lit in _TRUE:
+        is_true = is_true | _literal_eq(low, lit)
+    for lit in _FALSE:
+        is_false = is_false | _literal_eq(low, lit)
+    return Column(is_true, dt.BOOL8, _valid(col, is_true | is_false))
+
+
+def _parse_decimal(col: Column, to: dt.DType) -> Column:
+    """STRING -> DECIMAL32/64: the unscaled value is the integer part
+    times 10^-scale plus the first -scale fraction digits (more truncate,
+    cudf fixed_point); a positive scale drops that many integer digits
+    before they are summed. Unrepresentable values are null."""
+    p = _parse_parts(col)
+    j, mat = p["j"], p["mat"]
+    k = max(-to.scale, 0)
+    drop_int = max(to.scale, 0)
+    int_mask = (p["isdigit"] & (j >= p["start"][:, None])
+                & (j < p["dotpos"][:, None]))
+    int_keep = int_mask
+    if drop_int > 0:
+        cum_int = row_cumsum(int_mask)
+        int_keep = int_mask & (cum_int[:, -1:] - cum_int >= drop_int)
+    frac_keep = (p["isdigit"] & (j > p["dotpos"][:, None])
+                 & (j <= (p["dotpos"] + k)[:, None]))
+    frac_mask = p["isdigit"] & (j > p["dotpos"][:, None])
+    nonzero = int_keep & (mat != ord("0"))
+    lead = int_keep & (row_cumsum(nonzero) == 0)
+    sig_int = int_keep.sum(dim=1) - lead.sum(dim=1)
+    int_val, _, int_over = _weighted_int(int_keep, mat)
+    pos = torch.where(frac_keep, row_cumsum(frac_keep), 0)
+    w = torch.where(frac_keep, _pow10(mat.device)[(k - pos).clamp(0, 18)], 0)
+    dig = mat.to(torch.int64) - ord("0")
+    frac_val = torch.where(frac_keep, dig * w, 0).sum(dim=1)
+    unscaled = int_val * (10 ** min(k, 18)) + frac_val
+    signed = torch.where(p["neg"], -unscaled, unscaled)
+    info = np.iinfo(to.host_dtype)
+    ok = (_int_syntax_ok(p, int_mask, frac_mask) & ~int_over & (p["nes"] == 0)
+          & ((sig_int + k) <= 18) & (signed >= int(info.min))
+          & (signed <= int(info.max)))
+    return _store(torch.where(ok, signed, 0), to, _valid(col, ok))
+
+
+def _format_bool(col: Column) -> Column:
+    dev = col.data.device
+    t = const(tuple(b"true\x00"), torch.uint8, dev)
+    f = const(tuple(b"false"), torch.uint8, dev)
+    b = col.data.to(torch.bool)
+    data = torch.where(b[:, None], t[None, :], f[None, :])
+    lens = torch.where(b, 4, 5).to(torch.int32)
+    return Column(data, dt.STRING, col.validity, lens)
+
+
+def _digit_matrix(mag: torch.Tensor, K: int):
+    """(digits least-significant first (n, K+1) int64, digit count) of
+    u64 magnitudes (int64 carriers; 2^63 is the one above the int64
+    range). One unsigned division by 10 first, then signed ones."""
+    q = lshr(mag, 1) // 5  # floor(mag / 10) of the u64 value
+    pows = _pow10(mag.device)[:K]
+    digs = torch.cat([(mag - 10 * q)[:, None],
+                      torch.remainder(q[:, None] // pows[None, :], 10)], 1)
+    ndig = ((mag != 0).to(torch.int64)
+            + (q[:, None] >= pows[None, :]).sum(dim=1)).clamp(min=1)
+    return digs, ndig
+
+
+def _abs_u64(v: torch.Tensor):
+    """(v < 0, |v| as u64 bits) of int64 values (|INT64_MIN| = 2^63)."""
+    neg = v < 0
+    return neg, torch.where(neg, -v, v)
+
+
+def _chars(digs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(digs, 1, idx.to(torch.int64)) + ord("0")
+
+
+def _format_int(col: Column) -> Column:
+    """INT -> STRING: up to 19 digits, leading zeros suppressed, the
+    sign prepended."""
+    # the value as int64, as the JAX package takes it (a UINT64 value
+    # past 2^63 prints negative there too)
+    neg, mag = _abs_u64(compute.to_carrier(compute.values(col)).to(torch.int64))
+    K = 19
+    digs, ndig = _digit_matrix(mag, K)
+    o = neg.to(torch.int64)
+    lens = ndig + o
+    j = _cols(K + 2, mag.device).to(torch.int64)
+    idx = (ndig[:, None] - 1 - (j - o[:, None])).clamp(0, K)
+    out = torch.where(neg[:, None] & (j == 0), ord("-"), _chars(digs, idx))
+    out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, lens.to(torch.int32))
+
+
+def _format_decimal(col: Column) -> Column:
+    """DECIMAL32/64 -> STRING at any scale: the digits with a point
+    ``-scale`` digits from the right (integer part at least one digit);
+    a positive scale appends that many zeros."""
+    s = col.dtype.scale
+    d = -s
+    if s == 0:
+        return _format_int(col)
+    neg, mag = _abs_u64(compute.values(col).to(torch.int64))
+    K = 19
+    digs, ndig = _digit_matrix(mag, K)
+    o = neg.to(torch.int64)
+    if s > 0:
+        lens = o + ndig + s
+        j = _cols(K + 2 + s, mag.device).to(torch.int64)
+        p = j - o[:, None]
+        in_digits = (p >= 0) & (p < ndig[:, None])
+        idx = (ndig[:, None] - 1 - p).clamp(0, K)
+        chars = torch.where(in_digits, _chars(digs, idx), ord("0"))
+        out = torch.where(neg[:, None] & (j == 0), ord("-"), chars)
+        out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
+        return Column(out, dt.STRING, col.validity, lens.to(torch.int32))
+    int_digits = (ndig - d).clamp(min=1)
+    lens = o + int_digits + 1 + d
+    j = _cols(K + 3 + max(d - K, 0), mag.device).to(torch.int64)
+    p = j - o[:, None]
+    point_at = int_digits[:, None]
+    di = torch.where(p < point_at, point_at - 1 - p + d, d - 1 - (p - point_at - 1))
+    chars = torch.where(di <= K, _chars(digs, di.clamp(0, K)), ord("0"))
+    out = torch.where(p == point_at, ord("."), chars)
+    out = torch.where(neg[:, None] & (j == 0), ord("-"), out)
+    out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, lens.to(torch.int32))
+
+
+def _padded_literal(lit: bytes, width: int, device) -> torch.Tensor:
+    return const(tuple(lit.ljust(width, b"\0")), torch.int64, device)
+
+
+def _format_float(col: Column) -> Column:
+    """FLOAT32/64 -> STRING: Ryu's shortest digits placed by Java's
+    ``Double.toString`` rules: plain decimal when the normalized exponent
+    is in [-3, 7) (at least one fraction digit, so 4.0), else
+    ``d.fffE[-]x``; "NaN", "Infinity", "-Infinity" and signed zeros as
+    they are."""
+    if col.dtype.id == dt.TypeId.FLOAT64:
+        sign, digits, exp10, is_zero, is_inf, is_nan = shortest_decimal64(
+            col.data)
+        K, width = 17, 26
+    else:
+        sign, digits, exp10, is_zero, is_inf, is_nan = shortest_decimal32(
+            col.data.view(torch.int32))
+        K, width = 9, 18
+    dev = digits.device
+    digs, olen = _digit_matrix(digits, K)
+    sci_exp = olen - 1 + exp10
+    plain = (sci_exp >= -3) & (sci_exp < 7)
+    neg = sign & ~is_nan
+    o = neg.to(torch.int64)
+    int_len = torch.where(plain & (sci_exp >= 0), sci_exp + 1, 1)
+    lead_zeros = torch.where(plain & (sci_exp < 0), -sci_exp - 1, 0)
+    frac_digits = torch.where(
+        plain,
+        torch.where(sci_exp >= 0, (olen - (sci_exp + 1)).clamp(min=1),
+                    lead_zeros + olen),
+        (olen - 1).clamp(min=1))
+    point_at = o + int_len
+    eabs = sci_exp.abs()
+    e_ndig = torch.where(eabs >= 100, 3, torch.where(eabs >= 10, 2, 1))
+    e_neg = (sci_exp < 0).to(torch.int64)
+    suffix_len = torch.where(plain, 0, 1 + e_neg + e_ndig)
+    lens = o + int_len + 1 + frac_digits + suffix_len
+    lens = torch.where(is_nan, 3, lens)
+    lens = torch.where(is_inf, 8 + o, lens)
+    lens = torch.where(is_zero, 3 + o, lens)
+
+    j = _cols(width, dev).to(torch.int64)
+    p = j - o[:, None]
+    pa = point_at[:, None]
+    frac_k = j - (pa + 1)
+    plain_pos_i = torch.where(j < pa, p, int_len[:, None] + frac_k)
+    planb_digit = frac_k - lead_zeros[:, None]
+    sci_i = torch.where(j < pa, 0, 1 + frac_k)
+    ms_i = torch.where(
+        plain[:, None],
+        torch.where((sci_exp >= 0)[:, None], plain_pos_i,
+                    torch.where(j < pa, K, planb_digit)),
+        sci_i)  # index K: a forced zero
+    in_digits = (ms_i >= 0) & (ms_i < olen[:, None])
+    idx = (olen[:, None] - 1 - ms_i).clamp(0, K)
+    out = torch.where(in_digits, _chars(digs, idx), ord("0"))
+    out = torch.where(j == pa, ord("."), out)
+
+    sci = ~plain[:, None]
+    e_at = (point_at + 1 + frac_digits)[:, None]
+    out = torch.where(sci & (j == e_at), ord("E"), out)
+    out = torch.where(sci & (e_neg == 1)[:, None] & (j == e_at + 1), ord("-"),
+                      out)
+    e_digit_ms = j - (e_at + 1 + e_neg[:, None])
+    e_ls = (e_ndig[:, None] - 1 - e_digit_ms).clamp(0, 3)
+    e_pows = const((1, 10, 100, 1000), torch.int64, dev)
+    e_chars = torch.remainder(eabs[:, None] // e_pows[e_ls], 10) + ord("0")
+    in_exp = (e_digit_ms >= 0) & (e_digit_ms < e_ndig[:, None])
+    out = torch.where(sci & in_exp, e_chars, out)
+
+    out = torch.where(neg[:, None] & (j == 0), ord("-"), out)
+    out = torch.where(is_nan[:, None], _padded_literal(b"NaN", width, dev),
+                      out)
+    shifted = (p >= 0) & (p < width)
+    at = p.clamp(0, width - 1)
+    inf_s = _padded_literal(b"Infinity", width, dev)
+    zero_s = _padded_literal(b"0.0", width, dev)
+    out = torch.where(is_inf[:, None],
+                      torch.where(shifted & (p < 8), inf_s[at], 0), out)
+    out = torch.where(is_zero[:, None],
+                      torch.where(shifted & (p < 3), zero_s[at], 0), out)
+    out = torch.where((is_inf | is_zero)[:, None] & neg[:, None] & (j == 0),
+                      ord("-"), out)
+    out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, lens.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# dictionary codes
+# ---------------------------------------------------------------------------
+
+
+def _dictionary_codes(col: Column):
+    """(codes int32 in row order, perm, seg): one stable sort of the key
+    words and a boundary scan. Codes preserve order: code order is key
+    order (nulls first), so they can stand in for the key words."""
+    from .groupby import _segment_ids
+
+    perm, seg, _, _ = _segment_ids([col])
+    codes = torch.empty_like(seg)
+    codes[perm] = seg
+    return codes.to(torch.int32), perm, seg
+
+
+def dictionary_encode(col: Column):
+    """(codes INT32 column, uniques STRING column): codes index into the
+    sorted unique values."""
+    _require_string(col)
+    from .groupby import _segment_ids
+    from .gather import gather_column
+
+    perm, seg, starts, _ = _segment_ids([col])
+    codes = torch.empty_like(seg)
+    codes[perm] = seg
+    return (Column(codes.to(torch.int32), dt.INT32, col.validity),
+            gather_column(col, perm[starts]))
+
+
+def encode_join_keys(left: Column, right: Column):
+    """Two string key columns coded against one shared dictionary, so
+    equality and order of codes are those of the strings across both."""
+    _require_string(left)
+    _require_string(right)
+    left_r, right_r = common_pad([left, right])
+    both = Column(torch.cat([left_r.data, right_r.data]), dt.STRING, None,
+                  torch.cat([left.lengths, right.lengths]))
+    codes, _, _ = _dictionary_codes(both)
+    nl = left.row_count
+    return (Column(codes[:nl], dt.INT32, left.validity),
+            Column(codes[nl:], dt.INT32, right.validity))

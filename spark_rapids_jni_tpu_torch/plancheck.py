@@ -10,11 +10,9 @@ index, op name and reason. Like the reference it is permissive: only
 what is certain to raise is refused, and a walk whose schema is unknown
 checks structure only.
 
-The rules are those of the ops the port dispatches: every op of the JAX
-package's but ``explode`` and ``rlike``, which raise
-``runtime_bridge.UnsupportedOpError``. Fusion
-tiers, kernel tags, segment prediction and the HBM estimate wait for
-plan fusion.
+The rules are those of every op the JAX package dispatches. Fusion
+tiers, kernel tags, segment prediction and the HBM estimate (with its
+per-type width estimates) wait for plan fusion.
 """
 
 from __future__ import annotations
@@ -282,6 +280,31 @@ def _r_filter(op, st):
     return out, None, st.rows
 
 
+def _r_rlike(op, st):
+    ci = _col_index(op, "column", st.schema, what="rlike column")
+    pat = op.get("pattern")
+    if not isinstance(pat, str):
+        raise _Reject(f"rlike pattern must be a string, got {pat!r}")
+    if st.schema is None:
+        return None, None, st.rows
+    if not st.schema[ci].is_string:
+        raise _Reject(
+            f"rlike expected a STRING column, got {st.schema[ci].pretty()}")
+    return list(st.schema), st.names, st.rows
+
+
+def _r_explode(op, st):
+    ci = _col_index(op, "column", st.schema, what="explode column")
+    if st.schema is None:
+        return None, None, None  # output rows are data-dependent
+    col = st.schema[ci]
+    if not col.is_list:
+        raise _Reject(f"explode expected a LIST column, got {col.pretty()}")
+    out = list(st.schema)
+    out[ci] = ColType(col.child if col.child is not None else dt.TypeId.INT64)
+    return out, st.names, None
+
+
 def _r_sort_by(op, st):
     keys = op.get("keys")
     if not isinstance(keys, list) or not keys:
@@ -539,11 +562,12 @@ def _r_partition(op, st):
     return list(st.schema), st.names, st.rows
 
 
-#: The rules of the ops the port dispatches.
+#: The rule of every dispatch op.
 _RULES = {
     "join": _r_join, "concat": _r_concat, "groupby": _r_groupby,
     "sort_by": _r_sort_by, "filter": _r_filter, "distinct": _r_distinct,
-    "cast": _r_cast, "cross_join": _r_cross_join, "slice": _r_slice,
+    "cast": _r_cast, "explode": _r_explode, "rlike": _r_rlike,
+    "cross_join": _r_cross_join, "slice": _r_slice,
     "repeat": _r_repeat, "sample": _r_sample, "partition": _r_partition,
     "to_rows": _r_to_rows, "from_rows": _r_from_rows,
 }
@@ -556,11 +580,7 @@ def analyze(ops, schema: Optional[Sequence[ColType]] = None,
             names: Optional[Sequence[str]] = None) -> dict:
     """Walk a plan and return its report: per op the inferred output
     schema and row bound, or the reason it cannot run (``ok`` False from
-    the first refusal on; the walk stops there). Raises
-    ``runtime_bridge.UnsupportedOpError`` at an op the JAX package knows
-    and the port does not run."""
-    from .runtime_bridge import DISPATCH_OPS, UnsupportedOpError
-
+    the first refusal on; the walk stops there)."""
     report: dict = {"ok": True, "rows_in": rows, "ops": []}
     if not isinstance(ops, list):
         report["ok"] = False
@@ -582,10 +602,6 @@ def analyze(ops, schema: Optional[Sequence[ColType]] = None,
         name = entry["op"] = op.get("op")
         rule = _RULES.get(name)
         if rule is None:
-            if name in DISPATCH_OPS:
-                raise UnsupportedOpError(
-                    f"table op {name!r} is not ported to the PyTorch "
-                    "package yet")
             entry["reason"] = f"unknown table op {name!r}"
             report["ok"] = False
             break

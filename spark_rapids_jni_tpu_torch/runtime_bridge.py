@@ -3,9 +3,10 @@
 The same names, signatures and wire format as the JAX package, so a C
 shim can call either package: parallel (type id, scale) int arrays,
 little-endian fixed-width data buffers (FLOAT64 as IEEE-754 doubles,
-BOOL8 as one 0/1 byte), per-column 0/1 validity byte vectors, and LIST
-columns as int32 offsets[n+1] followed by the child values, with the
-child type id in the scale slot.
+BOOL8 as one 0/1 byte), per-column 0/1 validity byte vectors, and STRING
+and LIST columns as int32 offsets[n+1] followed by the payload (UTF-8
+bytes; LIST: the child values, with the child type id in the scale
+slot).
 
 ``table_op_wire`` and ``table_plan_wire`` take one wire table and give
 back the wire 5-tuple: bytes in, bytes out. Otherwise tables stay
@@ -13,10 +14,8 @@ resident on the device between calls: ``table_upload_wire`` returns an
 id, ``table_plan_resident`` runs a plan over ids and returns a new id,
 ``table_download_wire`` serializes one, ``table_free`` drops it. Every
 entry that runs ops checks them first (``plancheck.check_plan``), before
-any upload or donation. Every op of ``DISPATCH_OPS`` runs but
-``explode`` and ``rlike`` (LIST explode and strings, not ported yet),
-which raise :class:`UnsupportedOpError`; ``table_op_resident`` runs one
-op over resident tables. The JAX package pads wire tables to a shape
+any upload or donation. Every op of ``DISPATCH_OPS`` runs;
+``table_op_resident`` runs one op over resident tables. The JAX package pads wire tables to a shape
 bucket; the port runs exact shapes, which gives the same logical rows.
 Where the JAX entries raise on an input Spark can send (a join with a
 0-row side, a ``concat`` of unnamed tables), the port returns Spark's
@@ -115,14 +114,13 @@ def _column_from_wire(type_id: int, scale: int, data: Optional[bytes],
     v = _wire_validity(valid, num_rows)
     vt = None if v is None else _to_device(v, device)
     tid = dt.TypeId(type_id)
-    if tid == dt.TypeId.LIST:
-        child = dt.DType(dt.TypeId(scale))
+    if tid in (dt.TypeId.LIST, dt.TypeId.STRING):
+        child = (dt.UINT8 if tid == dt.TypeId.STRING
+                 else dt.DType(dt.TypeId(scale)))
         mat, lens = _padded_from_offsets(data, num_rows, child.host_dtype,
-                                         "LIST")
-        return Column(_to_device(mat, device), dt.LIST, vt,
+                                         tid.name)
+        return Column(_to_device(mat, device), dt.DType(tid), vt,
                       _to_device(lens, device))
-    if tid == dt.TypeId.STRING:
-        raise UnsupportedOpError("STRING columns are not ported yet")
     d = dt.DType(tid, scale)
     if d.id == dt.TypeId.DECIMAL128:
         arr = np.frombuffer(data, np.uint64, 2 * num_rows).reshape(num_rows, 2)
@@ -135,9 +133,10 @@ def _column_to_wire(c: Column):
     """(type_id, scale, data bytes, valid bytes | None)."""
     valid = (None if c.validity is None
              else c.validity.cpu().numpy().astype(np.uint8).tobytes())
-    if c.dtype.id == dt.TypeId.LIST:
+    if c.dtype.id in (dt.TypeId.LIST, dt.TypeId.STRING):
+        scale = 0 if c.dtype.is_string else int(c.list_child_dtype.id)
         return (
-            int(dt.TypeId.LIST), int(c.list_child_dtype.id),
+            int(c.dtype.id), scale,
             _padded_to_offsets(c.data.cpu().numpy(),
                                c.lengths.cpu().numpy().astype(np.int32)),
             valid,
@@ -176,8 +175,8 @@ DISPATCH_OPS = frozenset({
     "explode", "rlike", "cross_join", "slice", "repeat", "sample",
     "partition", "to_rows", "from_rows",
 })
-#: The ops the port runs: all but LIST explode and the string op.
-PORTED_OPS = DISPATCH_OPS - {"explode", "rlike"}
+#: The ops the port runs: all of them.
+PORTED_OPS = DISPATCH_OPS
 #: The join of each ``how``.
 _JOINS = {"inner": "inner_join", "left": "left_join", "right": "right_join",
           "full": "full_join", "semi": "semi_join", "anti": "anti_join"}
@@ -206,10 +205,6 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
 
     if name not in DISPATCH_OPS:
         raise ValueError(f"unknown table op {name!r}")
-    if name not in PORTED_OPS:
-        raise UnsupportedOpError(
-            f"table op {name!r} is not ported to the PyTorch package yet"
-        )
     if name == "from_rows" and table.columns[0].dtype.id != dt.TypeId.LIST:
         return _from_flat_rows(op, table)
     if name in _KERNEL_ONLY:
@@ -225,6 +220,12 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
         out = list(table.columns)
         out[op["column"]] = cast(table.columns[op["column"]], target)
         return Table(out, table.names)
+    if name == "explode":
+        return ops.explode(table, op["column"])
+    if name == "rlike":
+        # the rows whose string column matches: Spark's WHERE col RLIKE p
+        return ops.filter_table(
+            table, ops.contains_re(table.columns[op["column"]], op["pattern"]))
     if name == "join":
         how = op.get("how", "inner")
         if how not in _JOINS:

@@ -269,9 +269,10 @@ def test_unported_operands_raise():
     i64 = Column(torch.zeros(4, dtype=torch.int64), dt.INT64)
     with pytest.raises(NotImplementedError, match="item 5"):
         binaryop.add(d128, i64)
-    s = Column(torch.zeros(4, dtype=torch.int64), dt.DType(dt.TypeId.STRING))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        binaryop.eq(s, s)
+    # STRING comparisons run now; arithmetic on strings raises
+    s = Column.from_strings(["a", "b", None, ""], device="cpu")
+    with pytest.raises(TypeError, match="not supported for strings"):
+        binaryop.mul(s, s)
     with pytest.raises(ValueError, match="unknown binary op"):
         binaryop.binary_op("nope", i64, i64)
     with pytest.raises(ValueError, match="unknown unary op"):

@@ -347,7 +347,8 @@ def test_kernel_tier_declines_semantically(_kernel_flags):
 def test_unported_ops_raise_typed():
     fact, item = _slice_wire(n=64)
     fid = rb.table_upload_wire(*fact, device="cpu")
-    with pytest.raises(rb.UnsupportedOpError, match="rlike"):
+    # rlike runs now: on a non-STRING column the plan check refuses it
+    with pytest.raises(plancheck.PlanCheckError, match="STRING column"):
         rb.table_plan_resident(json.dumps(
             [PLAN[0], {"op": "rlike", "column": 0, "pattern": "a"}]), [fid])
     with pytest.raises(ValueError, match="unknown table op"):

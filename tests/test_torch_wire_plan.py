@@ -178,7 +178,8 @@ def test_flat_rows_need_num_rows_and_match_the_buffer():
 
 def test_unported_op_in_a_wire_plan_raises_typed():
     wire = _list_wire(_fact_rows(16, 3))
-    with pytest.raises(rb.UnsupportedOpError, match="explode"):
+    # explode runs now: of a non-LIST column the plan check refuses it
+    with pytest.raises(plancheck.PlanCheckError, match="LIST column"):
         rb.table_plan_wire(json.dumps([FROM_ROWS,
                                        {"op": "explode", "column": 0}]),
                            *wire, device="cpu")
