@@ -90,6 +90,19 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     bytes: explode, distinct, a descending sort on a nullable string,
     concat and cross_join of two pad widths, rlike, casts with
     unparseable rows, the regex span ops, comparisons and ||.
+(l) DECIMAL128 — one Spark task's batch of TPC-H lineitem (2^23 rows,
+    the specification's value ranges, the money columns DECIMAL64 at
+    scale -2 with ~2 % nulls) through ``table_upload_wire`` +
+    ``table_plan_resident``: (l1) q1's DECIMAL128 core (the shipdate
+    filter, the casts to decimal(22,2) that Spark's SUM inserts,
+    SUM/AVG/COUNT by returnflag and linestatus, ORDER BY both), sums and
+    counts exact against Python ints; (l2) ORDER BY l_extendedprice DESC
+    on the decimal(22,2) key, exact against a stable numpy argsort; both
+    byte for byte against the port's own CPU run, timed like (i) and (k).
+    (l3) runs the rest once at 2^20 rows with values near +-10^37 and
+    +-2^64: joins, distinct, sum/mean/min/max/variance/std, the casts to
+    and from INT64, FLOAT64, DECIMAL64 and STRING, add/sub/comparisons
+    at mixed scales, against the CPU run's bytes and Python ints.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -1718,11 +1731,104 @@ SCAN16_CASE_ROWS = (1, 2, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097,
                     65536, 65537, 1 << 20, 4096 * 4097 + 5)
 
 
-def phase_scan16_cases(seed: int) -> list:
+def device_launches(fn, calls: int = 20, tries: int = 4) -> dict:
+    """The device operations a call of ``fn`` makes, by name, from
+    ``torch.profiler`` over ``calls`` calls (kernels and memsets). A short
+    window on the card came back without its device events: the window
+    waits 20 ms before its calls, and one that recorded none is taken
+    again, up to ``tries`` times ({} if none did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = {e.key[:60]: e.count / calls for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count}
+        if ops:
+            return ops
+    return {}
+
+
+SCAN16_PHASE_NAMES = ("ticket", "load", "levels", "publish", "look-back",
+                      "fold", "write")
+
+
+def scan16_phases(n: int, seed: int) -> dict:
+    """Where a scan16 tile's time goes: ``csrc/scan16.cu`` built again
+    with its phase clock (``-DSCAN16_PHASES``: %globaltimer as each step
+    starts), one call on ``n`` FLOAT64 elements after two warm-up calls;
+    per step the 10th/50th/90th percentile over the tiles (us), a tile's
+    lifetime, the call's span and the tiles alive at its midpoint."""
+    import ctypes
+
+    from spark_rapids_jni_tpu_torch import kernels
+
+    out_dir = kernels.BUILD_ROOT / kernels._digest()
+    lib_path = out_dir / "libscan16_phases.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DSCAN16_PHASES",
+                        "-o", str(lib_path), str(kernels.CSRC / "scan16.cu")],
+                       check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.srt_scan16_scratch_bytes.argtypes = [ctypes.c_int64]
+    lib.srt_scan16_scratch_bytes.restype = ctypes.c_int64
+    lib.srt_scan16.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_void_p, ctypes.c_void_p]
+    lib.srt_scan16_phases.argtypes = [ctypes.c_void_p]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v = torch.randn(n, dtype=torch.float64, device=DEVICE, generator=g)
+    size = lib.srt_scan16_scratch_bytes(n)
+    for _ in range(3):
+        scratch = torch.empty(max(size, 8), dtype=torch.uint8, device=DEVICE)
+        res = torch.empty_like(v)
+        torch.cuda.synchronize()
+        if lib.srt_scan16(v.data_ptr(), n, scratch.data_ptr(), size,
+                          res.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("scan16 with its phase clock did not launch")
+        torch.cuda.synchronize()
+    stamps = np.zeros((len(SCAN16_PHASE_NAMES) + 2, 8192), np.int64)
+    if lib.srt_scan16_phases(stamps.ctypes.data) != 0:
+        raise RuntimeError("scan16's phase clock could not be read")
+    tiles = min(-(-n // 4096), stamps.shape[1])
+    t = stamps[:-1, :tiles]
+    steps = {}
+    for k, name in enumerate(SCAN16_PHASE_NAMES):
+        us = (t[k + 1] - t[k]) / 1e3
+        steps[name] = [float(np.percentile(us, q)) for q in (10, 50, 90)]
+    life = (t[-1] - t[0]) / 1e3
+    mid = t[0].min() + (t[-1].max() - t[0].min()) / 2
+    rec = {"n": n, "tiles": tiles, "steps_us_p10_p50_p90": steps,
+           "lifetime_us_p50": float(np.median(life)),
+           "span_us": float((t[-1].max() - t[0].min()) / 1e3),
+           "alive_at_midpoint": int(((t[0] <= mid) & (t[-1] >= mid)).sum()),
+           "sms": int(np.unique(stamps[-1, :tiles]).shape[0])}
+    log(f"(c) scan16 phases at {n} elements ({tiles} tiles on {rec['sms']} "
+        f"SMs): span {rec['span_us']:.1f} us, a tile's lifetime "
+        f"{rec['lifetime_us_p50']:.2f} us (p50), {rec['alive_at_midpoint']} "
+        f"alive at the midpoint; steps p10/p50/p90 us " + ", ".join(
+            f"{k} {a:.2f}/{b:.2f}/{c:.2f}" for k, (a, b, c) in steps.items()))
+    return rec
+
+
+def phase_scan16_cases(seed: int) -> dict:
     """scan16 against its plain version, bit for bit, on the lengths
     around each level and tile edge and past two recursion levels, with
     -0.0 runs, mixed magnitudes, inf and NaN, and ``rows`` 1 and 2 for a
-    one-element vector."""
+    one-element vector. Each length runs 20 calls back to back on one
+    stream (timed together) and every one of them is checked: a flag or
+    ticket left over from the call before would show there. The
+    launches a call are read from the profile; then the phase breakdown
+    (:func:`scan16_phases`) at (g)'s and (i1)'s lengths."""
     from spark_rapids_jni_tpu_torch.kernels import scan16
     from spark_rapids_jni_tpu_torch.ops.groupby import _scan_sum16
 
@@ -1736,20 +1842,40 @@ def phase_scan16_cases(seed: int) -> list:
             x[rng.integers(0, n)] = np.inf
         v = torch.from_numpy(x).to(DEVICE)
         for rows in ({None, 1, 2} if n == 1 else {None}):
-            got = scan16.scan_sum16(v, rows).view(torch.int64)
             want = _scan_sum16(v, rows).view(torch.int64)
-            err = max_abs_err([got], [want])
-            out.append({"rows": n, "rows_arg": rows, "max_abs_err": err})
-            if err:
-                raise AssertionError(f"scan16 differs at {n} rows ({rows})")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            calls = [scan16.scan_sum16(v, rows) for _ in range(20)]
+            stop.record()
+            stop.synchronize()
+            errs = [max_abs_err([c.view(torch.int64)], [want]) for c in calls]
+            del calls
+            ops_a_call = device_launches(lambda: scan16.scan_sum16(v, rows))
+            out.append({"rows": n, "rows_arg": rows, "calls": len(errs),
+                        "max_abs_err": max(errs),
+                        "bad_calls": sum(e != 0 for e in errs),
+                        "queued_ms": start.elapsed_time(stop) / len(errs),
+                        "device_ops_a_call": ops_a_call})
+            if max(errs):
+                raise AssertionError(
+                    f"scan16 differs at {n} rows ({rows}) in "
+                    f"{out[-1]['bad_calls']} of {len(errs)} calls")
     nan = torch.tensor([1.0, float("nan"), 2.0] * 3000, dtype=torch.float64,
                        device=DEVICE)
     if not torch.equal(torch.isnan(scan16.scan_sum16(nan)),
                        torch.isnan(_scan_sum16(nan))):
         raise AssertionError("scan16 NaN positions differ")
-    log(f"(c) scan16 cases: {len(out)} lengths {list(SCAN16_CASE_ROWS)} "
-        f"bit-exact against _scan_sum16; NaN propagates alike")
-    return out
+    phases = [scan16_phases(n, seed) for n in (QS_ROWS, 982_146)]  # (g), (i1)
+    big = out[-1]
+    log(f"(c) scan16 cases: {len(out)} cases over the lengths "
+        f"{list(SCAN16_CASE_ROWS)}, 20 "
+        f"calls back to back at each, every call bit-exact against "
+        f"_scan_sum16; NaN propagates alike; device operations a call at "
+        f"{big['rows']}: {big['device_ops_a_call']} (queued "
+        f"{big['queued_ms']:.4f} ms a call)")
+    return {"cases": out, "phases": phases}
 
 
 def phase_query_step(kernels, q: dict, seed: int) -> dict:
@@ -2218,11 +2344,11 @@ def same_buffers(a, b, what: str) -> None:
             if (u is None) != (v is None) or (
                     u is not None and (u.dtype != v.dtype
                                        or not np.array_equal(u, v))):
-                raise AssertionError(f"(j) {what}: column {i} {part} differs")
+                raise AssertionError(f"{what}: column {i} {part} differs")
         if x[3:] != y[3:]:
-            raise AssertionError(f"(j) {what}: column {i} type differs")
+            raise AssertionError(f"{what}: column {i} type differs")
     if len(a) != len(b):
-        raise AssertionError(f"(j) {what}: column counts differ")
+        raise AssertionError(f"{what}: column counts differ")
 
 
 def phase_remaining_ops(rb, d: dict, seed: int) -> dict:
@@ -2293,7 +2419,7 @@ def phase_remaining_ops(rb, d: dict, seed: int) -> dict:
             ("drop_nulls", lambda t: ops.drop_nulls(t, keys=[1, 3]))):
         card, host = (interop.table_to_buffers(fn(bufs[k]))
                       for k in (DEVICE, "cpu"))
-        same_buffers(card, host, what)
+        same_buffers(card, host, f"(j) {what}")
         out[what] = int(card[0][0].shape[0])
     log(f"(j) remaining ops at {n} rows: equal to the CPU run's bytes; rows "
         f"out {out}; a donated input was freed")
@@ -2895,6 +3021,377 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# (l) DECIMAL128: one Spark task's batch of TPC-H lineitem
+# ---------------------------------------------------------------------------
+
+DEC_ROWS = 1 << 23  # one task's batch, as (a)
+DEC_OPS_ROWS = 1 << 20  # (l3), cut as (j) for the script's time
+DEC_NULLS = 0.02
+EPOCH_1992 = 8036  # days from 1970-01-01 to 1992-01-01
+SHIP_FIRST, SHIP_LAST = EPOCH_1992 + 1, EPOCH_1992 + 2526  # 1992-01-02, 1998-12-01
+SHIP_CUTOFF = EPOCH_1992 + 2436  # 1998-09-02: q1's DATE '1998-12-01' - 90 days
+TPCH_CURRENT = EPOCH_1992 + 1263  # 1995-06-17, the spec's CURRENTDATE
+RETURNFLAGS = [b"A", b"N", b"R"]
+LINESTATUS = [b"F", b"O"]
+# lineitem as the wire carries it: l_quantity, l_extendedprice, l_discount
+# and l_tax as DECIMAL64 at scale -2 (decimal(12,2)), l_returnflag and
+# l_linestatus as STRING, l_shipdate as TIMESTAMP_DAYS, and the scan's
+# q1 predicate l_shipdate <= DATE '1998-09-02' as a BOOL8 column
+LINEITEM_TYPES = [26, 26, 26, 26, 23, 23, 12, 11]
+LINEITEM_SCALES = [-2, -2, -2, -2, 0, 0, 0, 0]
+# q1 with Spark's SUM result type decimal(22,2): the casts Spark inserts,
+# then SUM/AVG/COUNT by (l_returnflag, l_linestatus), ORDER BY both;
+# sum_disc_price and sum_charge need a DECIMAL128 product, which the JAX
+# package does not have (binaryop.py:349-351)
+Q1_PLAN = [
+    {"op": "filter", "mask": 7},
+    {"op": "cast", "column": 0, "type_id": 27, "scale": -2},
+    {"op": "cast", "column": 1, "type_id": 27, "scale": -2},
+    {"op": "groupby", "by": [4, 5], "aggs": [
+        {"column": 0, "agg": "sum"}, {"column": 1, "agg": "sum"},
+        {"column": 0, "agg": "mean"}, {"column": 1, "agg": "mean"},
+        {"column": 2, "agg": "mean"}, {"column": 6, "agg": "count"}]},
+    {"op": "sort_by", "keys": [{"column": 0}, {"column": 1}]},
+]
+# (l2): ORDER BY l_extendedprice DESC on the decimal(22,2) key (the row
+# number rides along as the permutation's witness)
+ORDER_PLAN = [
+    {"op": "cast", "column": 1, "type_id": 27, "scale": -2},
+    {"op": "sort_by", "keys": [{"column": 1, "ascending": False}]},
+]
+DEC_KERNELS = {"l1": (), "l2": ()}  # no tier kernel takes these (ROADMAP)
+DEC_EDGES = [0, 1, -1, 2**63 - 1, 2**63, -(2**63), 2**64 - 1, 2**64,
+             -(2**64), 2**64 + 1, -(2**64) - 1, 10**37, -(10**37),
+             10**37 + 1, -(10**37) - 1, 10**38 - 1, -(10**38) + 1]
+
+
+def make_lineitem_data(rng, n: int) -> dict:
+    """(l)'s lineitem batch with the TPC-H specification's value ranges
+    (clause 4.2.3): quantity 1-50, extendedprice = quantity x a part's
+    retail price of 900.00-2,098.99, discount 0.00-0.10, tax 0.00-0.08,
+    each ~2 % null; shipdate in 1992-01-02..1998-12-01; linestatus F when
+    the ship date is past the spec's CURRENTDATE (1995-06-17), else O;
+    returnflag N for a receipt after it, else R or A."""
+    qty = rng.integers(1, 51, n).astype(np.int64)
+    retail = rng.integers(90_000, 209_900, n).astype(np.int64)
+    cents = {"qty": qty * 100, "price": qty * retail,
+             "disc": rng.integers(0, 11, n).astype(np.int64),
+             "tax": rng.integers(0, 9, n).astype(np.int64)}
+    ok = {k: rng.random(n) > DEC_NULLS for k in cents}
+    ship = rng.integers(SHIP_FIRST, SHIP_LAST + 1, n).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, n)
+    status = (ship <= TPCH_CURRENT).astype(np.int64) ^ 1  # 0 F, 1 O
+    flag = np.where(receipt > TPCH_CURRENT, 1,
+                    np.where(rng.random(n) < 0.5, 0, 2)).astype(np.int64)
+    keep = ship <= SHIP_CUTOFF
+    names = ("qty", "price", "disc", "tax")
+    rf, ls = string_wire(RETURNFLAGS, flag), string_wire(LINESTATUS, status)
+    wire = (list(LINEITEM_TYPES), list(LINEITEM_SCALES),
+            [cents[k].tobytes() for k in names] + [rf[0], ls[0],
+                                                   ship.tobytes(),
+                                                   keep.astype(np.uint8)
+                                                   .tobytes()],
+            [ok[k].astype(np.uint8).tobytes() for k in names]
+            + [None] * 4, n)
+    rowid = np.arange(n, dtype=np.int64)
+    order_wire = ([4, 26], [0, -2], [rowid.tobytes(), cents["price"].tobytes()],
+                  [None, ok["price"].astype(np.uint8).tobytes()], n)
+    return {"cents": cents, "ok": ok, "flag": flag, "status": status,
+            "keep": keep, "wire": wire, "order_wire": order_wire}
+
+
+def q1_oracle(ld: dict) -> dict:
+    """q1's DECIMAL128 core in numpy: per (returnflag, linestatus) of the
+    kept rows, the exact sums (int64 holds them: < 2^63 cents), the
+    valid counts behind the means, and count(*)."""
+    m = ld["keep"]
+    grp = (ld["flag"] * 2 + ld["status"])[m]
+    out = {}
+    for k in ("qty", "price", "disc"):
+        v = ld["ok"][k][m]
+        vals = ld["cents"][k][m]
+        out[f"sum_{k}"] = np.array([int(vals[v & (grp == g)].sum())
+                                    for g in range(6)])
+        out[f"n_{k}"] = np.bincount(grp[v], minlength=6)
+    out["count"] = np.bincount(grp, minlength=6)
+    return out
+
+
+def dec128_ints(data: bytes, n: int) -> list:
+    """Signed Python ints of ``n`` DECIMAL128 wire values."""
+    limbs = np.frombuffer(data, np.uint64, 2 * n).reshape(n, 2)
+    return [((int(h) << 64) | int(lo)) - ((int(h) >> 63) << 128)
+            for lo, h in limbs]
+
+
+def check_l1(ld: dict, wire) -> dict:
+    """(l1)'s 5-tuple against :func:`q1_oracle`: the groups in key order,
+    the DECIMAL128 sums and count(*) exact, the means within 1e-12 of
+    numpy's (they are held bit for bit against the CPU run apart)."""
+    type_ids, scales, datas, valids, g = wire
+    want = q1_oracle(ld)
+    present = [i for i in range(6) if want["count"][i] > 0]
+    rf = np.frombuffer(datas[0], np.int32, g + 1)
+    ls = np.frombuffer(datas[1], np.int32, g + 1)
+    keys = [(datas[0][4 * (g + 1) + rf[i]:4 * (g + 1) + rf[i + 1]],
+             datas[1][4 * (g + 1) + ls[i]:4 * (g + 1) + ls[i + 1]])
+            for i in range(g)]
+    want_keys = [(RETURNFLAGS[i // 2], LINESTATUS[i % 2]) for i in present]
+    means = [np.frombuffer(datas[c], np.float64, g) for c in (4, 5, 6)]
+    rel = 0.0
+    for j, k in enumerate(("qty", "price", "disc")):
+        w = want[f"sum_{k}"][present] / want[f"n_{k}"][present] * 0.01
+        rel = max(rel, float(np.max(np.abs(means[j] - w) / np.abs(w))))
+    checks = {
+        "schema": (type_ids == [23, 23, 27, 27, 10, 10, 10, 4]
+                   and scales[2:4] == [-2, -2]),
+        "keys": keys == want_keys,
+        "sum_qty": dec128_ints(datas[2], g) == [int(v) for v in
+                                                want["sum_qty"][present]],
+        "sum_base_price": dec128_ints(datas[3], g) == [
+            int(v) for v in want["sum_price"][present]],
+        "count": np.array_equal(np.frombuffer(datas[7], np.int64, g),
+                                want["count"][present]),
+        "means_vs_numpy": rel < 1e-12,
+    }
+    return {"groups": g, "checks": checks, "means_max_rel_diff": rel}
+
+
+def check_l2(ld: dict, wire) -> dict:
+    """(l2)'s rows: a stable descending order of the price's Python ints,
+    nulls last (Spark's default for DESC), the row numbers as witness."""
+    type_ids, scales, datas, valids, n = wire
+    price, ok = ld["cents"]["price"], ld["ok"]["price"]
+    rows = np.arange(n)
+    want = np.concatenate([rows[ok][np.argsort(-price[ok], kind="stable")],
+                           rows[~ok]])
+    got = np.frombuffer(datas[0], np.int64, n)
+    valid = np.frombuffer(valids[1], np.uint8, n).astype(bool)
+    vals = np.frombuffer(datas[1], np.int64, 2 * n).reshape(n, 2)
+    checks = {
+        "schema": type_ids == [4, 27] and scales == [0, -2],
+        "order": np.array_equal(got, want),
+        "values": np.array_equal(vals[valid, 0], price[got[valid]])
+        and not vals[valid, 1].any(),
+        "nulls_last": np.array_equal(valid, ok[got]) and not valid[
+            int(ok.sum()):].any(),
+    }
+    return {"rows": n, "checks": checks}
+
+
+def phase_decimal(rb, kernels, ld: dict) -> dict:
+    """(l1) q1's DECIMAL128 core and (l2) ORDER BY a decimal(22,2) key
+    over 2^23 lineitem rows, through ``table_upload_wire`` +
+    ``table_plan_resident``: checked against Python ints and byte for
+    byte against the port's own CPU run, then timed like (i) and (k):
+    wall over 5 runs, the host syncs of one run and a profiled window."""
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    cells = {"l1": (Q1_PLAN, ld["wire"], check_l1),
+             "l2": (ORDER_PLAN, ld["order_wire"], check_l2)}
+    out = {}
+    config.set_flag("METRICS", True)
+    try:
+        for tag, (plan_ops, wire_in, check) in cells.items():
+            plan = json.dumps(plan_ops)
+            ids = [rb.table_upload_wire(*wire_in, device=DEVICE)]
+            torch.cuda.synchronize()
+            metrics.reset()
+            kernels.reset_launches()
+            res = rb.table_plan_resident(plan, ids)
+            torch.cuda.synchronize()
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            tier = metrics.counter_values(["kernel.launches", "kernel.declines"])
+            wire = rb.table_download_wire(res)
+            rb.table_free(res)
+            got = check(ld, wire)
+            cpu = rb.table_upload_wire(*wire_in, device="cpu")
+            ref = rb.table_plan_resident(plan, [cpu])
+            got["checks"]["bytes_equal_cpu"] = (
+                tuple(rb.table_download_wire(ref)) == tuple(wire))
+            for t in (cpu, ref):
+                rb.table_free(t)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = rb.table_plan_resident(plan, ids)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                rb.table_free(res)
+            median = statistics.median(times)
+            syncs = count_syncs(plan_runner(rb, plan, ids))
+            log(f"({tag}) {got}; wall median {median:.2f} ms over 5 runs (all: "
+                f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
+                f"launches {launches}; tier {tier}")
+            profile = profile_plan(plan_runner(rb, plan, ids), median,
+                                   f"({tag})")
+            for t in ids:
+                rb.table_free(t)
+            bad = [k for k, ok in got["checks"].items() if not ok]
+            if bad:
+                raise AssertionError(f"({tag}) differs: {bad}")
+            missing = [k for k in DEC_KERNELS[tag] if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"({tag}) never launched {missing}")
+            out[tag] = {"launches": launches, "tier": tier, "wall_ms": median,
+                        "syncs": syncs, "profile": profile, **got}
+    finally:
+        config.clear_flag("METRICS")
+    return out
+
+
+def dec_ops_wire(rng, n: int, pool: list, draw: bool = True):
+    """(l3)'s table: k INT64 (~10 % null), d DECIMAL128(-2) drawn from
+    ``pool`` (~15 % null; repeats, so it keys joins and groups) or, with
+    ``draw`` False, ``pool`` itself in order (a join's build side, one
+    row a key), e DECIMAL128(-5), i INT64, s DECIMAL64(-3); and d's
+    Python ints and validity."""
+    from spark_rapids_jni_tpu_torch.ops import int128
+
+    d = [pool[i] for i in rng.integers(0, len(pool), n)] if draw else pool
+    e = [int(v) * 10**int(s) for v, s in zip(
+        rng.integers(-2**62, 2**62, n), rng.integers(0, 19, n))]
+    dv = rng.random(n) > 0.15
+    cols = [rng.integers(0, 1000, n).astype(np.int64).tobytes(),
+            int128.from_py_ints(d).tobytes(), int128.from_py_ints(e).tobytes(),
+            rng.integers(-10**6, 10**6, n).astype(np.int64).tobytes(),
+            rng.integers(-10**15, 10**15, n).astype(np.int64).tobytes()]
+    valids = [(rng.random(n) > 0.1).astype(np.uint8).tobytes(),
+              dv.astype(np.uint8).tobytes(), None, None, None]
+    return ([4, 27, 27, 4, 26], [0, -2, -5, 0, -3], cols, valids, n), d, dv
+
+
+DEC_OPS_PLANS = {
+    "join_inner": [{"op": "join", "how": "inner", "on": [1]}],
+    "join_left": [{"op": "join", "how": "left", "on": [1]}],
+    "groupby": [{"op": "groupby", "by": [0], "aggs": [
+        {"column": c, "agg": a} for c in (1, 2)
+        for a in ("sum", "mean", "min", "max", "variance", "std", "count")]}],
+    "distinct": [{"op": "distinct", "keys": [1]}],
+    **{f"cast_{name}": [{"op": "cast", "column": c, "type_id": t,
+                         "scale": s}]
+       for name, c, t, s in (("to_int64", 1, 4, 0), ("to_float64", 2, 10, 0),
+                             ("to_decimal64", 1, 26, -2),
+                             ("to_decimal128", 2, 27, -9),
+                             ("int64_to", 3, 27, -20),
+                             ("decimal64_to", 4, 27, -6))},
+    "string_round_trip": [{"op": "cast", "column": 1, "type_id": 23},
+                          {"op": "cast", "column": 1, "type_id": 27,
+                           "scale": -2}],
+}
+DEC_OPS_BINARY = ("add", "sub", "eq", "lt", "ge", "null_safe_eq")
+
+
+def phase_decimal_ops(rb, seed: int) -> dict:
+    """(l3): the rest of DECIMAL128 once at 2^20 rows with values near
+    +-10^37 and +-2^64 (every carry and borrow): joins on DECIMAL128 keys,
+    the groupby's sum/mean/min/max/variance/std, distinct, the casts to
+    and from INT64, FLOAT64, DECIMAL64 and STRING through the wire, and
+    add/sub/comparisons at mixed scales (scale -2 with -5 and with an
+    INT64) at the ops level; each byte for byte against the port's CPU
+    run, and against Python ints where they give the answer."""
+    from spark_rapids_jni_tpu_torch import interop, kernels, ops
+    from spark_rapids_jni_tpu_torch.column import Table
+
+    rng = np.random.default_rng(seed + 128)
+    big = [int(v) for v in rng.integers(-2**62, 2**62, 40)]
+    pool = DEC_EDGES + [v * 10**19 + 7 for v in big]
+    wire, d, dv = dec_ops_wire(rng, DEC_OPS_ROWS, pool)
+    side, sd_vals, sdv = dec_ops_wire(rng, len(pool), pool, draw=False)
+    kernels.reset_launches()
+    out = {}
+    for name, plan_ops in DEC_OPS_PLANS.items():
+        plan = json.dumps(plan_ops)
+        wires = [wire, side] if name.startswith("join") else [wire]
+        res = []
+        for dev in (DEVICE, "cpu"):
+            ids = [rb.table_upload_wire(*w, device=dev) for w in wires]
+            r = rb.table_plan_resident(plan, ids)
+            res.append(tuple(rb.table_download_wire(r)))
+            for t in ids + [r]:
+                rb.table_free(t)
+        if res[0] != res[1]:
+            raise AssertionError(f"(l3) {name}: card and CPU bytes differ")
+        out[name] = {"rows": res[0][4]}
+    # oracles in Python ints
+    ids = [rb.table_upload_wire(*wire, device=DEVICE)]
+    r = rb.table_plan_resident(json.dumps(DEC_OPS_PLANS["string_round_trip"]),
+                               ids)
+    rt = rb.table_download_wire(r)
+    for t in ids + [r]:
+        rb.table_free(t)
+    valid = np.frombuffer(rt[3][1], np.uint8, DEC_OPS_ROWS).astype(bool)
+    got_rt = dec128_ints(rt[2][1], DEC_OPS_ROWS)
+    if not (np.array_equal(valid, dv) and all(
+            g == w for g, w, ok in zip(got_rt, d, dv) if ok)):
+        raise AssertionError("(l3) DECIMAL128 -> STRING -> DECIMAL128 differs")
+    counts = {}
+    for v, ok in zip(sd_vals, sdv):
+        if ok:
+            counts[v] = counts.get(v, 0) + 1
+    want_join = sum(counts.get(v, 0) for v, ok in zip(d, dv) if ok)
+    if out["join_inner"]["rows"] != want_join:
+        raise AssertionError(f"(l3) inner join rows {out['join_inner']} != "
+                             f"{want_join}")
+    keys = np.frombuffer(wire[2][0], np.int64)
+    kv = np.frombuffer(wire[3][0], np.uint8).astype(bool)
+    ids = [rb.table_upload_wire(*wire, device=DEVICE)]
+    r = rb.table_plan_resident(json.dumps([{"op": "groupby", "by": [0], "aggs": [
+        {"column": 1, "agg": a} for a in ("min", "max", "sum")]}]), ids)
+    gb = rb.table_download_wire(r)
+    for t in ids + [r]:
+        rb.table_free(t)
+    g = gb[4]
+    gk = np.frombuffer(gb[2][0], np.int64, g)
+    gk_ok = np.frombuffer(gb[3][0], np.uint8, g).astype(bool)
+    mins, maxs, sums = (dec128_ints(gb[2][c], g) for c in (1, 2, 3))
+    mod = 1 << 128
+    groups = {}
+    for v, k, okk, ok in zip(d, keys.tolist(), kv.tolist(), dv.tolist()):
+        if ok:
+            lo, hi, tot = groups.get(k if okk else None, (v, v, 0))
+            groups[k if okk else None] = (min(lo, v), max(hi, v), tot + v)
+    for i in range(g):
+        want = groups.get(int(gk[i]) if gk_ok[i] else None)
+        if want is None:
+            continue
+        want = (want[0], want[1], (want[2] + mod // 2) % mod - mod // 2)
+        if (mins[i], maxs[i], sums[i]) != want:
+            raise AssertionError(f"(l3) group {i} min/max/sum differ")
+    # binary ops at mixed scales, ops level, on the card and the CPU
+    cols = {}
+    for dev in (DEVICE, "cpu"):
+        t = interop.table_from_buffers(
+            [(np.frombuffer(wire[2][c], np.uint64).reshape(-1, 2)
+              if wire[0][c] == 27 else np.frombuffer(wire[2][c], np.int64),
+              None if wire[3][c] is None
+              else np.frombuffer(wire[3][c], np.uint8).astype(bool), None,
+              wire[0][c], wire[1][c]) for c in range(5)], None, device=dev)
+        cols[dev] = {f"{op}_{o}": ops.binary_op(op, t.columns[1],
+                                                 t.columns[o])
+                     for op in DEC_OPS_BINARY for o in (2, 3)}
+    for k, c in cols[DEVICE].items():
+        same_buffers(interop.table_to_buffers(Table([c])),
+                     interop.table_to_buffers(Table([cols["cpu"][k]])),
+                     f"(l3) binary {k}")
+    e = dec128_ints(wire[2][2], DEC_OPS_ROWS)
+    m = min(20_000, DEC_OPS_ROWS)
+    add = dec128_ints(cols["cpu"]["add_2"].data[:m].numpy().tobytes(), m)
+    if any(a != ((x * 1000 + y + mod // 2) % mod - mod // 2)
+           for a, x, y, ok in zip(add, d, e, dv) if ok):
+        raise AssertionError("(l3) add at mixed scales differs from Python")
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    log(f"(l3) {len(DEC_OPS_PLANS)} wire plans and "
+        f"{len(cols[DEVICE])} binary ops at {DEC_OPS_ROWS} rows equal the CPU "
+        f"run's bytes; string round trip, join rows ({want_join}), group "
+        f"min/max/sum and add equal Python ints; launches {launches}")
+    if launches["scan16"] == 0:
+        raise AssertionError("(l3) never launched scan16 (variance/std)")
+    return {"plans": out, "binary_ops": sorted(cols[DEVICE]),
+            "join_rows": want_join, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2933,6 +3430,7 @@ def main(argv=None) -> int:
     q = make_query_step_data(rng, QS_ROWS, QS_ITEMS)
     dd = make_dispatch_data(rng, d)
     sd = make_string_data(rng, d)
+    ld = make_lineitem_data(rng, DEC_ROWS)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -2950,6 +3448,8 @@ def main(argv=None) -> int:
         "remaining_ops": lambda: phase_remaining_ops(rb, d, args.seed),
         "strings": lambda: phase_strings(rb, kernels, d, sd),
         "string_ops": lambda: phase_string_ops(rb, sd, args.seed),
+        "decimal": lambda: phase_decimal(rb, kernels, ld),
+        "decimal_ops": lambda: phase_decimal_ops(rb, args.seed),
     }
     res = {}
     for name, fn in phases.items():
@@ -3019,6 +3519,7 @@ def main(argv=None) -> int:
         "query_step": res["query_step"], "wire_plan": res["wire_plan"],
         "dispatch": res["dispatch"], "remaining_ops": res["remaining_ops"],
         "strings": res["strings"], "string_ops": res["string_ops"],
+        "decimal": res["decimal"], "decimal_ops": res["decimal_ops"],
         **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

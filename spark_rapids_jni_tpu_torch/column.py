@@ -151,9 +151,26 @@ class Column:
                       None if valid.all() else torch.from_numpy(valid).to(dev),
                       torch.from_numpy(lens).to(dev))
 
+    @staticmethod
+    def from_decimal128(
+        values: Sequence[Optional[int]],
+        scale: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "Column":
+        """Build a DECIMAL128 column from Python ints (unscaled values;
+        None is null): ``(n, 2)`` int64 limbs [lo, hi] on ``device``."""
+        from .ops.int128 import from_py_ints
+
+        limbs = from_py_ints(values)
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        return Column.from_numpy(
+            limbs, None if valid.all() else valid,
+            dt.DType(dt.TypeId.DECIMAL128, scale), device)
+
     def to_pylist(self) -> list:
         """Host values with None for nulls: ``str`` for STRING columns
-        (surrogateescape), else the values of :meth:`to_numpy`."""
+        (surrogateescape), signed Python ints (the unscaled values) for
+        DECIMAL128, else the values of :meth:`to_numpy`."""
         valid = (np.ones(self.row_count, np.bool_) if self.validity is None
                  else self.validity.cpu().numpy())
         if self.dtype.is_string:
@@ -161,6 +178,11 @@ class Column:
             lens = self.lengths.cpu().numpy()
             return [bytes(mat[i, :lens[i]]).decode("utf-8", "surrogateescape")
                     if valid[i] else None for i in range(self.row_count)]
+        if self.dtype.id == dt.TypeId.DECIMAL128:
+            from .ops.int128 import to_py_ints
+
+            vals = to_py_ints(self.data)
+            return [v if ok else None for v, ok in zip(vals, valid)]
         vals = self.to_numpy().tolist()
         return [v if ok else None for v, ok in zip(vals, valid)]
 

@@ -6,9 +6,10 @@ The JAX package's FLOAT64 segment sums are cumsum differences, and
 (``ops/groupby.py`` ``_scan_sum16`` is the plain torch copy of that
 order, about 90 launches at 2^23 rows). The CUDA kernel in
 ``csrc/scan16.cu`` computes the same sums in the same order, bit for
-bit, in 3 launches at 2^23 rows: tiles of 4096 elements (three whole
-levels of the recursion) in shared memory, the tile totals scanned by
-the same two kernels recursively (design notes there).
+bit, in one launch at any length (after one memset of its flags from two
+tiles on): tiles of 4096 elements (three whole levels of the recursion)
+in shared memory, each tile taking the scan of the tile totals before it
+from totals its predecessors publish (design notes there).
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ SCAN16 = register(
     "scan16", "spark_rapids_jni_tpu_torch/csrc/scan16.cu",
     "spark_rapids_jni_tpu/ops/groupby.py:164",
 )
-TILE = 4096  # 16^3 elements a block
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -37,10 +37,10 @@ def _lib() -> ctypes.CDLL:
     if not _DECLARED:
         lib.srt_error_string.argtypes = [ctypes.c_int]
         lib.srt_error_string.restype = ctypes.c_char_p
-        lib.srt_scan16_up.argtypes = [_P, _I64, _P, _P, _I64, _P]
-        lib.srt_scan16_up.restype = ctypes.c_int
-        lib.srt_scan16_down.argtypes = [_P, _I64, _P, _P, _P, _P, _I64, _P]
-        lib.srt_scan16_down.restype = ctypes.c_int
+        lib.srt_scan16_scratch_bytes.argtypes = [_I64]
+        lib.srt_scan16_scratch_bytes.restype = _I64
+        lib.srt_scan16.argtypes = [_P, _I64, _P, _I64, _P, _P]
+        lib.srt_scan16.restype = ctypes.c_int
         _DECLARED = True
     return lib
 
@@ -53,25 +53,17 @@ def scan_sum16_plain(v: torch.Tensor, rows: Optional[int] = None):
 
 
 def _scan_cuda(v: torch.Tensor) -> torch.Tensor:
-    """The tiles' two kernels around the recursive scan of the tile
-    totals."""
+    """One launch: the flags and published totals live in a scratch
+    buffer the kernel's C entry clears (one memset) before it."""
     lib = _lib()
     n = v.shape[0]
-    tiles = -(-n // TILE)
+    size = lib.srt_scan16_scratch_bytes(n)
+    if size < 0:
+        raise ValueError(f"scan16: {n} elements are past the kernel's levels")
+    scratch = torch.empty(max(size, 8), dtype=torch.uint8, device=v.device)
     out = torch.empty_like(v)
-    st = stream_of(v)
-    if tiles == 1:
-        rc = lib.srt_scan16_down(ptr(v), n, None, None, None, ptr(out), 1, st)
-        check_status(lib, rc, "scan16_down")
-        return out
-    t2 = torch.empty(tiles * 16, dtype=v.dtype, device=v.device)
-    t3 = torch.empty(tiles, dtype=v.dtype, device=v.device)
-    check_status(lib, lib.srt_scan16_up(ptr(v), n, ptr(t2), ptr(t3), tiles,
-                                        st), "scan16_up")
-    s3 = _scan_cuda(t3)
-    rc = lib.srt_scan16_down(ptr(v), n, ptr(t2), ptr(t3), ptr(s3), ptr(out),
-                             tiles, st)
-    check_status(lib, rc, "scan16_down")
+    rc = lib.srt_scan16(ptr(v), n, ptr(scratch), size, ptr(out), stream_of(v))
+    check_status(lib, rc, "scan16")
     return out
 
 

@@ -24,7 +24,10 @@ in FLOAT32). torch computes little with uint16/32/64, so those travel as
 int64 carriers (``compute.to_carrier``): unsigned division, remainder,
 order and right shifts of the 64-bit carrier are written out here.
 STRING operands go to ``strings.binary_op`` (comparisons and ``add``,
-Spark ``||``); DECIMAL128 operands raise :class:`NotImplementedError`.
+Spark ``||``). DECIMAL128 operands (``(n, 2)`` limbs, ops/int128.py)
+take add, sub and every comparison at the finer of the two scales (an
+integer operand is scale 0); mul, div and the rest raise
+:class:`TypeError`, as in the JAX package, which has no 128-bit product.
 """
 
 from __future__ import annotations
@@ -109,9 +112,7 @@ def binary_op(op: str, a: Column, b: Column) -> Column:
 
         return strings.binary_op(op, a, b)
     if dt.TypeId.DECIMAL128 in (a.dtype.id, b.dtype.id):
-        raise NotImplementedError(
-            "DECIMAL128 binary ops are not ported yet (ROADMAP Queue 1 "
-            "item 5, ops/int128.py)")
+        return _binary_op_decimal128(op, a, b)
     valid = compute.merge_validity(a, b)
     if op in _LOGICAL_OPS:
         return _logical(op, a, b)
@@ -139,6 +140,58 @@ def binary_op(op: str, a: Column, b: Column) -> Column:
         if zero is not None:
             valid = _and_not(valid, zero)
     return compute.from_values(res, out_dtype, valid)
+
+
+def _limbs_at_scale(col: Column, to_scale: int):
+    """A column's values as (lo, hi) limbs rescaled to ``to_scale``;
+    rescaling to the finer scale multiplies, so the alignment is exact."""
+    from . import int128
+
+    if col.dtype.id == dt.TypeId.DECIMAL128:
+        lo, hi = col.data[:, 0], col.data[:, 1]
+    elif col.dtype.is_decimal or col.dtype.is_integer:
+        data = col.data
+        if data.dtype == torch.uint64:  # the JAX convert wraps it
+            data = data.view(torch.int64)
+        lo, hi = int128.from_signed_int(data)
+    else:
+        raise TypeError(
+            f"decimal128 binary ops require decimal/integer operands, "
+            f"got {col.dtype}")
+    return int128.rescale(lo, hi, col.dtype.scale, to_scale)
+
+
+def _binary_op_decimal128(op: str, a: Column, b: Column) -> Column:
+    """DECIMAL128 add, sub and comparisons over limb vectors; mul/div of
+    two 128-bit operands raise, never truncate silently."""
+    from . import int128
+
+    valid = compute.merge_validity(a, b)
+    scale = min(a.dtype.scale if a.dtype.is_decimal else 0,
+                b.dtype.scale if b.dtype.is_decimal else 0)
+    al, ah = _limbs_at_scale(a, scale)
+    bl, bh = _limbs_at_scale(b, scale)
+    if op in _CMP_OPS:
+        is_eq = int128.eq(al, ah, bl, bh)
+        is_lt = int128.lt_signed(al, ah, bl, bh)
+        out = {
+            "eq": lambda: is_eq, "ne": lambda: ~is_eq, "lt": lambda: is_lt,
+            "le": lambda: is_lt | is_eq, "gt": lambda: ~(is_lt | is_eq),
+            "ge": lambda: ~is_lt, "null_safe_eq": lambda: is_eq,
+        }[op]()
+        if op == "null_safe_eq":
+            va, vb = compute.valid_mask(a), compute.valid_mask(b)
+            return Column(torch.where(va & vb, out, ~va & ~vb), dt.BOOL8,
+                          None)
+        return Column(out, dt.BOOL8, valid)
+    if op == "add":
+        lo, hi = int128.add(al, ah, bl, bh)
+    elif op == "sub":
+        lo, hi = int128.sub(al, ah, bl, bh)
+    else:
+        raise TypeError(f"decimal128 op {op!r} not supported")
+    return Column(torch.stack([lo, hi], 1),
+                  dt.DType(dt.TypeId.DECIMAL128, scale), valid)
 
 
 def _compare(op: str, a: Column, b: Column, valid) -> Column:

@@ -13,7 +13,10 @@ are LIST columns of ``(groups, pad)`` child values with per-group
 lengths, nulls dropped, sets ascending. A group with no valid value is
 null. STRING keys group by their bytes; a STRING value takes only
 ``count`` (the JAX package's groupby refuses every aggregation of one,
-ROADMAP Queue 3). DECIMAL128 values raise :class:`NotImplementedError`.
+ROADMAP Queue 3). A DECIMAL128 value (``(n, 2)`` limbs, ops/int128.py)
+sums exactly mod 2^128 to DECIMAL128 at its scale; its mean, variance
+and std work on its float64 image; ``nunique`` and the collects refuse
+it, as in the JAX package.
 
 Sums are cumsum differences over the sorted rows, as in the JAX package:
 exact for integers even when the running sum wraps. A floating cumsum adds
@@ -40,6 +43,7 @@ from .. import dtype as dt
 from ..column import Column, Table
 from . import compute
 from . import keys as keys_mod
+from .gather import take_rows
 from .sort import lexsort
 
 _AGG_OPS = {
@@ -253,10 +257,9 @@ def _out_dtype(op: str, d: dt.DType) -> dt.DType:
 def _check_value(col: Column, op: str) -> None:
     if col.dtype.is_string and op != "count":
         raise TypeError(f"aggregation {op!r} not supported on STRING values")
-    if col.dtype.id == dt.TypeId.DECIMAL128:
-        raise NotImplementedError(
-            "DECIMAL128 aggregation is not ported yet (ops/int128 slice, "
-            "ROADMAP Queue 1, item 5)")
+    if col.dtype.id == dt.TypeId.DECIMAL128 and (
+            op in _COLLECT_OPS or op == "nunique"):
+        raise TypeError(f"{op} not supported for {col.dtype}")
     if op in _COLLECT_OPS and col.dtype.id not in _LIST_CHILD_IDS:
         raise TypeError(
             f"{op} not supported for {col.dtype} (LIST children are "
@@ -295,9 +298,10 @@ def _masked_rows(data: torch.Tensor, rows: torch.Tensor, n: int,
     """``data[rows]`` clipped to the table, as the JAX package's gather
     clips. Where the JAX wire entries padded the table (``scan_rows`` past
     ``n``), a row past the last real one is a zero padding row."""
-    out = data[_clip_rows(rows, n)]
+    out = take_rows(data, _clip_rows(rows, n))
     if scan_rows > n:
-        out = torch.where(rows >= n, torch.zeros_like(out), out)
+        past = (rows >= n).reshape(-1, *[1] * (out.dim() - 1))
+        out = torch.where(past, torch.zeros_like(out), out)
     return out
 
 
@@ -344,13 +348,16 @@ def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
     n_valid = segsum(valid.to(torch.int64), starts, ends)
     if op == "count":
         return Column(n_valid, dt.INT64, None)
-    vals = compute.values(Column(data, d))
     has = n_valid > 0
     if op in ("first", "last"):
         ranks = (torch.ones_like(n_valid) if op == "first" else n_valid)
         rows = _valid_rank_rows(valid, starts, ranks[:, None])[:, 0]
         return Column(_masked_rows(data, rows, data.shape[0], scan_rows),
                       d, has)
+    if d.id == dt.TypeId.DECIMAL128:
+        return _reduce_dec128(d, op, data, valid, seg, starts, ends, segsum,
+                              seg_clip, scan_rows, n_valid)
+    vals = compute.values(Column(data, d))
     if op == "nunique":
         _, first = _first_occurrence(d, seg, data, valid)
         return Column(segsum(first.to(torch.int64), starts, ends), dt.INT64,
@@ -415,12 +422,76 @@ def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
     return compute.from_values(ext, d, has)
 
 
+def _reduce_dec128(d: dt.DType, op: str, data, valid, seg, starts, ends,
+                   segsum, seg_clip: int, scan_rows: int, n_valid) -> Column:
+    """DECIMAL128 aggregations over row-sorted ``(n, 2)`` limbs (JAX
+    ``_aggregate_segment_dec128``). sum is exact mod 2^128: each limb
+    splits into 32-bit halves whose segment totals cannot wrap (n <
+    2^32), and the four partial sums recombine with 128-bit carries.
+    min/max take the lexicographic extreme of the order words. mean,
+    variance and std use the float64 image of the 128-bit value."""
+    from . import int128
+
+    flush = compute.flush_subnormal
+    lo, hi = data[:, 0], data[:, 1]
+    has = n_valid > 0
+    zero = torch.zeros((), dtype=torch.int64, device=data.device)
+    if op in ("sum", "mean"):
+        parts = []
+        for limb in (lo, hi):
+            parts.append(torch.where(valid, limb & 0xFFFFFFFF, zero))
+            parts.append(torch.where(valid, int128.lshr(limb, 32), zero))
+        s_ll, s_lh, s_hl, s_hh = [segsum(p, starts, ends) for p in parts]
+        nil = torch.zeros_like(s_ll)
+        out_lo, out_hi = int128.add(s_ll, nil, s_lh << 32,
+                                    int128.lshr(s_lh, 32))
+        out_lo, out_hi = int128.add(out_lo, out_hi, nil, s_hl)
+        out_lo, out_hi = int128.add(out_lo, out_hi, nil, s_hh << 32)
+        if op == "mean":
+            mean = flush(int128.to_float64(out_lo, out_hi)
+                         / n_valid.clamp(min=1).to(torch.float64))
+            mean = flush(mean * (10.0 ** d.scale))
+            return compute.from_values(mean, dt.FLOAT64, has)
+        return Column(torch.stack([out_lo, out_hi], 1), d, has)
+    if op in ("variance", "std"):
+        scale = 10.0 ** d.scale
+        image = int128.to_float64(lo, hi)
+        fvals = flush(image * scale)
+        nf = n_valid.to(torch.float64)
+        s1 = segsum(torch.where(valid, fvals, 0.0), starts, ends)
+        mean = flush(s1 / nf.clamp(min=1))
+        mean_row = mean[seg.clamp(0, seg_clip)]
+        if scan_rows >= 2:
+            # as for DECIMAL64: XLA's compiled graph recomputes the scaling
+            # in the deviation's fusion and contracts it into one fma
+            dev = flush(compute.fma(image, scale, -mean_row))
+        else:
+            dev = flush(fvals - mean_row)
+        sq = segsum(torch.where(valid, flush(dev * dev), 0.0), starts, ends)
+        var = flush(sq / (nf - 1).clamp(min=1))
+        out = compute.sqrt_rn(var) if op == "std" else var
+        return compute.from_values(out, dt.FLOAT64, n_valid > 1)
+    # min / max: the extreme of the hi word, then of the lo word among the
+    # rows that hold it; the order words as carriers (hi is its own, lo
+    # has its top bit flipped), invalid rows as the sentinel word
+    is_min = op == "min"
+    sent = torch.full((), 2**63 - 1 if is_min else -(2**63),
+                      dtype=torch.int64, device=data.device)
+    k_hi = torch.where(valid, hi, sent)
+    k_lo = torch.where(valid, lo ^ keys_mod.SIGN64, sent)
+    ext_hi = _sorted_segment_extreme(k_hi, seg, ends, is_min)
+    at_ext = k_hi == ext_hi[seg.clamp(0, ends.shape[0] - 1)]
+    ext_lo = _sorted_segment_extreme(torch.where(at_ext, k_lo, sent), seg,
+                                     ends, is_min)
+    return Column(torch.stack([ext_lo ^ keys_mod.SIGN64, ext_hi], 1), d, has)
+
+
 def _aggregate(col: Column, op: str, perm, seg, starts, ends,
                rows: int, list_capacity) -> Column:
     """One aggregation of the exact groupby; ``rows`` is the length the
     JAX package scans (see :func:`groupby_aggregate`'s ``padded``)."""
     _check_value(col, op)
-    data = col.data[perm]
+    data = take_rows(col.data, perm)
     valid = compute.valid_mask(col)[perm]
 
     def segsum(v, s, e):
@@ -559,7 +630,7 @@ def _capped_aggregate(col: Column, op: str, perm, seg, starts, ends,
     if row_valid is not None:
         valid = valid & row_valid
     valid = valid[perm]
-    data = col.data[perm]
+    data = take_rows(col.data, perm)
 
     def segsum(v, s, e):
         return _capped_segment_sum(v, s, e, n)

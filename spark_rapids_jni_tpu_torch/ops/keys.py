@@ -51,9 +51,11 @@ def column_order_keys(col: Column) -> list[torch.Tensor]:
     if d.id == dt.TypeId.LIST:
         raise TypeError("LIST columns have no order keys")
     if d.id == dt.TypeId.DECIMAL128:
-        raise NotImplementedError(
-            "DECIMAL128 order keys are not ported yet (ops/int128 slice)"
-        )
+        # (n, 2) limbs: the sign-flipped hi word then the lo word (the
+        # 128-bit instance of the signed sign-flip rule), as carriers
+        from .int128 import order_key_words
+
+        return [w ^ SIGN64 for w in order_key_words(data)]
     if d.id == dt.TypeId.FLOAT64:
         return [_float_order(data, 64)]
     if d.id == dt.TypeId.FLOAT32:

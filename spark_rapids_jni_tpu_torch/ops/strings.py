@@ -11,9 +11,11 @@ host.
 CAST follows Spark's non-ANSI contract: a string that does not parse
 gives null. STRING -> FLOAT parses through the Eisel-Lemire core and
 FLOAT -> STRING formats through Ryu (``ops/ryu.py``) with Java's
-``Double.toString`` layout. DECIMAL128 <-> STRING waits for
-``ops/int128.py`` (ROADMAP Queue 1). The rest of the JAX module's
-function library (``length`` ... ``translate``) is not ported yet.
+``Double.toString`` layout. STRING -> DECIMAL128 runs a masked Horner
+over the byte matrix in 128-bit limbs, DECIMAL128 -> STRING a long
+division into base-10^9 chunks (``ops/int128.py``). The rest of the JAX
+module's function library (``length`` ... ``translate``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -177,20 +179,12 @@ def binary_op(op: str, a: Column, b: Column) -> Column:
 # ---------------------------------------------------------------------------
 
 
-def _int128_error(direction: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{direction} casts are not ported yet (ROADMAP Queue 1, "
-        "ops/int128.py)")
-
-
 def cast(col: Column, to: dt.DType) -> Column:
     """Spark CAST between STRING and bool, the integers, the floats and
-    DECIMAL32/64 (non-ANSI: unparseable strings are null)."""
+    the decimals (non-ANSI: unparseable strings are null)."""
     if col.dtype.is_string and to.is_string:
         return col
     if col.dtype.is_string:
-        if to.id == dt.TypeId.DECIMAL128:
-            raise _int128_error("STRING -> DECIMAL128")
         if to.is_boolean:
             return _parse_bool(col)
         if to.is_integer:
@@ -201,8 +195,6 @@ def cast(col: Column, to: dt.DType) -> Column:
             return _parse_decimal(col, to)
         raise TypeError(f"cast STRING -> {to} not supported")
     if to.is_string:
-        if col.dtype.id == dt.TypeId.DECIMAL128:
-            raise _int128_error("DECIMAL128 -> STRING")
         if col.dtype.is_boolean:
             return _format_bool(col)
         if col.dtype.is_integer:
@@ -408,15 +400,12 @@ def _parse_bool(col: Column) -> Column:
     return Column(is_true, dt.BOOL8, _valid(col, is_true | is_false))
 
 
-def _parse_decimal(col: Column, to: dt.DType) -> Column:
-    """STRING -> DECIMAL32/64: the unscaled value is the integer part
-    times 10^-scale plus the first -scale fraction digits (more truncate,
-    cudf fixed_point); a positive scale drops that many integer digits
-    before they are summed. Unrepresentable values are null."""
-    p = _parse_parts(col)
+def _decimal_parts(p, k: int, drop_int: int):
+    """The kept-digit masks of STRING -> decimal, for both accumulator
+    widths: ``(int_keep, frac_keep, frac_mask, sig_int, int_mask)``. A
+    positive target scale ``drop_int`` leaves the last that many integer
+    digits out (truncation toward zero before they are summed)."""
     j, mat = p["j"], p["mat"]
-    k = max(-to.scale, 0)
-    drop_int = max(to.scale, 0)
     int_mask = (p["isdigit"] & (j >= p["start"][:, None])
                 & (j < p["dotpos"][:, None]))
     int_keep = int_mask
@@ -429,6 +418,58 @@ def _parse_decimal(col: Column, to: dt.DType) -> Column:
     nonzero = int_keep & (mat != ord("0"))
     lead = int_keep & (row_cumsum(nonzero) == 0)
     sig_int = int_keep.sum(dim=1) - lead.sum(dim=1)
+    return int_keep, frac_keep, frac_mask, sig_int, int_mask
+
+
+def _parse_decimal128(col: Column, to: dt.DType) -> Column:
+    """STRING -> DECIMAL128: a masked Horner over the byte matrix, one
+    column at a time, in (lo, hi) limbs (the running value times ten
+    plus the digit where the byte is a kept digit); missing fraction
+    places fill with one or two u64 powers of ten. Up to 38 significant
+    digits (Spark's DECIMAL(38)); more is null."""
+    from . import int128
+
+    p = _parse_parts(col)
+    mat = p["mat"]
+    k = max(-to.scale, 0)
+    int_keep, frac_keep, frac_mask, sig_int, int_mask = _decimal_parts(
+        p, k, max(to.scale, 0))
+    kept = int_keep | frac_keep
+    dig = mat.to(torch.int64) - ord("0")
+    lo = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
+    hi = torch.zeros_like(lo)
+    for c in range(p["pad"]):
+        tlo, thi = int128.mul_u64(lo, hi, 10)
+        nlo = tlo + dig[:, c]
+        nhi = thi + int128.ult(nlo, tlo).to(torch.int64)
+        lo = torch.where(kept[:, c], nlo, lo)
+        hi = torch.where(kept[:, c], nhi, hi)
+    fill = (k - frac_keep.sum(dim=1)).clamp(0, 38)
+    p10 = const(tuple(int128.carrier(10**t) for t in range(20)), torch.int64,
+                mat.device)
+    lo, hi = int128.mul_u64(lo, hi, p10[fill.clamp(max=19)])
+    lo, hi = int128.mul_u64(lo, hi, p10[(fill - 19).clamp(0, 19)])
+    ok = (_int_syntax_ok(p, int_mask, frac_mask) & (p["nes"] == 0)
+          & ((sig_int + k) <= 38))
+    nlo, nhi = int128.negate(lo, hi)
+    lo = torch.where(p["neg"], nlo, lo)
+    hi = torch.where(p["neg"], nhi, hi)
+    limbs = torch.stack([torch.where(ok, lo, 0), torch.where(ok, hi, 0)], 1)
+    return Column(limbs, to, _valid(col, ok))
+
+
+def _parse_decimal(col: Column, to: dt.DType) -> Column:
+    """STRING -> DECIMAL32/64: the unscaled value is the integer part
+    times 10^-scale plus the first -scale fraction digits (more truncate,
+    cudf fixed_point); a positive scale drops that many integer digits
+    before they are summed. Unrepresentable values are null."""
+    if to.id == dt.TypeId.DECIMAL128:
+        return _parse_decimal128(col, to)
+    p = _parse_parts(col)
+    mat = p["mat"]
+    k = max(-to.scale, 0)
+    int_keep, frac_keep, frac_mask, sig_int, int_mask = _decimal_parts(
+        p, k, max(to.scale, 0))
     int_val, _, int_over = _weighted_int(int_keep, mat)
     pos = torch.where(frac_keep, row_cumsum(frac_keep), 0)
     w = torch.where(frac_keep, _pow10(mat.device)[(k - pos).clamp(0, 18)], 0)
@@ -466,6 +507,25 @@ def _digit_matrix(mag: torch.Tensor, K: int):
     return digs, ndig
 
 
+def _digit_matrix128(lo: torch.Tensor, hi: torch.Tensor):
+    """(digits least-significant first (n, 40) int64, digit count) of a
+    128-bit magnitude in limbs: five base-10^9 chunks by long division,
+    then each chunk's nine digits (a u128 has at most 39)."""
+    from .int128 import divmod_u32_rem
+
+    chunks = []
+    for _ in range(4):
+        lo, hi, r = divmod_u32_rem(lo, hi, 10**9)
+        chunks.append(r)
+    chunks.append(lo)  # below 10^3 after four divisions
+    pows9 = _pow10(lo.device)[:9]
+    digs = torch.cat([torch.remainder(c[:, None] // pows9[None, :], 10)
+                      for c in chunks], 1)[:, :40]
+    nz = digs != 0
+    highest = 39 - nz.flip(1).to(torch.uint8).argmax(dim=1)
+    return digs, torch.where(nz.any(dim=1), highest + 1, 1)
+
+
 def _abs_u64(v: torch.Tensor):
     """(v < 0, |v| as u64 bits) of int64 values (|INT64_MIN| = 2^63)."""
     neg = v < 0
@@ -494,20 +554,31 @@ def _format_int(col: Column) -> Column:
 
 
 def _format_decimal(col: Column) -> Column:
-    """DECIMAL32/64 -> STRING at any scale: the digits with a point
+    """DECIMAL32/64/128 -> STRING at any scale: the digits with a point
     ``-scale`` digits from the right (integer part at least one digit);
     a positive scale appends that many zeros."""
     s = col.dtype.scale
     d = -s
-    if s == 0:
+    if col.dtype.id == dt.TypeId.DECIMAL128:
+        from .int128 import negate
+
+        lo, hi = col.data[:, 0], col.data[:, 1]
+        neg = hi < 0
+        nlo, nhi = negate(lo, hi)
+        digs, ndig = _digit_matrix128(torch.where(neg, nlo, lo),
+                                      torch.where(neg, nhi, hi))
+        K = 39
+    elif s == 0:
         return _format_int(col)
-    neg, mag = _abs_u64(compute.values(col).to(torch.int64))
-    K = 19
-    digs, ndig = _digit_matrix(mag, K)
+    else:
+        neg, mag = _abs_u64(compute.values(col).to(torch.int64))
+        K = 19
+        digs, ndig = _digit_matrix(mag, K)
+    dev = digs.device
     o = neg.to(torch.int64)
     if s > 0:
         lens = o + ndig + s
-        j = _cols(K + 2 + s, mag.device).to(torch.int64)
+        j = _cols(K + 2 + s, dev).to(torch.int64)
         p = j - o[:, None]
         in_digits = (p >= 0) & (p < ndig[:, None])
         idx = (ndig[:, None] - 1 - p).clamp(0, K)
@@ -516,13 +587,13 @@ def _format_decimal(col: Column) -> Column:
         out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
         return Column(out, dt.STRING, col.validity, lens.to(torch.int32))
     int_digits = (ndig - d).clamp(min=1)
-    lens = o + int_digits + 1 + d
-    j = _cols(K + 3 + max(d - K, 0), mag.device).to(torch.int64)
+    lens = o + int_digits + (1 + d if d else 0)
+    j = _cols(K + 3 + max(d - K, 0), dev).to(torch.int64)
     p = j - o[:, None]
     point_at = int_digits[:, None]
     di = torch.where(p < point_at, point_at - 1 - p + d, d - 1 - (p - point_at - 1))
     chars = torch.where(di <= K, _chars(digs, di.clamp(0, K)), ord("0"))
-    out = torch.where(p == point_at, ord("."), chars)
+    out = torch.where(p == point_at, ord("."), chars) if d else chars
     out = torch.where(neg[:, None] & (j == 0), ord("-"), out)
     out = torch.where(j < lens[:, None], out, 0).to(torch.uint8)
     return Column(out, dt.STRING, col.validity, lens.to(torch.int32))

@@ -109,10 +109,12 @@ def test_unported_casts_raise():
     from spark_rapids_jni_tpu_torch.column import Column
 
     i64 = Column(torch.zeros(3, dtype=torch.int64), dt.INT64)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_cast(i64, dt.DType(dt.TypeId.DECIMAL128, -2))
-    # STRING casts run now but DECIMAL128 <-> STRING
-    d128 = Column(torch.zeros((3, 2), dtype=torch.int64),
-                  dt.DType(dt.TypeId.DECIMAL128, -2))
-    with pytest.raises(NotImplementedError, match="int128"):
-        port_cast(d128, dt.DType(dt.TypeId.STRING))
+    # DECIMAL128 casts run now (tests/test_torch_decimal128.py); a float
+    # to DECIMAL128 raises, as in the JAX package
+    d128 = port_cast(i64, dt.DType(dt.TypeId.DECIMAL128, -2))
+    assert d128.to_pylist() == [0, 0, 0]
+    assert port_cast(d128, dt.DType(dt.TypeId.STRING)).to_pylist() == [
+        "0.00"] * 3
+    f64 = Column(torch.zeros(3, dtype=torch.int64), dt.FLOAT64)
+    with pytest.raises(TypeError, match="cannot cast"):
+        port_cast(f64, dt.DType(dt.TypeId.DECIMAL128, -2))

@@ -30,6 +30,15 @@ from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
 
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 def _wire(n: int, seed: int, key_nulls: bool = True):
     """(k INT64 ~10 % null, f FLOAT64, i INT32, d DECIMAL64), values ~20 %
     null."""
@@ -72,11 +81,13 @@ PLANS = {
 
 def _resident(mod, plan, wires, **kw):
     ids = [mod.table_upload_wire(*w, **kw) for w in wires]
-    out = mod.table_plan_resident(json.dumps(plan), ids)
-    got = tuple(mod.table_download_wire(out))
-    for t in ids + [out]:
-        mod.table_free(t)
-    return got
+    try:
+        out = mod.table_plan_resident(json.dumps(plan), ids)
+        ids.append(out)
+        return tuple(mod.table_download_wire(out))
+    finally:
+        for t in ids:
+            mod.table_free(t)
 
 
 #: the plans the kernel tier takes a route of (joins, groupbys) run with

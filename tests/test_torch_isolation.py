@@ -11,6 +11,7 @@
 
 import ast
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -28,6 +29,23 @@ from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
 from spark_rapids_jni_tpu_torch.kernels import scan16 as sc
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _live_tables() -> tuple:
+    """Live tables in the port's registry and, where another test file
+    loaded it, the JAX bridge's (this file never imports the JAX
+    package: it runs on machines without JAX)."""
+    jrb = sys.modules.get("spark_rapids_jni_tpu.runtime_bridge")
+    return (len(rb._RESIDENT),
+            None if jrb is None else jrb.resident_table_count())
+
+
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries as it found them."""
+    before = _live_tables()
+    yield
+    assert _live_tables() == before
 PORT_FILES = sorted((ROOT / "spark_rapids_jni_tpu_torch").rglob("*.py"))
 
 
@@ -373,3 +391,26 @@ def test_scan16_flushes_subnormals_on_card():
         got = sc.scan_sum16(v).view(torch.int64)
         want = sc.scan_sum16_plain(v.cpu()).view(torch.int64)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_scan16_one_pass_at_every_edge_on_card():
+    """The one-pass scan reads no tile total too early and leaves no flag
+    or ticket behind: bit for bit against its plain version at every
+    length ``chip_smoke.py`` checks, on each of 20 calls back to back on
+    one stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import SCAN16_CASE_ROWS
+
+    rng = np.random.default_rng(16)
+    for n in SCAN16_CASE_ROWS:
+        x = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
+        x[rng.random(n) < 0.05] = -0.0
+        v = torch.from_numpy(x).cuda()
+        want = sc.scan_sum16_plain(v).view(torch.int64)
+        calls = [sc.scan_sum16(v) for _ in range(20)]
+        torch.cuda.synchronize()
+        bad = [i for i, c in enumerate(calls)
+               if not torch.equal(c.view(torch.int64), want)]
+        assert not bad, f"{n} elements: calls {bad} differ"

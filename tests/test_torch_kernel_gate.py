@@ -24,6 +24,16 @@ from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.kernels import registry
 from spark_rapids_jni_tpu_torch.utils import config, metrics
 
+
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 EDGES = [1023, 1024, 1025]
 FACT_TYPES = [4, 4, 4, 3, 11]
 FROM_ROWS = {"op": "from_rows", "type_ids": FACT_TYPES, "scales": [0] * 5}
@@ -142,8 +152,9 @@ def test_on_runs_the_tier_and_off_does_not(_flags):
     for mode in ("off", "auto"):
         config.set_flag("KERNELS", mode)
         assert registry.dispatch_kernel(op, table, (), "sort_by") is None
-    assert rb.table_plan_resident(json.dumps([{"op": "to_rows"}]), [cols])
-    for t in (tid, cols):
+    rows_id = rb.table_plan_resident(json.dumps([{"op": "to_rows"}]), [cols])
+    assert rows_id
+    for t in (tid, cols, rows_id):
         rb.table_free(t)
 
 

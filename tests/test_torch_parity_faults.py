@@ -36,6 +36,16 @@ from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.ops import groupby as pgb
 from spark_rapids_jni_tpu_torch.ops import groupby_packed as pgp
 
+
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 # ROADMAP Queue 3 F1's smallest input: one group, 18 FLOAT64 values
 F1_ROWS = [
     59.63198219465419, 45.74272252693389, 56.12098844525571,

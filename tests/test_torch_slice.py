@@ -32,6 +32,15 @@ from spark_rapids_jni_tpu_torch.ops import keys
 from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
 
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 def _jax_buffers(t: JTable) -> list:
     return [
         (np.asarray(c.data),
@@ -186,12 +195,16 @@ def _jax_groupby(jt, by, aggs):
 
 
 def test_groupby_unported_agg_raises():
-    """Every aggregation runs now; DECIMAL128 values wait for ops/int128."""
+    """Every aggregation runs now, DECIMAL128 values too; nunique and the
+    collects of a DECIMAL128 raise, as in the JAX package."""
     t = interop.table_from_buffers(
         [(np.arange(10), None, None, 4, 0),
          (np.zeros((10, 2), np.uint64), None, None, 27, -2)], device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ops.groupby_aggregate(t, [0], [ops.GroupbyAgg(1, "mean")])
+    assert ops.groupby_aggregate(t, [0], [ops.GroupbyAgg(1, "mean")]
+                                 ).columns[1].to_pylist() == [0.0] * 10
+    with pytest.raises(TypeError, match="not supported"):
+        ops.groupby_aggregate(t, [0], [ops.GroupbyAgg(1, "collect_set",
+                                                      list_capacity=2)])
 
 
 @pytest.mark.parametrize("n", [1023, 1024, 1025])

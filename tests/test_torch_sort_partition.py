@@ -29,6 +29,16 @@ from spark_rapids_jni_tpu_torch.kernels import registry
 from spark_rapids_jni_tpu_torch.ops import partition
 from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
+
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 EDGES = (1023, 1024, 1025)
 
 

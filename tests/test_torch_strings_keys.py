@@ -25,6 +25,16 @@ from spark_rapids_jni_tpu_torch.column import Column, Table
 from spark_rapids_jni_tpu_torch.ops import hashing, strings
 from spark_rapids_jni_tpu_torch.utils import config as pconfig
 
+
+@pytest.fixture(autouse=True)
+def _registries_unchanged():
+    """A test leaves the resident registries of both bridges as it found
+    them: a table left behind would show in a later test's count."""
+    before = (jrb.resident_table_count(), len(rb._RESIDENT))
+    yield
+    assert (jrb.resident_table_count(), len(rb._RESIDENT)) == before
+
+
 WORDS = [b"", b"a", b"b", b"ab", b"a\x00", b"a\x00b", b"\x00", b"zz\xff",
          "Électron".encode(), "東京".encode(), b"hello world",
          b"abcdefghijklmnopq", b"abcdefgh", b"abcdefgi", b"brand #1",
@@ -90,11 +100,13 @@ PLANS = {
 
 def _resident(mod, plan, wires, **kw):
     ids = [mod.table_upload_wire(*w, **kw) for w in wires]
-    out = mod.table_plan_resident(json.dumps(plan), ids)
-    got = tuple(mod.table_download_wire(out))
-    for t in ids + [out]:
-        mod.table_free(t)
-    return got
+    try:
+        out = mod.table_plan_resident(json.dumps(plan), ids)
+        ids.append(out)
+        return tuple(mod.table_download_wire(out))
+    finally:
+        for t in ids:
+            mod.table_free(t)
 
 
 TIER = ("join_inner", "join_semi", "join_anti", "groupby")
