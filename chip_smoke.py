@@ -103,6 +103,27 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     +-2^64: joins, distinct, sum/mean/min/max/variance/std, the casts to
     and from INT64, FLOAT64, DECIMAL64 and STRING, add/sub/comparisons
     at mixed scales, against the CPU run's bytes and Python ints.
+(m) the execution services under the wire entries, over 8 batches of
+    (a)'s shape (268 MB of wire bytes each, ``ss_sold_date_sk`` shifted by
+    the batch's index so every answer differs): (m1) ``table_stream_wire``
+    with (h)'s plan at PIPELINE off, 1, 2 and 4, every 5-tuple equal to
+    ``table_plan_wire`` of its batch and to numpy, in input order; wall a
+    batch (median of 3 streams), the host time a batch of decode, plan and
+    encode with the pipeline off, the device busy share at depth off and
+    2, the pipeline counters and K1b/K2a/K1a's launches a stream; (m2)
+    SPILL on with a device budget that holds 2 of 6 resident tables and
+    a host budget of one, a resident plan over each id and the first
+    again, equal to the unspilled bytes, eviction/repage/demotion counts,
+    no spill file left, and one table's eviction and repage GB/s pinned
+    and pageable beside the PCIe link ``nvidia-smi`` reports; (m3)
+    seeded transient faults at dispatch, serde, kernel and spill over the
+    stream at depth 2 and a resident spill sequence (the same bytes; the
+    retries, kernel fallbacks and spill errors equal the injections), a
+    permanent fault surfacing typed, and an allocation past the card
+    classified ResourceExhausted, given up after RETRY_MAX, with (h)'s
+    plan exact after it; (m4) the registry's count back to its start and
+    ``table_reclaim`` returning the table's bytes as
+    ``torch.cuda.memory_allocated`` falls by them.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -3392,6 +3413,504 @@ def phase_decimal_ops(rb, seed: int) -> dict:
             "join_rows": want_join, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# (m) the execution services: the pipelined stream, spill, faults, registry
+# ---------------------------------------------------------------------------
+
+STREAM_BATCHES = 8  # (m1): 8 batches of (a)'s shape, ~2.1 GB of wire bytes
+STREAM_DEPTHS = ("off", "1", "2", "4")
+STREAM_RUNS = 3  # streams a depth; the wall per batch is their median's
+SPILL_TABLES = 6  # (m2): resident (a)-shaped tables, 2 of which fit
+SPILL_RATE_RUNS = 3
+# (m3): seeded transient faults at every site the stream and a resident
+# spill sequence pass
+STREAM_FAULTS = ("seed=12,dispatch:transient:0.05:4,serde:transient:0.25:3,"
+                 "kernel:transient:0.2:3,spill:transient:0.5:2")
+SERVICE_FLAGS = ("PIPELINE", "SPILL", "SPILL_DIR", "HOST_SPILL_BUDGET_GB",
+                 "HBM_BUDGET_GB", "FAULTS", "RETRY_BASE_MS", "METRICS")
+
+
+def clear_service_flags() -> None:
+    from spark_rapids_jni_tpu_torch import pipeline
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    pipeline.drain()
+    for name in SERVICE_FLAGS:
+        config.clear_flag(name)
+    pipeline.depth()  # PIPELINE is off: the worker pool goes
+    pipeline.drain_io()
+
+
+def stream_batch(d: dict, k: int):
+    """(a)'s fact batch as wire bytes with ``ss_sold_date_sk`` shifted by
+    ``k``: every batch's groupby-by-date answer differs."""
+    n = d["rows"].shape[0]
+    buf = bytearray(4 * (n + 1) + 32 * n)
+    np.frombuffer(buf, np.int32, n + 1)[:] = np.arange(n + 1, dtype=np.int64) * 32
+    rows = np.frombuffer(buf, np.uint8, 32 * n, 4 * (n + 1)).reshape(n, 32)
+    rows[:] = d["rows"]
+    date = rows[:, 16:24].view(np.int64)
+    date += k
+    return ([24], [5], [buf], [None], n)
+
+
+def stream_oracle(want0: np.ndarray, k: int) -> np.ndarray:
+    """(h)'s oracle rows with every date shifted by ``k``."""
+    rows = want0.copy()
+    rows[:, 0:8].view(np.int64)[:] += k
+    return rows
+
+
+def stream_launches(kernels) -> dict:
+    return {k: v.launches for k, v in kernels.KERNELS.items()}
+
+
+def phase_stream(rb, kernels, d: dict, ctx: dict) -> dict:
+    """(m1): ``table_stream_wire`` over 8 of (a)'s batches with (h)'s
+    plan at PIPELINE off, 1, 2 and 4: every 5-tuple equal to
+    ``table_plan_wire`` of its batch and to the numpy oracle, in input
+    order; wall per batch (median of 3 streams), the host time a batch
+    of decode, plan and encode with the pipeline off, the device busy
+    share, the pipeline counters and the kernels' launches a stream."""
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    ctx["start_count"] = rb.resident_table_count()
+    plan = json.dumps(WIRE_PLAN)
+    plan_ops = json.loads(plan)
+    t0 = time.perf_counter()
+    batches = [stream_batch(d, k) for k in range(STREAM_BATCHES)]
+    want0 = wire_plan_oracle(d, FACT_ROWS)
+    ref = []
+    for k, b in enumerate(batches):
+        ref.append(tuple(rb.table_plan_wire(plan, *b, device=DEVICE)))
+        check_rows(ref[-1], stream_oracle(want0, k))
+    ctx.update(batches=batches, ref=ref, want0=want0)
+    log(f"(m1) {STREAM_BATCHES} batches made and run one by one through "
+        f"table_plan_wire in {time.perf_counter() - t0:.1f} s; each equals "
+        f"its numpy oracle")
+    # the host time a batch of each stage, pipeline off
+    dev = torch.device(DEVICE)
+    split = {"decode": [], "plan": [], "encode": []}
+    for b in batches:
+        t0 = time.perf_counter()
+        tbl = rb._table_from_wire(b[0], b[1], b[2], b[3], b[4], dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = plan_mod.run_plan(plan_ops, tbl, donate_input=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rb._table_to_wire(out)
+        t3 = time.perf_counter()
+        for key, dt_s in (("decode", t1 - t0), ("plan", t2 - t1),
+                          ("encode", t3 - t2)):
+            split[key].append(dt_s * 1e3)
+        del tbl, out
+    split_ms = {k: statistics.median(v) for k, v in split.items()}
+    log(f"(m1) host ms a batch, pipeline off (median of {STREAM_BATCHES}): "
+        f"{ {k: round(v, 2) for k, v in split_ms.items()} }")
+    out = {"split_ms": split_ms, "depths": {}}
+    try:
+        config.set_flag("METRICS", True)
+        for depth in STREAM_DEPTHS:
+            config.set_flag("PIPELINE", depth)
+            walls, launches, counters = [], None, None
+            for run in range(STREAM_RUNS):
+                metrics.reset()
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                got = rb.table_stream_wire(plan, batches, device=DEVICE)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if [tuple(g) for g in got] != ref:
+                    bad = [k for k, g in enumerate(got) if tuple(g) != ref[k]]
+                    raise AssertionError(
+                        f"(m1) depth {depth}: batches {bad} differ from "
+                        "table_plan_wire (or come out of order)")
+                if run == 0:
+                    launches = stream_launches(kernels)
+                    snap = metrics.snapshot()
+                    hist = snap["histograms"]
+                    counters = {
+                        **{k: v for k, v in snap["counters"].items()
+                           if k.startswith("pipeline.")},
+                        "overlap_ms": hist.get("pipeline.overlap_ms",
+                                               {}).get("sum", 0.0),
+                        "stall_ms": hist.get("pipeline.stall_ms",
+                                             {}).get("sum", 0.0)}
+            wall = statistics.median(walls)
+            per_batch = wall / STREAM_BATCHES
+            missing = [k for k in WIRE_KERNELS if launches[k] < STREAM_BATCHES]
+            if missing:
+                raise AssertionError(
+                    f"(m1) depth {depth}: {missing} launched fewer than once "
+                    f"a batch: {launches}")
+            rec = {"wall_ms": wall, "walls_ms": walls,
+                   "ms_per_batch": per_batch, "launches": launches,
+                   "counters": counters}
+            if depth in ("off", "2"):
+                def run():
+                    rb.table_stream_wire(plan, batches, device=DEVICE)
+                    torch.cuda.synchronize()
+
+                rec["profile"] = profile_plan(run, wall, f"(m1) depth {depth}",
+                                              runs=1)
+            out["depths"][depth] = rec
+            log(f"(m1) depth {depth}: {per_batch:.2f} ms a batch (stream "
+                f"walls {[round(w, 1) for w in walls]} ms for "
+                f"{STREAM_BATCHES} batches); every 5-tuple equal to "
+                f"table_plan_wire in order; launches "
+                f"{ {k: launches[k] for k in WIRE_KERNELS} }; counters "
+                f"{counters}")
+    finally:
+        clear_service_flags()
+    out["launches"] = out["depths"]["2"]["launches"]
+    out["groups"] = want0.shape[0]
+    return out
+
+
+def link_line() -> str:
+    """The host link as ``nvidia-smi -q`` reports it: the PCIe generation
+    and link width, current and max (its words where it reads N/A)."""
+    r = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    fields, section = {}, None
+    for line in r.stdout.splitlines():
+        key, _, value = line.partition(":")
+        key = key.strip()
+        if key in ("PCIe Generation", "Link Width"):
+            section = key
+        elif section and key in ("Max", "Current", "Device Current",
+                                 "Device Max", "Host Max"):
+            fields.setdefault(f"{section} {key}", value.strip())
+        elif key and not value.strip():
+            section = None
+    return "; ".join(f"{k} {v}" for k, v in fields.items()) or "not reported"
+
+
+def phase_spill(rb, ctx: dict) -> dict:
+    """(m2): SPILL on, a device budget that holds 2 of 6 resident
+    (a)-shaped tables and a host budget of one table, so evictions reach
+    the disk tier: (h)'s plan over each id in turn, then over the first
+    again, every result equal to the unspilled run's bytes; eviction and
+    repage counters; no spill file left. Then the GB/s of one eviction
+    and one repage of a table, pinned and pageable."""
+    import os
+    import shutil
+
+    from spark_rapids_jni_tpu_torch import pipeline
+    from spark_rapids_jni_tpu_torch.utils import config, hbm, metrics, spill
+
+    batches, ref = ctx["batches"], ctx["ref"]
+    plan = json.dumps(WIRE_PLAN)
+    spill_dir = os.path.join("build", "spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    probe = rb.table_upload_wire(*batches[0], device=DEVICE)
+    nbytes = hbm.table_bytes(rb._resident_get(probe))
+    rb.table_free(probe)
+    gib = float(1 << 30)
+    budget_gb = 2.5 * nbytes / gib / (1 - hbm.RESERVE_FRACTION)
+    out = {"table_bytes": nbytes, "hbm_budget_gb": budget_gb,
+           "host_budget_gb": 1.5 * nbytes / gib}
+    ids = []
+    try:
+        config.set_flag("METRICS", True)
+        metrics.reset()
+        config.set_flag("SPILL", True)
+        config.set_flag("SPILL_DIR", spill_dir)
+        config.set_flag("HBM_BUDGET_GB", budget_gb)
+        config.set_flag("HOST_SPILL_BUDGET_GB", out["host_budget_gb"])
+        t0 = time.perf_counter()
+        ids = [rb.table_upload_wire(*batches[k], device=DEVICE)
+               for k in range(SPILL_TABLES)]
+        doc_after_puts = spill.stats_doc()
+        order = list(range(SPILL_TABLES)) + [0]
+        for k in order:
+            res = rb.table_plan_resident(plan, [ids[k]])
+            got = tuple(rb.table_download_wire(res))
+            rb.table_free(res)
+            if got != ref[k]:
+                raise AssertionError(f"(m2) table {k} differs after spill")
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        counters = {k: v for k, v in snap["counters"].items()
+                    if k.startswith("spill.")}
+        moved = {k: v for k, v in snap["bytes"].items()
+                 if k.startswith("spill.")}
+        for t in ids:
+            rb.table_free(t)
+        ids = []
+        pipeline.drain_io()
+        left = spill.spill_file_count()
+        files = os.listdir(spill_dir) if os.path.isdir(spill_dir) else []
+        if counters.get("spill.evictions", 0) < SPILL_TABLES - 2:
+            raise AssertionError(f"(m2) too few evictions: {counters}")
+        if counters.get("spill.repages", 0) < 1 or not counters.get(
+                "spill.demotions"):
+            raise AssertionError(f"(m2) no repage or no disk tier: {counters}")
+        if left or files:
+            raise AssertionError(f"(m2) spill files left: {left} {files}")
+        out.update(counters=counters, bytes=moved, sequence_s=seq_s,
+                   after_puts=doc_after_puts)
+        log(f"(m2) {SPILL_TABLES} resident tables of {nbytes} B under a "
+            f"{budget_gb:.3f} GiB budget: {len(order)} plans equal the "
+            f"unspilled bytes in {seq_s:.2f} s; counters {counters}; bytes "
+            f"{moved}; no spill file left")
+        # the rates: one table evicted and repaged, pinned and pageable
+        config.set_flag("HBM_BUDGET_GB", 0.0)
+        config.set_flag("HOST_SPILL_BUDGET_GB", 64.0)
+        rates = {}
+        for pinned in (True, False):
+            spill.PIN_HOST_TIER = pinned
+            ev, rp = [], []
+            for _ in range(SPILL_RATE_RUNS):
+                tid = rb.table_upload_wire(*batches[1], device=DEVICE)
+                ids = [tid]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                freed = spill.request_headroom(1 << 50)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rb.table_num_rows(tid)  # repages
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if freed != nbytes:
+                    raise AssertionError(f"(m2) evicted {freed} of {nbytes}")
+                res = rb.table_plan_resident(plan, [tid])
+                got = tuple(rb.table_download_wire(res))
+                rb.table_free(res)
+                rb.table_free(tid)
+                ids = []
+                if got != ref[1]:
+                    raise AssertionError("(m2) a repaged table differs")
+                ev.append(nbytes / (t1 - t0) / 1e9)
+                rp.append(nbytes / (t2 - t1) / 1e9)
+            key = "pinned" if pinned else "pageable"
+            rates[key] = {"evict_gb_s": statistics.median(ev),
+                          "repage_gb_s": statistics.median(rp),
+                          "evict_all": ev, "repage_all": rp}
+        out["rates"] = rates
+        try:
+            out["link"] = link_line()
+        except (OSError, subprocess.SubprocessError, ValueError) as e:
+            out["link"] = f"not read: {e}"
+        log(f"(m2) one table of {nbytes} B: "
+            + "; ".join(f"{k}: evict {v['evict_gb_s']:.2f} GB/s, repage "
+                        f"{v['repage_gb_s']:.2f} GB/s" for k, v in rates.items())
+            + f"; host link {out['link']}")
+    finally:
+        spill.PIN_HOST_TIER = True
+        for t in ids:
+            rb.table_free(t)
+        clear_service_flags()
+        spill.reset()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return out
+
+
+def phase_faults(rb, ctx: dict) -> dict:
+    """(m3): seeded transient faults at dispatch, serde, kernel and spill
+    over (m1)'s stream at PIPELINE 2 and a resident spill sequence: the
+    bytes equal the fault-free run, and the retries, kernel fallbacks and
+    spill errors account for every injection. Then a permanent fault
+    surfaces with its own type, and a real out-of-memory error is
+    classified ResourceExhausted, given up after RETRY_MAX, and leaves a
+    context that runs (h)'s plan to the same bytes."""
+    from spark_rapids_jni_tpu_torch.utils import config, faults, hbm, metrics
+
+    batches, ref = ctx["batches"], ctx["ref"]
+    plan = json.dumps(WIRE_PLAN)
+    out = {}
+    ids = []
+    try:
+        # every flag first: a flag change recompiles the fault plan, which
+        # restarts its decision stream
+        probe = rb.table_upload_wire(*batches[2], device=DEVICE)
+        nbytes = hbm.table_bytes(rb._resident_get(probe))
+        rb.table_free(probe)
+        config.set_flag("METRICS", True)
+        config.set_flag("RETRY_BASE_MS", "1")
+        config.set_flag("PIPELINE", "2")
+        config.set_flag("SPILL", True)
+        config.set_flag("HBM_BUDGET_GB", 1.5 * nbytes / float(1 << 30)
+                        / (1 - hbm.RESERVE_FRACTION))
+        metrics.reset()
+        config.set_flag("FAULTS", STREAM_FAULTS)
+        got = rb.table_stream_wire(plan, batches, device=DEVICE)
+        torch.cuda.synchronize()
+        if [tuple(g) for g in got] != ref:
+            raise AssertionError("(m3) the faulted stream differs")
+        # the spill site: two resident tables under a one-table budget,
+        # the plans over them enqueued on the pipeline
+        ids = [rb.table_upload_wire(*batches[k], device=DEVICE)
+               for k in (2, 3)]
+        for k, tid in zip((2, 3, 2, 3), ids * 2):
+            res = rb.table_plan_resident(plan, [tid])
+            if tuple(rb.table_download_wire(res)) != ref[k]:
+                raise AssertionError(f"(m3) resident table {k} differs")
+            rb.table_free(res)
+        for t in ids:
+            rb.table_free(t)
+        ids = []
+        stats = faults.injection_stats()
+        c = metrics.counter_values(["retry.attempts", "retry.giveups",
+                                    "kernel.fallbacks", "spill.errors",
+                                    "faults.injected"])
+        injected = {k: v["injected"] for k, v in stats.items()}
+        total = sum(injected.values())
+        if (c["retry.attempts"] + c["kernel.fallbacks"] + c["spill.errors"]
+                != total or c["faults.injected"] != total
+                or c["kernel.fallbacks"] != injected["kernel:transient"]
+                or c["retry.giveups"] or total == 0):
+            raise AssertionError(f"(m3) counters {c} do not account for the "
+                                 f"injections {stats}")
+        out["transient"] = {"stats": stats, "counters": c}
+        log(f"(m3) faulted stream and spill sequence equal the fault-free "
+            f"bytes; injections {injected}; counters {c}")
+        clear_service_flags()
+        config.set_flag("FAULTS", "dispatch:permanent:1:1")
+        try:
+            rb.table_plan_wire(plan, *batches[0], device=DEVICE)
+        except faults.PermanentError as e:
+            out["permanent"] = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("(m3) the permanent fault did not surface")
+        config.set_flag("FAULTS", "")
+        config.set_flag("METRICS", True)
+        config.set_flag("RETRY_BASE_MS", "1")
+        metrics.reset()
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+
+        def too_big():
+            return torch.empty(2 * total_mem, dtype=torch.uint8,
+                               device=DEVICE)
+
+        try:
+            faults.run_with_retry(too_big, "oom.probe")
+        except faults.ResourceExhausted as e:
+            cause = e.__cause__
+            if not isinstance(cause, torch.cuda.OutOfMemoryError):
+                raise AssertionError(f"(m3) OOM cause {cause!r}")
+            out["oom"] = {"raised": type(e).__name__,
+                          "cause": type(cause).__name__,
+                          "counters": metrics.counter_values(
+                              ["retry.attempts", "retry.giveups"])}
+        else:
+            raise AssertionError("(m3) an allocation past the card passed")
+        if out["oom"]["counters"] != {"retry.attempts": faults.retry_max(),
+                                      "retry.giveups": 1}:
+            raise AssertionError(f"(m3) OOM retries {out['oom']}")
+        after = tuple(rb.table_plan_wire(plan, *batches[0], device=DEVICE))
+        if after != ref[0]:
+            raise AssertionError("(m3) (h)'s plan differs after the OOM")
+        log(f"(m3) permanent: {out['permanent']}; real OOM: {out['oom']}; "
+            f"(h)'s plan after it gives the same bytes")
+    finally:
+        for t in ids:
+            rb.table_free(t)
+        clear_service_flags()
+    return out
+
+
+def phase_registry(rb, ctx: dict) -> dict:
+    """(m4): the registry's count is back to its start after (m1)-(m3),
+    and ``table_reclaim`` returns the table's bytes while
+    ``torch.cuda.memory_allocated`` falls by them."""
+    count = rb.resident_table_count()
+    if count != ctx["start_count"]:
+        raise AssertionError(f"(m4) {count} resident tables, "
+                             f"{ctx['start_count']} before (m)")
+    tid = rb.table_upload_wire(*ctx["batches"][0], device=DEVICE)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    nbytes = rb.table_reclaim(tid)
+    torch.cuda.synchronize()
+    drop = before - torch.cuda.memory_allocated()
+    if not 0 <= drop - nbytes < (1 << 20) or nbytes <= 0:
+        raise AssertionError(f"(m4) reclaim returned {nbytes} B, "
+                             f"memory_allocated fell {drop} B")
+    log(f"(m4) resident tables back to {count}; table_reclaim returned "
+        f"{nbytes} B and memory_allocated fell {drop} B")
+    ctx.clear()  # the 2.1 GB of batches go
+    return {"count": count, "reclaimed": nbytes, "allocated_drop": drop}
+
+
+def date_chunks(d: dict, t: int):
+    """The groupby build of (h) and (m): the date of every kept row, as
+    (C, t) lo/hi halves and valid flags (the registry's chunked hash
+    groupby's input)."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+
+    date = d["date_sk"][d["keep"]]
+    n = date.shape[0]
+    c = -(-n // t)
+
+    def chunked(x):
+        return torch.nn.functional.pad(x[0], (0, c * t - n)).reshape(c, t)
+
+    lo, hi = key_halves(date, dt.INT64)
+    ones = torch.ones((1, n), dtype=torch.int32, device=DEVICE)
+    return chunked(lo), chunked(hi), chunked(ones)
+
+
+def stream_kernel_records(d: dict, qm: dict) -> list:
+    """K1b, K2a and K1a at (m)'s shapes (one batch of the stream: (h)'s
+    plan), with the launches of (m1)'s first stream at depth 2."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch import rows
+    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
+    from spark_rapids_jni_tpu_torch.kernels import registry
+    from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    la = qm["launches"]
+    note = f"(m1), depth 2: {STREAM_BATCHES} batches a stream"
+    fact_layout = rows.compute_fixed_width_layout(
+        [dt.DType(dt.TypeId(t)) for t in FACT_TYPES])
+    src = torch.from_numpy(d["rows"]).to(dev)
+
+    def columns(fn):
+        cols, vecs, nulls = fn(src, fact_layout)
+        return [*cols, *vecs, nulls]
+
+    recs = [kernel_record(
+        rt.UNPACK, "stream", f"{src.shape[0]}x{fact_layout.row_size}B",
+        la["unpack_rows"], lambda: columns(rt.unpack_rows_columns),
+        lambda: columns(rt.unpack_rows_columns_plain),
+        transpose_bytes(fact_layout, src.shape[0]),
+        src.shape[0] * fact_layout.row_size, note=note)]
+    t = registry.GROUPBY_CHUNK_ROWS
+    glo, ghi, gval = date_chunks(d, t)
+    c, gs = glo.shape[0], 2 * t
+    gbuilt = ht.build_table(glo, ghi, gval, table_slots=gs)
+    rounds = build_rounds(glo, ghi, gval, gbuilt, gs, ht.MAX_PROBES)
+    recs.append(kernel_record(
+        ht.BUILD, "stream", f"{c}x{t} keys, {c}x{gs} slots",
+        la["build_table"],
+        lambda: ht.build_table(glo, ghi, gval, table_slots=gs),
+        lambda: ht.build_table_plain(glo, ghi, gval, table_slots=gs),
+        16 * c * t + 12 * c * gs + 8, 20 * c * t,
+        note=f"{note}; the date groupby; regime {ht.build_regime(t, gs)}, "
+             f"{rounds} probe rounds"))
+    out_layout = rows.compute_fixed_width_layout([dt.INT64] * 5)
+    g = qm["groups"]
+    col_bytes = [torch.randint(0, 256, (g, w), dtype=torch.uint8, device=dev,
+                               generator=gen)
+                 for w in out_layout.column_widths]
+    vecs = [torch.randint(0, 2, (g,), dtype=torch.uint8, device=dev,
+                          generator=gen) != 0 for _ in col_bytes]
+    recs.append(kernel_record(
+        rt.PACK, "stream", f"{g}x{out_layout.row_size}B", la["pack_rows"],
+        lambda: [rt.pack_rows_columns(col_bytes, vecs, out_layout)],
+        lambda: [rt.pack_rows_columns_plain(col_bytes, vecs, out_layout)],
+        transpose_bytes(out_layout, g), g * out_layout.row_size, note=note))
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3450,7 +3969,12 @@ def main(argv=None) -> int:
         "string_ops": lambda: phase_string_ops(rb, sd, args.seed),
         "decimal": lambda: phase_decimal(rb, kernels, ld),
         "decimal_ops": lambda: phase_decimal_ops(rb, args.seed),
+        "stream": lambda: phase_stream(rb, kernels, d, mctx),
+        "spill": lambda: phase_spill(rb, mctx),
+        "faults": lambda: phase_faults(rb, mctx),
+        "registry": lambda: phase_registry(rb, mctx),
     }
+    mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
     for name, fn in phases.items():
         try:
@@ -3502,6 +4026,12 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("string kernels")
+    if "stream" in res:
+        try:
+            recs += stream_kernel_records(d, res["stream"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("stream kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3520,6 +4050,8 @@ def main(argv=None) -> int:
         "dispatch": res["dispatch"], "remaining_ops": res["remaining_ops"],
         "strings": res["strings"], "string_ops": res["string_ops"],
         "decimal": res["decimal"], "decimal_ops": res["decimal_ops"],
+        "stream": res["stream"], "spill": res["spill"],
+        "faults": res["faults"], "registry": res["registry"],
         **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,26 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a CUDA device the array
+    is staged in pinned host memory (one host copy, which also frees the
+    caller's bytes at once) and copied with ``non_blocking=True`` on the
+    current stream: the host returns before the copy ends, and the
+    caching host allocator keeps the staging block until the copy is
+    done. On the CPU the tensor shares a writeable array's memory."""
+    arr = np.asarray(arr)
+    if torch.device(device).type != "cuda":
+        if not arr.flags.writeable:  # e.g. a view of wire bytes
+            arr = arr.copy()
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    staged = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    np.copyto(staged.numpy(), arr, casting="no")
+    out = torch.empty(arr.shape, dtype=dtype, device=device)
+    out.copy_(staged, non_blocking=True)
+    return out
+
+
 def host_to_storage(
     arr: np.ndarray, dtype: dt.DType, device: torch.device
 ) -> torch.Tensor:
@@ -46,23 +66,59 @@ def host_to_storage(
     arr = np.asarray(arr)
     if dtype.id == dt.TypeId.FLOAT64 and arr.dtype == np.float64:
         arr = arr.view(np.uint64)
-    arr = np.ascontiguousarray(arr, dtype=dtype.host_dtype)
-    if not arr.flags.writeable:  # e.g. a view of wire bytes
-        arr = arr.copy()
+    if arr.dtype != dtype.host_dtype:
+        arr = arr.astype(dtype.host_dtype)
     if arr.dtype == np.uint64 and dtype.storage_dtype == torch.int64:
         arr = arr.view(np.int64)  # FLOAT64 bits and DECIMAL128 limbs
-    return torch.from_numpy(arr).to(device)
+    return upload(arr, device)
 
 
-def storage_to_host(data: torch.Tensor, dtype: dt.DType) -> np.ndarray:
-    """Inverse of :func:`host_to_storage`: the host buffer in the JAX
-    package's storage dtype (FLOAT64 as uint64 bits)."""
-    arr = data.cpu().numpy()
+def host_storage_view(arr: np.ndarray, dtype: dt.DType) -> np.ndarray:
+    """A host copy of a storage tensor, viewed in the JAX package's
+    storage dtype (FLOAT64 as uint64 bits)."""
     if not dtype.is_fixed_width:  # STRING bytes, LIST children
         return arr
     if dtype.storage_dtype == torch.int64 and dtype.host_dtype == np.uint64:
         arr = arr.view(np.uint64)
     return arr
+
+
+def storage_to_host(data: torch.Tensor, dtype: dt.DType) -> np.ndarray:
+    """Inverse of :func:`host_to_storage`: the host buffer in the JAX
+    package's storage dtype (FLOAT64 as uint64 bits)."""
+    return host_storage_view(data.cpu().numpy(), dtype)
+
+
+def table_tensors(table) -> list:
+    """Every tensor a table holds: each column's data, validity and
+    lengths that are not None."""
+    out = []
+    for c in table.columns:
+        out += [t for t in (c.data, c.validity, c.lengths) if t is not None]
+    return out
+
+
+def download(tensors: Sequence[Optional[torch.Tensor]]) -> list:
+    """Host copies of ``tensors`` (None stays None) as numpy arrays, in
+    one pass: the CUDA ones are copied into pinned host memory with
+    ``non_blocking=True`` on the current stream, then one event recorded
+    after the last copy is synchronised, so the host waits for this
+    stream's work alone and not for other streams' kernels. CPU tensors
+    are returned as views."""
+    staged, last = [], None
+    for t in tensors:
+        if t is not None and t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            staged.append(h)
+            last = t.device
+        else:
+            staged.append(t)
+    if last is not None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(last))
+        done.synchronize()
+    return [None if h is None else h.numpy() for h in staged]
 
 
 @dataclasses.dataclass(eq=False)

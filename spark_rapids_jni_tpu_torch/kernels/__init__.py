@@ -14,8 +14,8 @@ downloaded and nothing outside the repository is used.
 Beside every kernel its module keeps a plain PyTorch version of the same
 function. A wrapper runs the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts
-its launches in a :class:`KernelInfo`, so a run can show that its path
-went through the kernels.
+its launches in a :class:`KernelInfo` (:meth:`KernelInfo.count`, under a
+lock), so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -54,8 +54,16 @@ class KernelInfo:
     replaces: str
     launches: int = 0
 
+    def count(self) -> None:
+        """Count one launch (under a lock: pipeline workers and the
+        caller's thread launch kernels at the same time, and ``+= 1`` on
+        a shared int can lose one)."""
+        with _COUNT_LOCK:
+            self.launches += 1
+
 
 KERNELS: dict = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def register(name: str, source: str, replaces: str) -> KernelInfo:
@@ -64,8 +72,9 @@ def register(name: str, source: str, replaces: str) -> KernelInfo:
 
 
 def reset_launches() -> None:
-    for info in KERNELS.values():
-        info.launches = 0
+    with _COUNT_LOCK:
+        for info in KERNELS.values():
+            info.launches = 0
 
 
 def _nvcc() -> str:

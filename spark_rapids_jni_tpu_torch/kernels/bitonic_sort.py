@@ -171,7 +171,7 @@ def _sort_cuda(info, key: torch.Tensor, payloads):
         *_payload_args(payloads, outs), stream_of(key),
     )
     check_status(lib, rc, info.name)
-    info.launches += 1
+    info.count()
     return (sorted_key, perm, *outs)
 
 
@@ -276,7 +276,7 @@ def _sort_u32_cuda(key: torch.Tensor, payloads):
         ptr(scratch), nbytes, *_payload_args(payloads, outs), stream_of(key),
     )
     check_status(lib, rc, SORT_U32.name)
-    SORT_U32.launches += 1
+    SORT_U32.count()
     return (sorted_key, *outs)
 
 

@@ -159,7 +159,7 @@ def _build_cuda(lo, hi, valid, s: int, max_probes: int):
         ptr(trow), ptr(counters), c, t, s, int(max_probes), stream_of(lo),
     )
     check_status(lib, rc, "build_table")
-    BUILD.launches += 1
+    BUILD.count()
     return slot, tlo, thi, trow, counters[0], counters[1]
 
 
@@ -249,7 +249,7 @@ def _probe_cuda(lo, hi, valid, table_lo, table_hi, table_row, max_probes):
         c, t, s, int(max_probes), stream_of(lo),
     )
     check_status(lib, rc, "probe_table")
-    PROBE.launches += 1
+    PROBE.count()
     return found, row, unresolved
 
 

@@ -181,7 +181,7 @@ def _murmur3_cuda(cols: Sequence[Column], seed: int) -> torch.Tensor:
         ctypes.c_void_p(out.data_ptr()), n, stream_of(out),
     )
     check_status(lib, rc, "murmur3_table")
-    MURMUR3.launches += 1
+    MURMUR3.count()
     return out
 
 

@@ -23,7 +23,9 @@ inner join; ``overflow``/``unresolved`` probe bounds; non-decomposable
 aggregations; float and decimal aggregation values. What does not:
 
 * the catch-all ``except Exception`` that replayed a failed runner on the
-  exact path — on CUDA a kernel that does not build or launch raises;
+  exact path — on CUDA a kernel that does not build or launch raises.
+  What replays is a fault that ``faults.inject("kernel")`` raised before
+  the runner, under an armed ``FAULTS`` plan (``kernel.fallbacks``);
 * the TPU VMEM bounds. The port's tables live in device memory; its only
   bounds keep every row and slot id inside the kernels' int32 indices
   (see the constants below).
@@ -38,7 +40,7 @@ import torch
 
 from .. import dtype as dt
 from ..column import Column, Table
-from ..utils import config, metrics
+from ..utils import config, faults, metrics
 
 #: Registered kernel entries.
 KERNEL_NAMES = frozenset(
@@ -487,9 +489,11 @@ def dispatch_kernel(
     op: dict, table: Table, rest: Sequence[Table], name: str
 ) -> Optional[Table]:
     """Run one op through the kernel tier. Returns the result Table, or
-    None when the gate is closed, no kernel applies or the runner
-    declined: the caller then runs the exact path. A kernel failure
-    raises; it is not replayed on the exact path."""
+    None when the gate is closed, no kernel applies, the runner declined
+    or an armed ``FAULTS`` plan injected a fault at the ``kernel`` site
+    (``kernel.fallbacks``): the caller then runs the exact path. A
+    failure of the kernel's own runner raises; it is not replayed on the
+    exact path."""
     mode = tier_mode()
     if mode == "off" or (mode == "auto" and not _on_cuda(table, rest)):
         return None
@@ -497,6 +501,13 @@ def dispatch_kernel(
         if spec.applicable(op, table, rest) is not None:
             metrics.counter_add("kernel.declines")
             continue
+        try:
+            # the ``kernel`` fault site: only a fault an armed FAULTS
+            # plan injects here replays on the exact path
+            faults.inject("kernel")
+        except faults.FaultError:
+            metrics.counter_add("kernel.fallbacks")
+            return None
         try:
             out = spec.runner(op, table, rest)
         except KernelDecline:

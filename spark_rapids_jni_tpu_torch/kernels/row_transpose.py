@@ -175,7 +175,7 @@ def _pack_cuda(col_bytes, validities, layout) -> torch.Tensor:
         layout.validity_bytes, stream_of(out),
     )
     check_status(lib, rc, "pack_rows")
-    PACK.launches += 1
+    PACK.count()
     return out
 
 
@@ -233,7 +233,7 @@ def _unpack_cuda(rows, layout):
         layout.row_size, layout.validity_offset, stream_of(rows),
     )
     check_status(lib, rc, "unpack_rows")
-    UNPACK.launches += 1
+    UNPACK.count()
     return cols, valid, nulls
 
 

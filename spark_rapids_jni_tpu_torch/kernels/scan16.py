@@ -81,5 +81,5 @@ def scan_sum16(v: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     v = v.contiguous()
     require_cuda(v, "v", torch.float64, (n,))
     out = _scan_cuda(v)
-    SCAN16.launches += 1
+    SCAN16.count()
     return out

@@ -24,7 +24,6 @@ empty); the port returns Spark's result there.
 
 from __future__ import annotations
 
-import math
 
 from typing import Optional, Sequence, Union
 
@@ -39,9 +38,6 @@ from .gather import gather_table
 #: The chunked inner join's smallest output budget a probe chunk (a host
 #: rule: a chunk whose padded output passes its budget splits in two).
 MIN_CHUNK_OUT_BYTES = 64 << 20
-#: The chunked inner join's output budget a probe chunk when the caller
-#: gives no ``probe_rows``: the reference's 2 GB batches.
-BATCH_OUT_BYTES = 2 << 30
 
 
 def _resolve(table: Table, c) -> int:
@@ -504,12 +500,6 @@ def full_join(left, right, on, right_on=None) -> Table:
 # ---------------------------------------------------------------------------
 
 
-def _row_bytes(table: Table) -> int:
-    """Bytes of one row: every column's element, plus a validity byte."""
-    return sum(c.data.element_size() * math.prod(c.data.shape[1:])
-               + (c.validity is not None) for c in table.columns)
-
-
 def inner_join_batched(left, right, on, right_on=None,
                        probe_rows: Optional[int] = None) -> Table:
     """The inner join in probe-side chunks (:func:`inner_join_batches`),
@@ -527,18 +517,35 @@ def inner_join_batches(left, right, on, right_on=None,
                        probe_rows: Optional[int] = None):
     """The inner join as one result table per probe chunk, in order,
     skipping chunks without matches: at no point is more than one
-    chunk's output held. A chunk has ``probe_rows`` rows (by default as
-    many as keep its output under :data:`BATCH_OUT_BYTES` at two matches
-    a row), and a chunk of more than 1,024 rows whose output, padded to a
-    power of two, passes its budget (at least
-    :data:`MIN_CHUNK_OUT_BYTES`) splits in two. Arguments are checked at
-    the call."""
+    chunk's output held. A chunk has ``probe_rows`` rows, by default the
+    device-memory plan's (``utils/hbm.py`` ``join_plan``: what fits the
+    budget beside both inputs and the build's key words); a chunk of
+    more than 1,024 rows whose output, padded to a power of two, passes
+    its budget (at least :data:`MIN_CHUNK_OUT_BYTES`) splits in two.
+    Arguments, and the warning that the inputs alone pass the budget,
+    come at the call, not at the first chunk."""
+    from ..utils import hbm
+
     right_on = right_on or on
-    out_row_bytes = _row_bytes(left) + _row_bytes(right)
     if probe_rows is None:
-        probe_rows = max(1, BATCH_OUT_BYTES // (2 * max(out_row_bytes, 1)))
+        plan = hbm.join_plan(left, right, on, right_on)
+        if not plan["fits"]:
+            # no probe size can save it; the reserve is conservative, so
+            # this warns and proceeds at the smallest chunks
+            import warnings
+
+            warnings.warn(
+                "join inputs exceed the device memory budget before any "
+                f"probe chunk ({plan['fixed_bytes']} fixed vs "
+                f"{plan['budget_bytes']} budget); expect allocator "
+                "pressure. Raise SPARK_RAPIDS_TPU_HBM_BUDGET_GB if the "
+                "device really has more.",
+                stacklevel=2,
+            )
+        probe_rows = plan["probe_rows"]
     if probe_rows <= 0:
         raise ValueError(f"probe_rows must be positive, got {probe_rows}")
+    out_row_bytes = hbm.row_bytes(left) + hbm.row_bytes(right)
     return _inner_join_batches_gen(left, right, on, right_on, probe_rows,
                                    out_row_bytes)
 

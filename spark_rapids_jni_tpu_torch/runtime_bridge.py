@@ -9,14 +9,28 @@ bytes; LIST: the child values, with the child type id in the scale
 slot).
 
 ``table_op_wire`` and ``table_plan_wire`` take one wire table and give
-back the wire 5-tuple: bytes in, bytes out. Otherwise tables stay
-resident on the device between calls: ``table_upload_wire`` returns an
-id, ``table_plan_resident`` runs a plan over ids and returns a new id,
-``table_download_wire`` serializes one, ``table_free`` drops it. Every
-entry that runs ops checks them first (``plancheck.check_plan``), before
-any upload or donation. Every op of ``DISPATCH_OPS`` runs;
-``table_op_resident`` runs one op over resident tables. The JAX package pads wire tables to a shape
-bucket; the port runs exact shapes, which gives the same logical rows.
+back the wire 5-tuple: bytes in, bytes out; ``table_stream_wire`` runs
+one plan over a list of wire tables, pipelined (``pipeline.run_stream``:
+batch N+1's decode and batch N-1's encode beside batch N's plan).
+Otherwise tables stay resident on the device between calls:
+``table_upload_wire`` returns an id, ``table_plan_resident`` and
+``table_op_resident`` run a plan or one op over ids and return a new id
+(enqueued and returned at once when ``PIPELINE`` is on),
+``table_download_wire`` serializes one, ``table_free`` drops it,
+``table_reclaim`` also frees its device memory now. Every entry that
+runs ops checks them first (``plancheck.check_plan``), before any upload
+or donation. Every op of ``DISPATCH_OPS`` runs.
+
+The execution services of the JAX package run under these entries: the
+``dispatch`` and ``serde`` fault sites with transient retry
+(``utils/faults.py``), the pipelined plane (``pipeline.py``), and the
+spill tier (``utils/spill.py``: a resident id may be a
+``SpilledTable``, repaged on access). On CUDA a wire table is staged in
+pinned host memory and copied asynchronously, and a result comes back
+through pinned buffers with one event synchronised
+(``column.upload``/``column.download``). The JAX package pads wire
+tables to a shape bucket; the port runs exact shapes, which gives the
+same logical rows.
 Where the JAX entries raise on an input Spark can send (a join with a
 0-row side, a ``concat`` of unnamed tables), the port returns Spark's
 result.
@@ -24,18 +38,21 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
-import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from . import dtype as dt
+from . import pipeline
 from .column import (
-    Column, Table, host_to_storage, resolve_device, storage_to_host,
+    Column, Table, download, host_storage_view, host_to_storage,
+    resolve_device, table_tensors, upload,
 )
+from .utils import faults, hbm, lockcheck, log, metrics, spill
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -100,27 +117,20 @@ def _wire_validity(valid: Optional[bytes], num_rows: int):
     return np.frombuffer(valid, np.uint8, num_rows).astype(np.bool_)
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:  # a view of the caller's wire bytes
-        arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
-
-
 def _column_from_wire(type_id: int, scale: int, data: Optional[bytes],
                       valid: Optional[bytes], num_rows: int,
                       device: torch.device) -> Column:
     """Decode one wire column onto ``device``."""
     v = _wire_validity(valid, num_rows)
-    vt = None if v is None else _to_device(v, device)
+    vt = None if v is None else upload(v, device)
     tid = dt.TypeId(type_id)
     if tid in (dt.TypeId.LIST, dt.TypeId.STRING):
         child = (dt.UINT8 if tid == dt.TypeId.STRING
                  else dt.DType(dt.TypeId(scale)))
         mat, lens = _padded_from_offsets(data, num_rows, child.host_dtype,
                                          tid.name)
-        return Column(_to_device(mat, device), dt.DType(tid), vt,
-                      _to_device(lens, device))
+        return Column(upload(mat, device), dt.DType(tid), vt,
+                      upload(lens, device))
     d = dt.DType(tid, scale)
     if d.id == dt.TypeId.DECIMAL128:
         arr = np.frombuffer(data, np.uint64, 2 * num_rows).reshape(num_rows, 2)
@@ -129,40 +139,58 @@ def _column_from_wire(type_id: int, scale: int, data: Optional[bytes],
     return Column(host_to_storage(arr, d, device), d, vt)
 
 
-def _column_to_wire(c: Column):
-    """(type_id, scale, data bytes, valid bytes | None)."""
-    valid = (None if c.validity is None
-             else c.validity.cpu().numpy().astype(np.uint8).tobytes())
+def _column_to_wire(c: Column, data: np.ndarray, valid, lens):
+    """(type_id, scale, data bytes, valid bytes | None) of a column whose
+    storage was copied to the host (``data``, ``valid``, ``lens``)."""
+    vb = None if valid is None else valid.astype(np.uint8).tobytes()
     if c.dtype.id in (dt.TypeId.LIST, dt.TypeId.STRING):
         scale = 0 if c.dtype.is_string else int(c.list_child_dtype.id)
-        return (
-            int(c.dtype.id), scale,
-            _padded_to_offsets(c.data.cpu().numpy(),
-                               c.lengths.cpu().numpy().astype(np.int32)),
-            valid,
-        )
-    host = storage_to_host(c.data, c.dtype)
-    return int(c.dtype.id), int(c.dtype.scale), host.tobytes(), valid
+        return (int(c.dtype.id), scale,
+                _padded_to_offsets(data, lens.astype(np.int32)), vb)
+    return (int(c.dtype.id), int(c.dtype.scale),
+            host_storage_view(data, c.dtype).tobytes(), vb)
 
 
 def _table_from_wire(type_ids, scales, datas, valids, num_rows: int,
                      device: torch.device) -> Table:
-    return Table([
-        _column_from_wire(t, s, d, v, num_rows, device)
-        for t, s, d, v in zip(type_ids, scales, datas, valids)
-    ])
+    """One wire decode: host decode per column, then the upload. A
+    decode is pure (the caller's bytes are never consumed), so the
+    ``serde`` fault site retries transient failures here freely."""
+
+    def attempt():
+        faults.inject("serde")
+        with metrics.span("wire.deserialize"):
+            return Table([
+                _column_from_wire(t, s, d, v, num_rows, device)
+                for t, s, d, v in zip(type_ids, scales, datas, valids)
+            ])
+
+    return faults.run_with_retry(attempt, "wire.in")
 
 
 def _table_to_wire(t: Table):
-    """The 5-tuple every wire entry returns."""
-    out_t, out_s, out_d, out_v = [], [], [], []
-    for c in t.columns:
-        ti, s, d, v = _column_to_wire(c)
-        out_t.append(ti)
-        out_s.append(s)
-        out_d.append(d)
-        out_v.append(v)
-    return out_t, out_s, out_d, out_v, int(t.logical_row_count)
+    """The 5-tuple every wire entry returns. Every tensor of the table
+    crosses to the host in one pass (``column.download``: pinned buffers,
+    one event). Pure reads, so the ``serde`` fault site retries here
+    too."""
+
+    def attempt():
+        faults.inject("serde")
+        with metrics.span("wire.serialize"):
+            flat = []
+            for c in t.columns:
+                flat += [c.data, c.validity, c.lengths]
+            host = download(flat)
+            out_t, out_s, out_d, out_v = [], [], [], []
+            for i, c in enumerate(t.columns):
+                ti, s, d, v = _column_to_wire(c, *host[3 * i:3 * i + 3])
+                out_t.append(ti)
+                out_s.append(s)
+                out_d.append(d)
+                out_v.append(v)
+            return out_t, out_s, out_d, out_v, int(t.logical_row_count)
+
+    return faults.run_with_retry(attempt, "wire.out")
 
 
 # ---------------------------------------------------------------------------
@@ -186,15 +214,30 @@ _JOINS = {"inner": "inner_join", "left": "left_join", "right": "right_join",
 _KERNEL_ONLY = {"to_rows": "row_pack", "from_rows": "row_unpack"}
 
 
+def _dispatch(op: dict, table: Table, rest: Sequence[Table] = ()) -> Table:
+    """Run one op as a fault boundary: the ``dispatch`` injection site is
+    armed here, transient-classified failures retry with backoff (safe:
+    nothing on this path consumes its inputs) and permanent-classified
+    errors surface unchanged (``faults.run_with_retry``)."""
+    name = op["op"]
+
+    def attempt():
+        faults.inject("dispatch")
+        return _dispatch_once(op, table, rest, name)
+
+    return faults.run_with_retry(attempt, "dispatch." + name)
+
+
 def _dispatch_once(op: dict, table: Table, rest: Sequence[Table],
                    name: str) -> Table:
     """Run one op, kernel tier first; ``join`` takes the probe side as
     ``table`` and the build side as ``rest[0]``."""
     from .kernels import registry as kernel_registry
 
-    out = kernel_registry.dispatch_kernel(op, table, rest, name)
-    if out is None:
-        out = _dispatch_impl(op, table, rest, name)
+    with metrics.span("dispatch." + name):
+        out = kernel_registry.dispatch_kernel(op, table, rest, name)
+        if out is None:
+            out = _dispatch_impl(op, table, rest, name)
     return out
 
 
@@ -320,11 +363,23 @@ def _partition(op: dict, table: Table) -> Table:
 
 # ---------------------------------------------------------------------------
 # device-resident table handles
+#
+# An id maps to a Table, a ``pipeline.Pending`` still computing one, or a
+# ``spill.SpilledTable`` (its host or disk backing). One RLock orders
+# every registry access, the pipelined readers' barrier, the spill tier's
+# evictions and the reclaims.
 # ---------------------------------------------------------------------------
 
 _RESIDENT: dict = {}
-_RESIDENT_LOCK = threading.Lock()
+_RESIDENT_LOCK = lockcheck.make_rlock("registry.resident")
 _NEXT_TABLE_ID = itertools.count(1)
+# id -> in-flight pipelined ops reading that id (pruned as they settle):
+# a donate-consume or a reclaim of an id settles these first
+_RESIDENT_READERS: dict = {}
+# id -> count of table_download_wire serializers reading that id: a
+# reclaim frees storage and waits for them; eviction skips the id
+_RESIDENT_ACTIVE_READS: dict = {}
+_RESIDENT_READS_CV = lockcheck.make_condition(_RESIDENT_LOCK)
 
 
 def _unknown_id_error(table_id, live: int) -> KeyError:
@@ -334,20 +389,73 @@ def _unknown_id_error(table_id, live: int) -> KeyError:
     )
 
 
-def _resident_get(table_id: int) -> Table:
+def _device_of(t: Table) -> Optional[torch.device]:
+    return t.columns[0].data.device if t.columns else None
+
+
+def _resident_peek(table_id: int):
+    """Registry entry of ``table_id`` without resolving a pending: a
+    Table or a ``pipeline.Pending`` still computing. A spilled entry is
+    repaged here: access promotes a cold table. Raises the labeled
+    KeyError on a miss."""
     with _RESIDENT_LOCK:
         t = _RESIDENT.get(int(table_id))
         live = len(_RESIDENT)
+        if isinstance(t, spill.SpilledTable):
+            t = spill.repage_locked(int(table_id))
     if t is None:
         raise _unknown_id_error(table_id, live)
+    spill.flush_events()
+    spill.touch(int(table_id))
     return t
 
 
-def _resident_put(t: Table) -> int:
+def _resident_get(table_id: int) -> Table:
+    """The settled Table of ``table_id``: a blocking point of the
+    pipelined plane. A pending entry is waited for here, and a worker
+    error is replayed synchronously so the op's own exception surfaces
+    (``pipeline.Pending.resolve``)."""
+    t = _resident_peek(table_id)
+    if isinstance(t, pipeline.Pending):
+        t = t.resolve()
+        with _RESIDENT_LOCK:
+            # swap the settled Table in, unless the id was freed meanwhile
+            if int(table_id) in _RESIDENT:
+                _RESIDENT[int(table_id)] = t
+        spill.note_put(int(table_id), t)
+    metrics.counter_add("resident.get")
+    return t
+
+
+def _resident_put(t) -> int:
+    """Register a Table (or a ``pipeline.Pending`` computing one) and
+    return its id; a pending entry counts as live."""
     tid = next(_NEXT_TABLE_ID)
     with _RESIDENT_LOCK:
         _RESIDENT[tid] = t
+        live = len(_RESIDENT)
+    log.log("DEBUG", "handles", "resident_put", table_id=tid, live=live)
+    metrics.counter_add("resident.put")
+    metrics.gauge_set("resident.live", live)
+    if not isinstance(t, pipeline.Pending):
+        # spill tracking, and the proactive pressure point
+        spill.note_put(tid, t)
     return tid
+
+
+def _live_storages(exclude: Sequence = ()) -> set:
+    """Storage identities of every live registry table but ``exclude``:
+    what a donation or a reclaim must not free."""
+    with _RESIDENT_LOCK:
+        others = [o for k, o in _RESIDENT.items() if k not in exclude]
+    keys = set()
+    for o in others:
+        if isinstance(o, pipeline.Pending):
+            o = o.value_nowait()
+        if o is None or isinstance(o, spill.SpilledTable):
+            continue
+        keys.update(spill.storage_key(a) for a in table_tensors(o))
+    return keys
 
 
 def table_upload_wire(
@@ -365,6 +473,136 @@ def table_upload_wire(
     )
 
 
+def _capture_inputs(table_ids: Sequence[int], donate: bool, reader=None,
+                    pin: bool = False) -> tuple:
+    """Atomically snapshot the input entries at call time (Tables or
+    Pendings) -> ``(inputs, donate_barrier)``.
+
+    The capture makes the async chain safe: a caller may ``table_free``
+    an input right after enqueueing the op that reads it, and the op
+    holds its own reference. Unknown ids raise the labeled KeyError
+    before the donated input is consumed. One lock hold covers the
+    validation, the donate-consume, the barrier snapshot and registering
+    ``reader`` (the op's own Pending) against the ids it captured, so a
+    concurrent donate-consume either sees this reader in its barrier or
+    ordered itself first. Spilled inputs repage inside the same hold.
+    ``pin=True`` pins the surviving ids against eviction (the synchronous
+    paths, where no reader Pending exists); the caller unpins them."""
+    ids = [int(t) for t in table_ids]
+    with _RESIDENT_LOCK:
+        live = len(_RESIDENT)
+        for t in ids:
+            if t not in _RESIDENT:
+                raise _unknown_id_error(t, live)
+        objs = []
+        for t in ids:
+            o = _RESIDENT[t]
+            if isinstance(o, spill.SpilledTable):
+                o = spill.repage_locked(t)
+            objs.append(o)
+        barrier = []
+        if donate:
+            _RESIDENT.pop(ids[0])
+            spill.note_free(ids[0])
+            barrier = [p for p in _RESIDENT_READERS.pop(ids[0], ())
+                       if not p.done()]
+            live = len(_RESIDENT)
+        kept = ids[1:] if donate else ids
+        if reader is not None:
+            for t in kept:
+                lst = _RESIDENT_READERS.setdefault(t, [])
+                lst[:] = [p for p in lst if not p.done()]
+                lst.append(reader)
+        if pin:
+            spill.pin_ids(kept)
+        for t in kept:
+            spill.touch(t)
+    spill.flush_events()
+    metrics.counter_add("resident.get", len(ids))
+    if donate:
+        log.log("DEBUG", "handles", "resident_take", table_id=ids[0],
+                live=live)
+        metrics.counter_add("resident.free")
+        metrics.gauge_set("resident.live", live)
+    return objs, barrier
+
+
+def _static_check(ops, table_ids: Sequence[int]) -> None:
+    """The plan check of a resident entry, before any capture, pin,
+    donation or enqueue. Schemas come from the registry by a peek: an
+    input still computing degrades the walk to its structural rules
+    instead of blocking."""
+    from . import plancheck
+
+    def settled(tid):
+        t = _resident_peek(int(tid))
+        return None if isinstance(t, pipeline.Pending) else t
+
+    head = settled(table_ids[0])
+    rest = []
+    for tid in table_ids[1:]:
+        t = settled(tid)
+        rest.append((plancheck.schema_of_table(t), t.logical_row_count)
+                    if t is not None else (None, None))
+    plancheck.check_plan(
+        ops,
+        schema=None if head is None else plancheck.schema_of_table(head),
+        rows=None if head is None else head.logical_row_count,
+        rest=rest, names=None if head is None else head.names)
+
+
+def _on_device(tables):
+    """Set the device of the first CUDA table on this thread (a pipeline
+    worker runs on the device of the tables it touches)."""
+    for t in tables:
+        dev = _device_of(t)
+        if dev is not None and dev.type == "cuda":
+            return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _run_resident(ops, inputs, donate: bool, barrier):
+    """The shared (synchronous or worker-side) body of the resident
+    entries: resolve pending inputs, settle the readers of a donated
+    input, run the plan (``plan.run_plan``; one op is a plan of one). A
+    donated input's storage that a live table shares is never freed."""
+    from . import plan as plan_mod
+
+    tables = pipeline.materialize_inputs(inputs)
+    for p in barrier:
+        p.settle_terminally()
+    with _on_device(tables):
+        return plan_mod.run_plan(
+            ops, tables[0], tables[1:], donate_input=donate,
+            protected=_live_storages() if donate else None)
+
+
+def _resident_entry(ops, table_ids: Sequence[int], donate: bool,
+                    label: str) -> int:
+    """Check, capture and run ``ops`` over resident tables; enqueued on
+    the pipeline (the id returns at once) when it is on. Donated work is
+    at-most-once once its own run starts (its input may be consumed),
+    so a worker failure of it surfaces as-is; an input's failure stays
+    replayable (``pipeline.DependencyFailed``)."""
+    _static_check(ops, table_ids)
+    cell: dict = {}
+
+    def work():
+        return _run_resident(ops, cell["inputs"], donate, cell["barrier"])
+
+    if pipeline.enabled():
+        pending = pipeline.Pending(work, label, replayable=not donate)
+        cell["inputs"], cell["barrier"] = _capture_inputs(
+            table_ids, donate, reader=pending)
+        return _resident_put(pipeline.enqueue(pending))
+    cell["inputs"], cell["barrier"] = _capture_inputs(table_ids, donate,
+                                                      pin=True)
+    try:
+        return _resident_put(work())
+    finally:
+        spill.unpin_ids(table_ids[1:] if donate else table_ids)
+
+
 def table_plan_resident(
     plan_json: str, table_ids: Sequence[int], donate: bool = False
 ) -> int:
@@ -372,19 +610,17 @@ def table_plan_resident(
     stays resident. ``table_ids[0]`` is the chain input, the other ids
     feed multi-table ops (see ``plan._take_rest``). The plan is checked
     first (``plancheck.check_plan`` on the tables' schemas);
-    ``donate=True`` then frees ``table_ids[0]`` when the plan starts, so
-    a rejected plan leaves it live."""
-    from . import plan as plan_mod
-
+    ``donate=True`` then consumes ``table_ids[0]`` (freed at once; the
+    plan may release its device memory after its first op), so a
+    rejected plan leaves it live. With ``PIPELINE`` on this enqueues and
+    returns the id; ``table_download_wire``/``table_num_rows`` are the
+    blocking points."""
     if not table_ids:
         raise ValueError("table_plan_resident needs at least one input")
     ops = json.loads(plan_json)
     if not isinstance(ops, list):
         raise TypeError("table_plan_resident: plan must be a JSON list of ops")
-    tables = _checked_inputs(ops, table_ids)
-    if donate:
-        table_free(table_ids[0])
-    return _resident_put(plan_mod.run_plan(ops, tables[0], tables[1:]))
+    return _resident_entry(ops, table_ids, donate, "plan")
 
 
 def table_op_resident(
@@ -393,33 +629,14 @@ def table_op_resident(
     """One op over resident tables; the result stays resident.
     ``table_ids[0]`` is the op's input, the others its extra tables (a
     join's build side, a concat's tail). The op is checked first
-    (``plancheck.check_plan``); ``donate=True`` then frees
-    ``table_ids[0]``, so a rejected op leaves it live."""
-    from . import plan as plan_mod
-
+    (``plancheck.check_plan``); ``donate=True`` then consumes
+    ``table_ids[0]``, so a rejected op leaves it live. Pipelined as
+    :func:`table_plan_resident`."""
     if not table_ids:
         raise ValueError("table_op_resident needs at least one input")
     op = json.loads(op_json)
-    tables = _checked_inputs([op], table_ids)
-    if donate:
-        table_free(table_ids[0])
-    rest = plan_mod._take_rest(op, tuple(tables[1:]), list(tables[1:]))
-    return _resident_put(_dispatch_once(op, tables[0], rest, op["op"]))
-
-
-def _checked_inputs(ops, table_ids: Sequence[int]) -> list:
-    """The resident tables of ``table_ids``, after the plan check on
-    their schemas."""
-    from . import plancheck
-
-    tables = [_resident_get(t) for t in table_ids]
-    plancheck.check_plan(
-        ops, schema=plancheck.schema_of_table(tables[0]),
-        rows=tables[0].logical_row_count,
-        rest=[(plancheck.schema_of_table(t), t.logical_row_count)
-              for t in tables[1:]],
-        names=tables[0].names)
-    return tables
+    name = str(op.get("op", "?")) if isinstance(op, dict) else "?"
+    return _resident_entry([op], table_ids, donate, "op." + name)
 
 
 def _check_wire_plan(ops, type_ids, scales, num_rows: int) -> None:
@@ -444,7 +661,7 @@ def table_op_wire(
     _check_wire_plan([op], type_ids, scales, num_rows)
     tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
                            resolve_device(device))
-    return _table_to_wire(_dispatch_once(op, tbl, (), op["op"]))
+    return _table_to_wire(_dispatch(op, tbl))
 
 
 def table_plan_wire(
@@ -458,8 +675,9 @@ def table_plan_wire(
 ):
     """A plan (a JSON list of ops) over one wire table: the plan is
     checked on the wire schema before the upload, runs over the uploaded
-    table (``plan.run_plan``) and comes back as the wire 5-tuple. A plan
-    has one input table, so a ``join`` in it is refused."""
+    table (``plan.run_plan``, which consumes it: nothing else holds a
+    wire table) and comes back as the wire 5-tuple. A plan has one input
+    table, so a ``join`` in it is refused."""
     from . import plan as plan_mod
 
     ops = json.loads(plan_json)
@@ -468,23 +686,191 @@ def table_plan_wire(
     _check_wire_plan(ops, type_ids, scales, num_rows)
     tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
                            resolve_device(device))
-    return _table_to_wire(plan_mod.run_plan(ops, tbl))
+    return _table_to_wire(plan_mod.run_plan(ops, tbl, donate_input=True))
+
+
+def table_stream_wire(plan_json: str, batches: Sequence,
+                      device: Union[str, torch.device] = "cuda") -> list:
+    """One plan over a stream of wire tables, from one call.
+
+    ``batches`` is a sequence of ``(type_ids, scales, datas, valids,
+    num_rows)`` wire tuples; each runs ``plan_json`` and the list that
+    comes back holds one ``table_plan_wire`` 5-tuple a batch, in input
+    order. The plan is checked on every batch's schema before any batch
+    decodes. With ``PIPELINE`` on, batch N+1's decode and batch N-1's
+    encode run on pool workers while batch N's plan runs on this thread
+    (``pipeline.run_stream``); on CUDA each worker stage runs on its own
+    stream, tied to the plan's stream by events (``pipeline.device_lane``,
+    ``mark``, ``hand_over``). With the pipeline off this is a loop of
+    ``table_plan_wire``: the same bytes and errors either way."""
+    from . import plan as plan_mod
+    from . import plancheck
+
+    ops = json.loads(plan_json)
+    if not isinstance(ops, list):
+        raise TypeError("table_stream_wire: plan must be a JSON list of ops")
+    batches = list(batches)
+    dev = resolve_device(device)
+    if not batches:
+        plancheck.check_plan(ops)
+    for b in batches:
+        _check_wire_plan(ops, b[0], b[1], b[4])
+
+    def decode(batch):
+        type_ids, scales, datas, valids, num_rows = batch
+        with pipeline.device_lane(dev, "decode"):
+            tbl = _table_from_wire(type_ids, scales, datas, valids,
+                                   int(num_rows), dev)
+            return tbl, pipeline.mark(dev)
+
+    def compute(decoded):
+        tbl, ready = decoded
+        pipeline.hand_over(ready, table_tensors(tbl), dev)
+        out = plan_mod.run_plan(ops, tbl, donate_input=True)
+        return out, pipeline.mark(dev)
+
+    def encode(computed):
+        out, ready = computed
+        with pipeline.device_lane(dev, "encode"):
+            pipeline.hand_over(ready, table_tensors(out), dev)
+            return _table_to_wire(out)
+
+    with metrics.span("stream"):
+        return pipeline.run_stream(batches, decode, compute, encode)
 
 
 def table_download_wire(table_id: int):
-    """Resident table -> the wire 5-tuple."""
-    return _table_to_wire(_resident_get(table_id))
+    """Resident table -> the wire 5-tuple: a blocking point of the
+    pipelined plane (a pending chain is waited for here and a worker
+    failure replayed, so the op's own error raises from this call).
+    Raises the labeled KeyError on an unknown or already-freed id."""
+    tid = int(table_id)
+    with _RESIDENT_LOCK:
+        t = _RESIDENT.get(tid)
+        if isinstance(t, spill.SpilledTable):
+            t = spill.repage_locked(tid)
+        live = len(_RESIDENT)
+        if t is not None:
+            _RESIDENT_ACTIVE_READS[tid] = _RESIDENT_ACTIVE_READS.get(tid, 0) + 1
+            spill.touch(tid)
+    spill.flush_events()
+    if t is None:
+        raise _unknown_id_error(tid, live)
+    try:
+        if isinstance(t, pipeline.Pending):
+            t = t.resolve()
+            with _RESIDENT_LOCK:
+                if tid in _RESIDENT:
+                    _RESIDENT[tid] = t
+        metrics.counter_add("resident.get")
+        return _table_to_wire(t)
+    finally:
+        with _RESIDENT_READS_CV:
+            n = _RESIDENT_ACTIVE_READS.get(tid, 1) - 1
+            if n > 0:
+                _RESIDENT_ACTIVE_READS[tid] = n
+            else:
+                _RESIDENT_ACTIVE_READS.pop(tid, None)
+            _RESIDENT_READS_CV.notify_all()
 
 
 def table_num_rows(table_id: int) -> int:
+    """Logical row count: the other blocking point."""
     return int(_resident_get(table_id).logical_row_count)
 
 
 def table_free(table_id: int) -> None:
-    """Release a resident id; raises the labeled KeyError on an unknown
-    or already-freed id."""
+    """Release a resident id. A pending entry is dropped without waiting
+    (the enqueued op keeps its own references and completes unobserved);
+    one that already failed logs the dropped error. Raises the labeled
+    KeyError on an unknown or already-freed id."""
     with _RESIDENT_LOCK:
         t = _RESIDENT.pop(int(table_id), None)
+        readers = _RESIDENT_READERS.pop(int(table_id), ())
         live = len(_RESIDENT)
     if t is None:
         raise _unknown_id_error(table_id, live)
+    # drops spill tracking; a spilled entry's host/disk backing goes too
+    spill.note_free(int(table_id), t)
+    if isinstance(t, pipeline.Pending):
+        if not any(not p.done() for p in readers):
+            # no consumer captured this handle: a failure must log itself
+            t.orphan()
+            if t.failed_nowait():
+                log.log("WARN", "handles", "freed_failed_pending",
+                        table_id=int(table_id), stage=t.label)
+    log.log("DEBUG", "handles", "table_free", table_id=int(table_id),
+            live=live)
+    metrics.counter_add("resident.free")
+    metrics.gauge_set("resident.live", live)
+
+
+def table_reclaim(table_id: int) -> int:
+    """Release a resident id and give its device memory back now; returns
+    the table's bytes.
+
+    ``table_free`` only drops the registry's reference. A reclaim settles
+    the id's pipelined readers first (``Pending.settle_terminally``) and
+    waits for its active wire downloads, then frees each storage of the
+    table with ``untyped_storage().resize_(0)`` after an event on the
+    device's current stream has passed, skipping any storage a live
+    table shares (an op output may alias its input). A spilled entry
+    releases its host or disk backing and is credited its device bytes.
+    The caller owns the id: no other thread may still dispatch over it.
+    Raises the labeled KeyError on an unknown or already-freed id."""
+    tid = int(table_id)
+    with _RESIDENT_LOCK:
+        t = _RESIDENT.pop(tid, None)
+        readers = _RESIDENT_READERS.pop(tid, ())
+        live = len(_RESIDENT)
+    if t is None:
+        raise _unknown_id_error(table_id, live)
+    for p in readers:
+        p.settle_terminally()
+    metrics.counter_add("resident.free")
+    metrics.gauge_set("resident.live", live)
+    if isinstance(t, spill.SpilledTable):
+        nbytes = spill.note_free(tid, t)
+        metrics.bytes_add("resident.reclaimed_bytes", nbytes)
+        return nbytes
+    spill.note_free(tid)
+    if isinstance(t, pipeline.Pending):
+        t.orphan()
+        t.wait_settled()
+        settled = t.value_nowait()
+        if settled is None:  # the producing op failed: nothing to free
+            if t.failed_nowait():
+                log.log("WARN", "handles", "reclaimed_failed_pending",
+                        table_id=tid, stage=t.label)
+            return 0
+        t = settled
+    with _RESIDENT_READS_CV:
+        while _RESIDENT_ACTIVE_READS.get(tid):
+            _RESIDENT_READS_CV.wait()
+    nbytes = int(hbm.table_bytes(t))
+    shared = _live_storages()
+    tensors = [a for a in table_tensors(t)
+               if spill.storage_key(a) not in shared]
+    dev = _device_of(t)
+    if dev is not None and dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+    for a in tensors:
+        spill.free_storage(a)
+    log.log("DEBUG", "handles", "table_reclaim", table_id=tid, live=live,
+            nbytes=nbytes)
+    metrics.bytes_add("resident.reclaimed_bytes", nbytes)
+    return nbytes
+
+
+def resident_table_count() -> int:
+    """Live resident tables (pending and spilled ones included)."""
+    with _RESIDENT_LOCK:
+        return len(_RESIDENT)
+
+
+# the spill tier works under this registry's lock
+spill.bind_registry(
+    _RESIDENT_LOCK, _RESIDENT, _RESIDENT_READERS, _RESIDENT_ACTIVE_READS
+)

@@ -8,7 +8,17 @@ taking precedence. Ported flags:
   every applicable kernel route, ``off`` never, ``auto`` (the default)
   only for tables whose tensors are on a CUDA device. Any other value
   raises :class:`ValueError`.
-* ``METRICS`` — the counters of ``utils/metrics.py``.
+* ``METRICS`` — the counters, timers, gauges and histograms of
+  ``utils/metrics.py``.
+* ``LOG_LEVEL`` / ``ALLOC_LOG_LEVEL`` — ``utils/log.py``.
+* ``PIPELINE`` — the pipelined dispatch plane (``pipeline.py``).
+* ``FAULTS``, ``RETRY_MAX``, ``RETRY_BASE_MS``, ``DEADLINE_DEFAULT_S``,
+  ``BREAKER_THRESHOLD``, ``BREAKER_PROBE_S`` — ``utils/faults.py``.
+* ``SPILL``, ``SPILL_DIR``, ``HOST_SPILL_BUDGET_GB`` —
+  ``utils/spill.py``; ``HBM_BUDGET_GB`` — ``utils/hbm.py``.
+
+Defaults and parsers are the JAX package's; an invalid value raises
+:class:`ValueError` naming the flag when it is read.
 
 Every :func:`set_flag`/:func:`clear_flag` bumps :func:`generation`, the
 key the hot-path gates cache their reading against.
@@ -34,6 +44,70 @@ def _parse_kernels(v: str) -> str:
     return got
 
 
+def _parse_nonneg_int(name: str):
+    def parse(v: str) -> int:
+        try:
+            got = int(v.strip())
+        except ValueError:
+            raise ValueError(f"{name} must be an integer, got {v!r}")
+        if got < 0:
+            raise ValueError(f"{name} must be >= 0, got {v!r}")
+        return got
+
+    return parse
+
+
+def _parse_positive_int(name: str):
+    def parse(v: str) -> int:
+        try:
+            got = int(v.strip())
+        except ValueError:
+            raise ValueError(f"{name} must be an integer, got {v!r}")
+        if got <= 0:
+            raise ValueError(f"{name} must be > 0, got {v!r}")
+        return got
+
+    return parse
+
+
+def _parse_nonneg_float(name: str):
+    def parse(v: str) -> float:
+        try:
+            got = float(v.strip())
+        except ValueError:
+            raise ValueError(f"{name} must be a float, got {v!r}")
+        if got < 0.0:
+            raise ValueError(f"{name} must be >= 0, got {v!r}")
+        return got
+
+    return parse
+
+
+def _parse_positive_float(name: str):
+    def parse(v: str) -> float:
+        try:
+            got = float(v.strip())
+        except ValueError:
+            raise ValueError(f"{name} must be a float, got {v!r}")
+        if got <= 0.0:
+            raise ValueError(f"{name} must be > 0, got {v!r}")
+        return got
+
+    return parse
+
+
+def _parse_fault_spec(v: str) -> str:
+    """Validate a FAULTS plan (``[seed=N,]site:kind:prob[:count],...``)
+    when it is read, so a typo'd plan fails loudly instead of injecting
+    nothing; the compiled form lives in ``utils/faults.py``."""
+    from . import faults
+
+    spec = v.strip()
+    if spec:
+        faults.parse_spec(spec)  # raises ValueError naming the env var
+    return spec
+
+
 @dataclasses.dataclass(frozen=True)
 class Flag:
     name: str
@@ -54,6 +128,51 @@ _FLAGS = {
         Flag("KERNELS", "auto", _parse_kernels,
              "kernel tier (kernels/registry.py): on | off | auto (the "
              "default: only for tables on a CUDA device)"),
+        Flag("LOG_LEVEL", "OFF", str.upper,
+             "log level (OFF|ERROR|WARN|INFO|DEBUG|TRACE) of every "
+             "utils/log.py channel"),
+        Flag("ALLOC_LOG_LEVEL", "OFF", str.upper,
+             "log level of the hbm/handles channels; overrides LOG_LEVEL "
+             "there when set"),
+        Flag("HBM_BUDGET_GB", 0.0, float,
+             "device memory budget in GiB for the footprint planner "
+             "(utils/hbm.py); 0 = the device's own (CUDA: its total "
+             "memory; CPU: 16)"),
+        Flag("PIPELINE", "", str,
+             "pipelined dispatch plane (pipeline.py): off (default) = "
+             "synchronous; an integer = depth (stages in flight: wire "
+             "decode/encode on worker threads and their own CUDA streams "
+             "overlapping the plan, resident ops enqueue and return ids "
+             "at once); on = depth 2"),
+        Flag("FAULTS", "", _parse_fault_spec,
+             "deterministic fault-injection plan (utils/faults.py): "
+             "'[seed=N,]site:kind:prob[:count],...'; '' (default) = off"),
+        Flag("SPILL", False, _as_bool,
+             "tiered memory (utils/spill.py): resident tables move "
+             "device -> host -> disk under memory pressure and repage on "
+             "access; off by default"),
+        Flag("SPILL_DIR", "", str,
+             "directory of disk-tier spill files; '' = a per-process "
+             "directory under the system temp dir"),
+        Flag("HOST_SPILL_BUDGET_GB", 4.0,
+             _parse_nonneg_float("HOST_SPILL_BUDGET_GB"),
+             "host-memory spill tier budget in GiB; past it the coldest "
+             "host entries go to disk; 0 = straight to disk"),
+        Flag("RETRY_MAX", 3, _parse_nonneg_int("RETRY_MAX"),
+             "max retries of a transient-classified failure at one "
+             "dispatch/serde boundary; 0 disables retry"),
+        Flag("RETRY_BASE_MS", 25.0, _parse_positive_float("RETRY_BASE_MS"),
+             "base backoff of a retry in ms; attempt N sleeps about "
+             "base*2^(N-1) with deterministic jitter"),
+        Flag("DEADLINE_DEFAULT_S", 0.0,
+             _parse_nonneg_float("DEADLINE_DEFAULT_S"),
+             "default request deadline in seconds; 0 = none"),
+        Flag("BREAKER_THRESHOLD", 5, _parse_positive_int("BREAKER_THRESHOLD"),
+             "circuit breaker: consecutive transient failures before it "
+             "opens"),
+        Flag("BREAKER_PROBE_S", 1.0, _parse_positive_float("BREAKER_PROBE_S"),
+             "circuit breaker: seconds an open breaker waits before one "
+             "half-open probe"),
     ]
 }
 
@@ -74,6 +193,17 @@ def get_flag(name: str):
     if raw is None:
         return flag.default
     return flag.parse(raw)
+
+
+def flag_is_set(name: str) -> bool:
+    """True when the flag has an explicit value (override or env), as
+    opposed to its declared default."""
+    return name in _overrides or _FLAGS[name].env_var in os.environ
+
+
+def flag_default(name: str):
+    """Declared default of a flag."""
+    return _FLAGS[name].default
 
 
 def set_flag(name: str, value) -> None:

@@ -190,6 +190,9 @@ def test_counters_tick_only_with_metrics_on(_flags):
                                    "never"]) == {
         "kernel.launches": 2, "kernel.declines": 1, "never": 0}
     metrics.reset()
-    assert metrics.snapshot() == {"counters": {}}
+    snap = metrics.snapshot()
+    assert set(snap) == {"counters", "bytes", "timers", "gauges",
+                         "histograms", "span_self"}
+    assert all(table == {} for table in snap.values())
     with pytest.raises(KeyError):
         config.set_flag("NOPE", 1)
