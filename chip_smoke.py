@@ -114,11 +114,13 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     SPILL on with a device budget that holds 2 of 6 resident tables and
     a host budget of one, a resident plan over each id and the first
     again, equal to the unspilled bytes, eviction/repage/demotion counts,
-    no spill file left, and one table's eviction and repage GB/s pinned
-    and pageable beside the PCIe link ``nvidia-smi`` reports; (m3)
+    no spill file left, and one table's eviction and repage GB/s (pinned,
+    through the spill tier; pageable, direct copies of the same tensors)
+    beside the PCIe link ``nvidia-smi`` reports; (m3)
     seeded transient faults at dispatch, serde, kernel and spill over the
     stream at depth 2 and a resident spill sequence (the same bytes; the
-    retries, kernel fallbacks and spill errors equal the injections), a
+    retries, the kernel site's retries of the same kernel and the spill
+    errors equal the injections, and nothing fell back), a
     permanent fault surfacing typed, and an allocation past the card
     classified ResourceExhausted, given up after RETRY_MAX, with (h)'s
     plan exact after it; (m4) the registry's count back to its start and
@@ -3595,11 +3597,13 @@ def phase_spill(rb, ctx: dict) -> dict:
     the disk tier: (h)'s plan over each id in turn, then over the first
     again, every result equal to the unspilled run's bytes; eviction and
     repage counters; no spill file left. Then the GB/s of one eviction
-    and one repage of a table, pinned and pageable."""
+    and one repage of a table through the spill tier (pinned), and of
+    direct pageable copies of the same table's tensors."""
     import os
     import shutil
 
     from spark_rapids_jni_tpu_torch import pipeline
+    from spark_rapids_jni_tpu_torch.column import table_tensors
     from spark_rapids_jni_tpu_torch.utils import config, hbm, metrics, spill
 
     batches, ref = ctx["batches"], ctx["ref"]
@@ -3658,39 +3662,53 @@ def phase_spill(rb, ctx: dict) -> dict:
             f"{budget_gb:.3f} GiB budget: {len(order)} plans equal the "
             f"unspilled bytes in {seq_s:.2f} s; counters {counters}; bytes "
             f"{moved}; no spill file left")
-        # the rates: one table evicted and repaged, pinned and pageable
+        # the rates: one table evicted and repaged through the spill tier
+        # (pinned host memory), and the same table's tensors copied
+        # straight into pageable host memory and back
         config.set_flag("HBM_BUDGET_GB", 0.0)
         config.set_flag("HOST_SPILL_BUDGET_GB", 64.0)
-        rates = {}
-        for pinned in (True, False):
-            spill.PIN_HOST_TIER = pinned
-            ev, rp = [], []
-            for _ in range(SPILL_RATE_RUNS):
-                tid = rb.table_upload_wire(*batches[1], device=DEVICE)
-                ids = [tid]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                freed = spill.request_headroom(1 << 50)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                rb.table_num_rows(tid)  # repages
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                if freed != nbytes:
-                    raise AssertionError(f"(m2) evicted {freed} of {nbytes}")
-                res = rb.table_plan_resident(plan, [tid])
-                got = tuple(rb.table_download_wire(res))
-                rb.table_free(res)
-                rb.table_free(tid)
-                ids = []
-                if got != ref[1]:
-                    raise AssertionError("(m2) a repaged table differs")
-                ev.append(nbytes / (t1 - t0) / 1e9)
-                rp.append(nbytes / (t2 - t1) / 1e9)
-            key = "pinned" if pinned else "pageable"
-            rates[key] = {"evict_gb_s": statistics.median(ev),
-                          "repage_gb_s": statistics.median(rp),
-                          "evict_all": ev, "repage_all": rp}
+        runs = {"pinned": ([], []), "pageable": ([], [])}
+        for _ in range(SPILL_RATE_RUNS):
+            tid = rb.table_upload_wire(*batches[1], device=DEVICE)
+            ids = [tid]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            freed = spill.request_headroom(1 << 50)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rb.table_num_rows(tid)  # repages
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if freed != nbytes:
+                raise AssertionError(f"(m2) evicted {freed} of {nbytes}")
+            runs["pinned"][0].append(nbytes / (t1 - t0) / 1e9)
+            runs["pinned"][1].append(nbytes / (t2 - t1) / 1e9)
+            dev = [x for x in table_tensors(rb._resident_get(tid))
+                   if x is not None]
+            moved_b = sum(x.numel() * x.element_size() for x in dev)
+            t0 = time.perf_counter()
+            host = [torch.empty(x.shape, dtype=x.dtype).copy_(x)
+                    for x in dev]
+            t1 = time.perf_counter()
+            back = [h.to(DEVICE) for h in host]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if not all(torch.equal(a, b) for a, b in zip(dev, back)):
+                raise AssertionError("(m2) a pageable round trip differs")
+            runs["pageable"][0].append(moved_b / (t1 - t0) / 1e9)
+            runs["pageable"][1].append(moved_b / (t2 - t1) / 1e9)
+            del dev, host, back
+            res = rb.table_plan_resident(plan, [tid])
+            got = tuple(rb.table_download_wire(res))
+            rb.table_free(res)
+            rb.table_free(tid)
+            ids = []
+            if got != ref[1]:
+                raise AssertionError("(m2) a repaged table differs")
+        rates = {key: {"evict_gb_s": statistics.median(ev),
+                       "repage_gb_s": statistics.median(rp),
+                       "evict_all": ev, "repage_all": rp}
+                 for key, (ev, rp) in runs.items()}
         out["rates"] = rates
         try:
             out["link"] = link_line()
@@ -3701,7 +3719,6 @@ def phase_spill(rb, ctx: dict) -> dict:
                         f"{v['repage_gb_s']:.2f} GB/s" for k, v in rates.items())
             + f"; host link {out['link']}")
     finally:
-        spill.PIN_HOST_TIER = True
         for t in ids:
             rb.table_free(t)
         clear_service_flags()
@@ -3713,8 +3730,8 @@ def phase_spill(rb, ctx: dict) -> dict:
 def phase_faults(rb, ctx: dict) -> dict:
     """(m3): seeded transient faults at dispatch, serde, kernel and spill
     over (m1)'s stream at PIPELINE 2 and a resident spill sequence: the
-    bytes equal the fault-free run, and the retries, kernel fallbacks and
-    spill errors account for every injection. Then a permanent fault
+    bytes equal the fault-free run, and the retries (the kernel site's
+    retry the same kernel) and spill errors account for every injection. Then a permanent fault
     surfaces with its own type, and a real out-of-memory error is
     classified ResourceExhausted, given up after RETRY_MAX, and leaves a
     context that runs (h)'s plan to the same bytes."""
@@ -3756,14 +3773,15 @@ def phase_faults(rb, ctx: dict) -> dict:
         ids = []
         stats = faults.injection_stats()
         c = metrics.counter_values(["retry.attempts", "retry.giveups",
-                                    "kernel.fallbacks", "spill.errors",
-                                    "faults.injected"])
+                                    "kernel.retries", "kernel.fallbacks",
+                                    "spill.errors", "faults.injected"])
         injected = {k: v["injected"] for k, v in stats.items()}
         total = sum(injected.values())
-        if (c["retry.attempts"] + c["kernel.fallbacks"] + c["spill.errors"]
+        if (c["retry.attempts"] + c["kernel.retries"] + c["spill.errors"]
                 != total or c["faults.injected"] != total
-                or c["kernel.fallbacks"] != injected["kernel:transient"]
-                or c["retry.giveups"] or total == 0):
+                or c["kernel.retries"] != injected["kernel:transient"]
+                or c["kernel.fallbacks"] or c["retry.giveups"]
+                or total == 0):
             raise AssertionError(f"(m3) counters {c} do not account for the "
                                  f"injections {stats}")
         out["transient"] = {"stats": stats, "counters": c}

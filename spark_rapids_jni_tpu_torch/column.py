@@ -98,13 +98,13 @@ def table_tensors(table) -> list:
     return out
 
 
-def download(tensors: Sequence[Optional[torch.Tensor]]) -> list:
-    """Host copies of ``tensors`` (None stays None) as numpy arrays, in
+def download_tensors(tensors: Sequence[Optional[torch.Tensor]]) -> list:
+    """Host copies of ``tensors`` (None stays None) as CPU tensors, in
     one pass: the CUDA ones are copied into pinned host memory with
     ``non_blocking=True`` on the current stream, then one event recorded
     after the last copy is synchronised, so the host waits for this
     stream's work alone and not for other streams' kernels. CPU tensors
-    are returned as views."""
+    are returned as they are."""
     staged, last = [], None
     for t in tensors:
         if t is not None and t.is_cuda:
@@ -118,7 +118,13 @@ def download(tensors: Sequence[Optional[torch.Tensor]]) -> list:
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(last))
         done.synchronize()
-    return [None if h is None else h.numpy() for h in staged]
+    return staged
+
+
+def download(tensors: Sequence[Optional[torch.Tensor]]) -> list:
+    """:func:`download_tensors` as numpy arrays (CPU tensors as views)."""
+    return [None if h is None else h.numpy()
+            for h in download_tensors(tensors)]
 
 
 @dataclasses.dataclass(eq=False)

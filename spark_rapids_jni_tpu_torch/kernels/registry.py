@@ -22,10 +22,11 @@ column, nullable, string or DECIMAL128 keys; duplicate build keys of an
 inner join; ``overflow``/``unresolved`` probe bounds; non-decomposable
 aggregations; float and decimal aggregation values. What does not:
 
-* the catch-all ``except Exception`` that replayed a failed runner on the
-  exact path — on CUDA a kernel that does not build or launch raises.
-  What replays is a fault that ``faults.inject("kernel")`` raised before
-  the runner, under an armed ``FAULTS`` plan (``kernel.fallbacks``);
+* the replay on the exact path. A kernel that does not build or launch
+  raises. A fault that an armed ``FAULTS`` plan injects at the ``kernel``
+  site (``faults.inject("kernel")``, before the runner) is a transient
+  that retries the same runner once (``kernel.retries``), so the exact
+  path never stands in for a kernel;
 * the TPU VMEM bounds. The port's tables live in device memory; its only
   bounds keep every row and slot id inside the kernels' int32 indices
   (see the constants below).
@@ -489,11 +490,11 @@ def dispatch_kernel(
     op: dict, table: Table, rest: Sequence[Table], name: str
 ) -> Optional[Table]:
     """Run one op through the kernel tier. Returns the result Table, or
-    None when the gate is closed, no kernel applies, the runner declined
-    or an armed ``FAULTS`` plan injected a fault at the ``kernel`` site
-    (``kernel.fallbacks``): the caller then runs the exact path. A
-    failure of the kernel's own runner raises; it is not replayed on the
-    exact path."""
+    None when the gate is closed, no kernel applies or the runner
+    declined: the caller then runs the exact path. A fault that an armed
+    ``FAULTS`` plan injects at the ``kernel`` site retries the same
+    runner (``kernel.retries``); a failure of the runner itself raises.
+    Neither is replayed on the exact path."""
     mode = tier_mode()
     if mode == "off" or (mode == "auto" and not _on_cuda(table, rest)):
         return None
@@ -502,12 +503,11 @@ def dispatch_kernel(
             metrics.counter_add("kernel.declines")
             continue
         try:
-            # the ``kernel`` fault site: only a fault an armed FAULTS
-            # plan injects here replays on the exact path
+            # the ``kernel`` fault site: an injected fault fires before
+            # the launch, so the retry is the same runner's first launch
             faults.inject("kernel")
         except faults.FaultError:
-            metrics.counter_add("kernel.fallbacks")
-            return None
+            metrics.counter_add("kernel.retries")
         try:
             out = spec.runner(op, table, rest)
         except KernelDecline:

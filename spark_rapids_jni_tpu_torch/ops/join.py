@@ -24,7 +24,6 @@ empty); the port returns Spark's result there.
 
 from __future__ import annotations
 
-
 from typing import Optional, Sequence, Union
 
 import torch

@@ -67,7 +67,8 @@ def _run_chunked(op: dict, table: Table, rest: list) -> Table:
 
 
 def _run_op_tolerant(op: dict, table: Table, rest: list) -> Table:
-    """One op under the fault ladder:
+    """One op under the fault ladder, ``faults.run_with_retry`` with the
+    plan's own steps in its ``on_error`` hook:
 
     * an input that a failed run already consumed is at-most-once: its
       error surfaces as-is;
@@ -75,53 +76,45 @@ def _run_op_tolerant(op: dict, table: Table, rest: list) -> Table:
       tier for headroom (``spill.request_headroom`` of twice the input's
       bytes: the coldest resident tables move to host or disk) and
       retries the same op; when nothing could spill, a row-local op runs
-      in half-batch chunks;
+      in half-batch chunks, and if that fails too the first error
+      surfaces;
     * a transient-classified failure retries with backoff up to
       ``RETRY_MAX`` (an injected fault fires before the launch, so its
-      retry is always safe); at the limit a raw error surfaces as its
-      typed class (``retry.giveups``), as ``faults.run_with_retry`` does;
+      retry is always safe); at the limit ``retry.giveups``;
     * anything else propagates unchanged.
     """
     from . import runtime_bridge
 
     name = op["op"]
-    attempt = 0
     spill_tried = False
-    while True:
-        faults.check_cancel()
-        try:
-            faults.inject("dispatch")
-            return runtime_bridge._dispatch_once(op, table, rest, name)
-        except (faults.Cancelled, faults.DeadlineExceeded):
-            raise
-        except Exception as e:
-            if _input_consumed(table):
-                raise
-            cls = faults.classify(e)
-            if cls is faults.ResourceExhausted and not spill_tried:
-                spill_tried = True
-                freed = spill.request_headroom(
-                    2 * hbm.table_bytes(table), reason="oom")
-                if freed:
-                    metrics.counter_add("plan.oom_spill_retries")
-                    continue
-            if cls is faults.ResourceExhausted and name in _ROW_LOCAL:
-                try:
-                    return _run_chunked(op, table, rest)
-                except Exception:
-                    raise e  # the op's own typed error owns it from here
-            if not faults.retryable_class(cls):
-                raise
-            if attempt >= faults.retry_max():
-                metrics.counter_add("retry.giveups")
-                if isinstance(e, faults.FaultError):
-                    raise
-                raise cls(
-                    f"plan.op {name}: retries exhausted after {attempt} "
-                    f"attempt(s): {type(e).__name__}: {str(e)[:200]}"
-                ) from e
-            attempt += 1
-            faults.sleep_backoff(attempt, "plan.op", error=e)
+    chunk_oom = []  # the failure that sent the op to half-batch chunks
+
+    def run() -> Table:
+        if chunk_oom:
+            return _run_chunked(op, table, rest)
+        faults.inject("dispatch")
+        return runtime_bridge._dispatch_once(op, table, rest, name)
+
+    def on_error(e: Exception, cls: type) -> bool:
+        nonlocal spill_tried
+        if chunk_oom:
+            raise chunk_oom[0]  # the op's own typed error owns it from here
+        if _input_consumed(table):
+            raise e
+        if cls is not faults.ResourceExhausted:
+            return False
+        if not spill_tried:
+            spill_tried = True
+            if spill.request_headroom(2 * hbm.table_bytes(table),
+                                      reason="oom"):
+                metrics.counter_add("plan.oom_spill_retries")
+                return True
+        if name in _ROW_LOCAL:
+            chunk_oom.append(e)
+            return True
+        return False
+
+    return faults.run_with_retry(run, f"plan.op {name}", on_error=on_error)
 
 
 def _release_consumed(inp: Table, out: Table, protected: set) -> int:

@@ -424,11 +424,17 @@ def sleep_backoff(attempt: int, label: str, error=None) -> float:
     return ms
 
 
-def run_with_retry(fn: Callable[[], object], label: str):
+def run_with_retry(
+    fn: Callable[[], object], label: str,
+    on_error: Optional[Callable[[Exception, type], bool]] = None,
+):
     """Run ``fn`` with transient-retry semantics at one boundary:
 
     * Cancelled / DeadlineExceeded / Degraded pass straight through
       (a cancelled request must stop, not persist).
+    * ``on_error(e, cls)``, when given, sees every other failure with its
+      class first: it may raise, return True to run ``fn`` again at once
+      (no backoff, no attempt counted) or False to go on as below.
     * PermanentError-classified raw exceptions surface UNCHANGED —
       genuine op errors (ValueError, KeyError, ...) keep their exact
       type and message (tests pin them).
@@ -436,9 +442,9 @@ def run_with_retry(fn: Callable[[], object], label: str):
       backoff; exhaustion raises the typed class chained to the last
       raw error (``retry.giveups``).
 
-    Callers whose ``fn`` consumes its input (donation) must NOT route
-    through here — at-most-once is their invariant (plan.run_plan gates
-    on ``_input_consumed`` before retrying)."""
+    Callers whose ``fn`` consumes its input (donation) must NOT retry
+    it: at-most-once is their invariant (``plan.run_plan``'s
+    ``on_error`` re-raises once ``_input_consumed``)."""
     attempt = 0
     while True:
         check_cancel()
@@ -448,6 +454,8 @@ def run_with_retry(fn: Callable[[], object], label: str):
             raise
         except Exception as e:
             cls = classify(e)
+            if on_error is not None and on_error(e, cls):
+                continue
             if not retryable_class(cls):
                 raise
             if attempt >= retry_max():

@@ -17,8 +17,8 @@
   tables' bytes, not ``torch.cuda.mem_get_info``: the caching allocator
   keeps freed blocks reserved, so free device memory says little.
 * On CUDA an eviction copies device -> host into pinned memory
-  (:data:`PIN_HOST_TIER`) with ``non_blocking=True``, synchronises one
-  event, and frees the table's storages at once
+  (``column.download_tensors``: ``non_blocking=True``, one event
+  synchronised), and frees the table's storages at once
   (``untyped_storage().resize_(0)``); a repage uploads on the caller's
   current stream.
 * The host tier is bounded by ``HOST_SPILL_BUDGET_GB``; past it the
@@ -48,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..column import table_tensors
+from ..column import download_tensors, table_tensors
 from . import config, faults, hbm, lockcheck, log, metrics
 
 GIB = 1 << 30
@@ -56,12 +56,6 @@ GIB = 1 << 30
 DEVICE = "device"
 HOST = "host"
 DISK = "disk"
-
-#: Evict CUDA tables into pinned host memory: the copy then runs at the
-#: link's DMA rate, and a repage from the host tier is an asynchronous
-#: copy. False keeps pageable buffers (``chip_smoke.py`` (m2) measures
-#: both).
-PIN_HOST_TIER = True
 
 # ---------------------------------------------------------------------------
 # flag gate (disabled costs one generation compare)
@@ -235,26 +229,12 @@ def free_storage(t: torch.Tensor) -> None:
 
 
 def _host_copies(tensors: list) -> list:
-    """Host copies of device tensors: on CUDA into pinned (or pageable,
-    by :data:`PIN_HOST_TIER`) CPU tensors, all copies queued on the
-    current stream and one event synchronised after the last; on the CPU
-    a fresh copy (the original is about to be dropped)."""
-    out, last = [], None
-    for t in tensors:
-        if t is None:
-            out.append(None)
-        elif t.is_cuda:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=PIN_HOST_TIER)
-            h.copy_(t, non_blocking=PIN_HOST_TIER)
-            out.append(h)
-            last = t.device
-        else:
-            out.append(t.clone())
-    if last is not None:
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(last))
-        done.synchronize()
-    return out
+    """Host copies of a table's tensors: the CUDA ones through
+    ``column.download_tensors`` (pinned, so the copy runs at the link's
+    DMA rate and a repage is an asynchronous copy); a CPU tensor is
+    cloned, as the original is about to be dropped."""
+    return [h.clone() if h is t and t is not None else h
+            for t, h in zip(tensors, download_tensors(tensors))]
 
 
 def _nbytes(a) -> int:

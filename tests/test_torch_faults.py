@@ -540,12 +540,18 @@ def test_transient_faults_same_bytes_stats_and_counters(site, n):
     assert got_j == clean and got_p == clean
     stats = faults.injection_stats()
     assert stats == jfaults.injection_stats()
-    keys = ["retry.attempts", "retry.giveups", "faults.injected",
-            "kernel.fallbacks", "kernel.launches"]
+    keys = ["retry.attempts", "retry.giveups", "faults.injected"]
     assert metrics.counter_values(keys) == jmetrics.counter_values(keys)
-    c = metrics.counter_values(keys)
+    # an injected kernel fault: the JAX tier replays the op on its exact
+    # path, the port retries the same runner
+    j = jmetrics.counter_values(["kernel.fallbacks", "kernel.launches"])
+    c = metrics.counter_values(keys + ["kernel.retries", "kernel.fallbacks",
+                                       "kernel.launches"])
+    assert c["kernel.retries"] == j["kernel.fallbacks"]
+    assert c["kernel.launches"] == j["kernel.launches"] + j["kernel.fallbacks"]
+    assert c["kernel.fallbacks"] == 0
     assert c["faults.injected"] >= 1
-    assert (c["retry.attempts"] + c["kernel.fallbacks"]
+    assert (c["retry.attempts"] + c["kernel.retries"]
             == c["faults.injected"])
 
 
@@ -553,8 +559,8 @@ def test_transient_faults_same_bytes_stats_and_counters(site, n):
 def test_all_sites_armed_on_the_cells_plan(n):
     """Transient faults at dispatch, serde and kernel together over the
     slice's whole plan (the kernel tier on): both packages give the
-    fault-free bytes, and the port's retries and fallbacks account for
-    every injection."""
+    fault-free bytes, and the port's retries account for every
+    injection."""
     wire = _fact_wire(n, seed=7 * n)
     for name, value in (("KERNELS", "on"), ("METRICS", "1"),
                         ("RETRY_BASE_MS", "1")):
@@ -566,12 +572,13 @@ def test_all_sites_armed_on_the_cells_plan(n):
           ",kernel:transient:0.6:2")
     assert _jax(QTY_BY_DATE, wire) == clean
     assert _port(QTY_BY_DATE, wire) == clean
-    c = metrics.counter_values(["retry.attempts", "kernel.fallbacks",
-                                "faults.injected", "retry.giveups"])
+    c = metrics.counter_values(["retry.attempts", "kernel.retries",
+                                "faults.injected", "retry.giveups",
+                                "kernel.fallbacks"])
     injected = sum(r["injected"] for r in faults.injection_stats().values())
     assert c["faults.injected"] == injected > 0
-    assert c["retry.attempts"] + c["kernel.fallbacks"] == injected
-    assert c["retry.giveups"] == 0
+    assert c["retry.attempts"] + c["kernel.retries"] == injected
+    assert c["retry.giveups"] == 0 and c["kernel.fallbacks"] == 0
 
 
 @pytest.mark.parametrize("kind", ("transient", "oom"))
@@ -668,8 +675,8 @@ def test_consumed_input_is_never_retried(monkeypatch):
 
 
 def test_kernel_runner_failure_still_raises(monkeypatch):
-    """Only an injected ``kernel`` fault replays on the exact path: a
-    failure of the runner itself raises, armed plan or not."""
+    """A failure of the runner itself raises, armed plan or not: it is
+    neither retried nor replayed on the exact path."""
     config.set_flag("KERNELS", "on")
     config.set_flag("METRICS", "1")
     config.set_flag("FAULTS", "seed=1,dispatch:transient:0")
@@ -682,20 +689,36 @@ def test_kernel_runner_failure_still_raises(monkeypatch):
     monkeypatch.setitem(registry._BY_OP, "groupby", specs)
     with pytest.raises(RuntimeError, match="runner failed"):
         _port(QTY_BY_DATE, _fact_wire(1024, 3))
-    assert metrics.counter_values(["kernel.fallbacks"]) == {
-        "kernel.fallbacks": 0}
+    assert metrics.counter_values(["kernel.fallbacks", "kernel.retries"]) == {
+        "kernel.fallbacks": 0, "kernel.retries": 0}
 
 
-def test_injected_kernel_fault_falls_back_exactly():
+def test_injected_kernel_fault_falls_back_exactly(monkeypatch):
+    """An injected ``kernel`` fault retries the same runner: the same
+    bytes, every route still launched, and no op taken over by the exact
+    path (the ops that reach it are those of the fault-free run)."""
     wire = _fact_wire(1025, 5)
     config.set_flag("KERNELS", "on")
     config.set_flag("METRICS", "1")
+    exact = []
+    impl = rb._dispatch_impl
+
+    def recording(op, table, rest, name):
+        exact.append(name)
+        return impl(op, table, rest, name)
+
+    monkeypatch.setattr(rb, "_dispatch_impl", recording)
     want = _port(QTY_BY_DATE, wire)
+    exact_clean, exact[:] = list(exact), []
     metrics.reset()
     config.set_flag("FAULTS", "kernel:oom:1")
     assert _port(QTY_BY_DATE, wire) == want
-    c = metrics.counter_values(["kernel.fallbacks", "kernel.launches"])
-    assert c == {"kernel.fallbacks": 3, "kernel.launches": 0}
+    assert exact == exact_clean
+    assert "groupby" not in exact
+    c = metrics.counter_values(["kernel.fallbacks", "kernel.launches",
+                                "kernel.retries"])
+    assert c == {"kernel.fallbacks": 0, "kernel.launches": 3,
+                 "kernel.retries": 3}
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import torch
 from spark_rapids_jni_tpu_torch import kernels
 from spark_rapids_jni_tpu_torch import pipeline
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
-from spark_rapids_jni_tpu_torch.utils import config, faults, spill
+from spark_rapids_jni_tpu_torch.utils import config, faults, metrics, spill
 
 FACT_TYPES = [4, 4, 4, 3, 11]
 QTY_BY_DATE = [
@@ -32,7 +32,7 @@ QTY_BY_DATE = [
     {"op": "to_rows"},
 ]
 FLAGS = ("PIPELINE", "SPILL", "SPILL_DIR", "HOST_SPILL_BUDGET_GB",
-         "HBM_BUDGET_GB", "FAULTS", "RETRY_BASE_MS")
+         "HBM_BUDGET_GB", "FAULTS", "RETRY_BASE_MS", "METRICS")
 WAIT_S = 300
 
 
@@ -129,11 +129,12 @@ def test_donated_input_read_on_another_stream_is_not_reused_early():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pinned", (True, False))
-def test_spill_round_trip(tmp_path, monkeypatch, pinned):
+def test_spill_round_trip(tmp_path):
     """Eviction to the host and disk tiers and the repage: the bytes
-    come back, and the device storage goes at eviction."""
-    monkeypatch.setattr(spill, "PIN_HOST_TIER", pinned)
+    come back, the device storage goes at eviction, and the host tier's
+    copies are pinned."""
+    assert all(h.is_pinned() for h in spill._host_copies(
+        [torch.arange(5, device="cuda"), torch.ones(3, device="cuda")]))
     wires = [_fact_wire(1 << 16, s) for s in range(3)]
     want = []
     for w in wires:
@@ -157,6 +158,29 @@ def test_spill_round_trip(tmp_path, monkeypatch, pinned):
     finally:
         for t in ids:
             rb.table_free(t)
+
+
+@pytest.mark.cuda
+def test_injected_kernel_fault_retries_the_kernel():
+    """A fault injected at the ``kernel`` site retries the same runner:
+    every kernel of the plan still launches, and the exact path never
+    stands in for one."""
+    w = _fact_wire(1 << 16, 3)
+    plan = json.dumps(QTY_BY_DATE)
+    want = tuple(rb.table_plan_wire(plan, *w))
+    config.set_flag("METRICS", "1")
+    metrics.reset()
+    kernels.reset_launches()
+    config.set_flag("FAULTS", "kernel:transient:1")
+    assert tuple(rb.table_plan_wire(plan, *w)) == want
+    c = metrics.counter_values(
+        ["kernel.retries", "kernel.launches", "kernel.fallbacks"])
+    injected = faults.injection_stats()["kernel:transient"]["injected"]
+    assert c == {"kernel.retries": injected, "kernel.launches": injected,
+                 "kernel.fallbacks": 0}
+    assert injected >= 3
+    for name in ("unpack_rows", "build_table", "pack_rows"):
+        assert kernels.KERNELS[name].launches >= 1
 
 
 @pytest.mark.cuda
