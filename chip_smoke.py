@@ -126,6 +126,22 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     plan exact after it; (m4) the registry's count back to its start and
     ``table_reclaim`` returning the table's bytes as
     ``torch.cuda.memory_allocated`` falls by them.
+(n) the op library at the ops level over (a)'s 2^23 rows as columns,
+    with a FLOAT64 ``ss_sales_price``, the sold date as TIMESTAMP_DAYS,
+    a TIMESTAMP_MICROSECONDS sold time and a DECIMAL64 price (~2 %
+    null), partitioned by ss_item_sk: (n1) window functions (q51's
+    running SUM, q47/q57's AVG over the item, MIN/MAX over ROWS 3
+    PRECEDING to 3 FOLLOWING, COUNT over RANGE 30 days PRECEDING, the
+    rank family by price descending, LAG/LEAD), whose FLOAT64 prefixes
+    run scan16; (n2) every datetime field and truncate unit, ROUND to 1
+    place HALF_UP/HALF_EVEN, the replace family; (n3) the ten
+    reductions, scans, quantiles under five interpolations, Spark's
+    range partitioning into 200 by ``upper_bound`` and
+    ``contains_column``; (n4) STRUCT pack/argsort/gather/filter/unpack.
+    Every output equals the port's own CPU run byte for byte and a
+    numpy oracle (integers exact, floats within 1e-9); each part's wall,
+    host syncs and profile, the MIN window's peak memory and
+    ``_lex_searchsorted`` alone under the profiler.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -3929,6 +3945,588 @@ def stream_kernel_records(d: dict, qm: dict) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# (n) the op library: windows, datetime, rounding, replace, reductions,
+# scans, quantiles, search, STRUCT
+# ---------------------------------------------------------------------------
+
+OPLIB_ITEMS = 204_000  # (a)'s ss_item_sk partitions
+JULIAN_1970 = 2_440_588  # TPC-DS date keys are Julian day numbers
+OPLIB_RTOL = 1e-9  # floats against numpy (another add order)
+OPLIB_QS = (0.25, 0.5, 0.75, 0.95)
+OPLIB_INTERP = ("linear", "lower", "higher", "midpoint", "nearest")
+RANGE_SPLITS = 200  # Spark's range partitioning into 200 partitions
+UNBOUNDED = 1 << 30  # a ROWS frame past any partition
+DT_FIELDS = ("year", "month", "day", "hour", "minute", "second", "weekday",
+             "day_of_year", "quarter", "last_day_of_month",
+             "millisecond_fraction", "microsecond_fraction",
+             "nanosecond_fraction", "day_of_week_sunday")
+TRUNC_UNITS = ("year", "quarter", "month", "week", "day", "hour", "minute",
+               "second")
+REDUCTIONS = ("sum", "min", "max", "mean", "count", "product", "variance",
+              "std")
+
+
+def make_oplib_data(rng, d: dict) -> dict:
+    """(n)'s columns beside (a)'s batch: ss_sales_price in cents / 100
+    (1-19,999 cents), the sold date as TIMESTAMP_DAYS (date_sk - the
+    Julian day of 1970-01-01), the sold time as TIMESTAMP_MICROSECONDS
+    (the date plus a second of the day and random microseconds), the
+    price as DECIMAL64 scale -2 with ~2 % nulls, a list price with ~1 %
+    NaN, 199 range-partition bounds sampled from the (item, date) rows
+    and 1,000 promoted items. For the products, whose quantity and price
+    forms are 0 (64 factors of 2 wrap INT64 to 0) and +inf at 2^23 rows:
+    the price's ratio to 100.00, 1 + (cents - 10,000) / 10^7 (within
+    1e-3 of 1, so the product of 2^23 stays finite), and the odd
+    quantity 2 * quantity + 1 (an INT64 product that wraps but is never
+    0)."""
+    n = d["item_sk"].shape[0]
+    cents = rng.integers(1, 20_000, n)
+    days = (d["date_sk"] - JULIAN_1970).astype(np.int32)
+    micros = (days.astype(np.int64) * 86_400_000_000
+              + rng.integers(0, 86_400, n) * 1_000_000
+              + rng.integers(0, 1_000_000, n))
+    lp = cents * 1.5 / 100
+    lp[rng.random(n) < 0.01] = np.nan
+    pick = np.sort(rng.choice(n, RANGE_SPLITS - 1, replace=False))
+    bounds = np.lexsort((days[pick], d["item_sk"][pick]))
+    return {"cents": cents, "price": cents / 100, "days": days,
+            "ratio": 1 + (cents - 10_000) / 1e7,
+            "micros": micros, "dec_ok": rng.random(n) > 0.02,
+            "list_price": lp, "bound_rows": pick[bounds],
+            "promo": rng.choice(OPLIB_ITEMS, 1000, replace=False)}
+
+
+def oplib_table(d: dict, od: dict, device):
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+
+    def col(a, ok=None, dtype=None):
+        return Column.from_numpy(a, ok, dtype, device=device)
+
+    return Table([
+        col(d["item_sk"]),
+        col(d["customer_sk"], d["customer_ok"]),
+        col(od["days"], None, dt.DType(dt.TypeId.TIMESTAMP_DAYS)),
+        col(od["micros"], None, dt.DType(dt.TypeId.TIMESTAMP_MICROSECONDS)),
+        col(d["quantity"], d["quantity_ok"]),
+        col(od["price"]),
+        col(od["cents"], od["dec_ok"], dt.decimal64(-2)),
+        col(od["list_price"]),
+        col(d["keep"]),
+        col(od["ratio"]),
+        col(2 * d["quantity"].astype(np.int64) + 1, d["quantity_ok"]),
+    ], ["item", "customer", "date", "time", "qty", "price", "dprice",
+        "list_price", "keep", "ratio", "odd_qty"])
+
+
+def oplib_n1(t) -> dict:
+    """(n1): q51's running SUM(price) by item ordered by date, q47/q57's
+    AVG(price) over the item, MIN/MAX(quantity) over ROWS 3 PRECEDING to
+    3 FOLLOWING, COUNT(quantity) over RANGE 30 days PRECEDING, the rank
+    family by item ordered by price descending (q44/q67/q70), and LAG /
+    LEAD(price, 1) within the item ordered by date."""
+    from spark_rapids_jni_tpu_torch import ops
+    from spark_rapids_jni_tpu_torch.ops import window as w
+
+    desc = [ops.SortKey("price", ascending=False)]
+    by_date = ops.sort_table(t, ["item", "date"])
+    pids = by_date.column("item").data
+    return {
+        "running_sum": w.grouped_rolling_aggregate(
+            t, ["item"], ["date"], "price", UNBOUNDED, 0, "sum"),
+        "avg": w.grouped_rolling_aggregate(
+            t, ["item"], ["date"], "price", UNBOUNDED, UNBOUNDED, "mean"),
+        "min3": w.grouped_rolling_aggregate(
+            t, ["item"], ["date"], "qty", 3, 3, "min"),
+        "max3": w.grouped_rolling_aggregate(
+            t, ["item"], ["date"], "qty", 3, 3, "max"),
+        "count30": w.grouped_range_rolling_aggregate(
+            t, ["item"], "date", "qty", 30, 0, "count"),
+        "rank": w.rank(t, ["item"], desc),
+        "dense_rank": w.dense_rank(t, ["item"], desc),
+        "row_number": w.row_number(t, ["item"], desc),
+        "percent_rank": w.percent_rank(t, ["item"], desc),
+        "ntile4": w.ntile(t, ["item"], desc, 4),
+        "lag": w.lag(by_date.column("price"), 1, pids),
+        "lead": w.lead(by_date.column("price"), 1, pids),
+    }
+
+
+def oplib_n2(t) -> dict:
+    """(n2): every datetime field and truncate unit on the date and the
+    sold time, ROUND(price, 1) of the FLOAT64 and DECIMAL64 prices under
+    HALF_UP and HALF_EVEN, and the replace family."""
+    from spark_rapids_jni_tpu_torch import ops
+    from spark_rapids_jni_tpu_torch.ops import datetime as dtm
+
+    out = {}
+    for src in ("date", "time"):
+        c = t.column(src)
+        for f in DT_FIELDS:
+            out[f"{src}.{f}"] = getattr(dtm, f)(c)
+        for u in TRUNC_UNITS:
+            out[f"{src}.trunc_{u}"] = dtm.truncate(c, u)
+        out[f"{src}.add_months"] = dtm.add_calendrical_months(c, 7)
+    for how in ("half_up", "half_even"):
+        out[f"round_price_{how}"] = ops.round_column(t.column("price"), 1, how)
+        out[f"round_dprice_{how}"] = ops.round_column(t.column("dprice"), 1,
+                                                      how)
+    out["replace_nulls"] = ops.replace_nulls(t.column("customer"), 0)
+    out["clamp"] = ops.clamp(t.column("qty"), 5, 95)
+    out["nans_to_nulls"] = ops.nans_to_nulls(t.column("list_price"))
+    out["find_and_replace"] = ops.find_and_replace(t.column("qty"), [1, 100],
+                                                   [0, 99])
+    return out
+
+
+def oplib_n3(t, bounds, promo) -> dict:
+    """(n3): the reductions over quantity and price (any/all over keep),
+    scans, quantiles, Spark's range partitioning by (item, date) into 200
+    partitions (``upper_bound`` against 199 sorted bounds) and
+    ``contains_column`` of the promoted items."""
+    from spark_rapids_jni_tpu_torch import ops
+
+    out = {}
+    for src in ("qty", "price"):
+        for op in REDUCTIONS:
+            out[f"{src}.{op}"] = ops.reduce_column(t.column(src), op)
+    for src in ("ratio", "odd_qty"):
+        out[f"{src}.product"] = ops.reduce_column(t.column(src), "product")
+    for op in ("any", "all"):
+        out[f"keep.{op}"] = ops.reduce_column(t.column("keep"), op)
+    out["scan_sum_qty"] = ops.scan(t.column("qty"), "sum")
+    out["scan_max_qty"] = ops.scan(t.column("qty"), "max")
+    out["scan_sum_price"] = ops.scan(t.column("price"), "sum")
+    for how in OPLIB_INTERP:
+        out[f"quantile_{how}"] = ops.quantile(t.column("price"), OPLIB_QS,
+                                              how)
+    keys = t.__class__([t.column("item"), t.column("date")], ["item", "date"])
+    out["range_part"] = ops.upper_bound(bounds, keys)
+    out["promoted"] = ops.contains_column(promo, t.column("item"))
+    return out
+
+
+def oplib_n4(t) -> dict:
+    """(n4): STRUCT(item, date, price): pack, argsort, gather by that
+    order, filter on keep, unpack."""
+    from spark_rapids_jni_tpu_torch import struct as st
+    from spark_rapids_jni_tpu_torch.ops import gather_column
+
+    s = st.pack(t, ["item", "date", "price"])
+    order = s.argsort()
+    sorted_s = s.gather(order)
+    keep = gather_column(t.column("keep"), order)
+    kept = sorted_s.filter(keep)
+    out = {"order": order}
+    for name, c in zip(kept.names, st.unpack(kept).columns):
+        out[f"unpack.{name}"] = c
+    return out
+
+
+def oplib_inputs(t, od: dict, device):
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops import gather_table
+
+    rows = torch.from_numpy(od["bound_rows"]).to(device)
+    keys = Table([t.column("item"), t.column("date")], ["item", "date"])
+    bounds = gather_table(keys, rows)
+    promo = Column.from_numpy(od["promo"], device=device)
+    return bounds, promo
+
+
+OPLIB_PARTS = {
+    "n1": lambda t, b, p: oplib_n1(t), "n2": lambda t, b, p: oplib_n2(t),
+    "n3": lambda t, b, p: oplib_n3(t, b, p), "n4": lambda t, b, p: oplib_n4(t),
+}
+
+
+def column_bytes(c) -> tuple:
+    """A result's host bytes: a column's data, validity and lengths, or a
+    bare tensor."""
+    if isinstance(c, torch.Tensor):
+        return (c.cpu().numpy().tobytes(),)
+    return tuple(None if x is None else x.cpu().numpy().tobytes()
+                 for x in (c.data, c.validity, c.lengths))
+
+
+def host_values(c):
+    """(values, valid) on the host: FLOAT64 as float64."""
+    if isinstance(c, torch.Tensor):
+        return c.cpu().numpy(), None
+    v = c.to_numpy()
+    ok = (np.ones(v.shape[0], bool) if c.validity is None
+          else c.validity.cpu().numpy())
+    return v, ok
+
+
+def oplib_check(name: str, got, want, valid=None, rtol=0.0, atol=0.0) -> None:
+    """One output against its numpy oracle: validity equal where given,
+    values exact (rtol = atol = 0) or within the bound, where valid."""
+    v, ok = host_values(got)
+    if valid is not None:
+        if not np.array_equal(ok, valid):
+            raise AssertionError(f"(n) {name}: validity differs from numpy")
+        v, want = v[valid], np.asarray(want)[valid]
+    want = np.asarray(want)
+    if v.shape != want.shape:
+        raise AssertionError(f"(n) {name}: shape {v.shape} vs {want.shape}")
+    if rtol == 0.0 and atol == 0.0:
+        if not np.array_equal(v, want.astype(v.dtype)):
+            bad = int(np.sum(v != want))
+            raise AssertionError(f"(n) {name}: {bad} values differ from numpy")
+    elif not np.allclose(v, want, rtol=rtol, atol=atol, equal_nan=True):
+        raise AssertionError(f"(n) {name}: past rtol {rtol} atol {atol}")
+
+
+def segment_starts(keys: np.ndarray) -> np.ndarray:
+    """For sorted ``keys``, the index of each row's run start."""
+    n = keys.shape[0]
+    new = np.ones(n, bool)
+    new[1:] = keys[1:] != keys[:-1]
+    return np.maximum.accumulate(np.where(new, np.arange(n), 0))
+
+
+def oracle_n1(d: dict, od: dict, out: dict) -> None:
+    """(n1) against numpy: integers and ranks exact, float sums within
+    ``OPLIB_RTOL`` of the exact cent sums (plus the rounding of the
+    2^23-row prefix the difference is taken of)."""
+    n = d["item_sk"].shape[0]
+    item, days, cents = d["item_sk"], od["days"].astype(np.int64), od["cents"]
+    qty, qok = d["quantity"], d["quantity_ok"]
+    perm = np.lexsort((days, item))  # stable, as the port's sort
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    si, sd, sc = item[perm], days[perm], cents[perm]
+    start = segment_starts(si)
+    pos = np.arange(n)
+    ends = np.empty(n, np.int64)
+    new = np.r_[True, si[1:] != si[:-1]]
+    firsts = np.flatnonzero(new)
+    seg_end = np.r_[firsts[1:], n]
+    ends = np.repeat(seg_end, np.diff(np.r_[firsts, n]))
+    cum = np.cumsum(sc)
+    before = np.where(start > 0, cum[start - 1], 0)
+    run = (cum - before)[inv] / 100
+    total = (cum[ends - 1] - before)[inv]
+    size = (ends - start)[inv]
+    prefix_err = 8 * float(cum[-1]) / 100 * 2.0**-52
+    oplib_check("running_sum", out["running_sum"], run, np.ones(n, bool),
+                OPLIB_RTOL, prefix_err)
+    oplib_check("avg", out["avg"], total / 100 / size, np.ones(n, bool),
+                OPLIB_RTOL, prefix_err)
+    sq, sok = qty[perm].astype(np.int64), qok[perm]
+    for name, fn, fill in (("min3", np.minimum, 1 << 40),
+                           ("max3", np.maximum, -(1 << 40))):
+        acc = np.full(n, fill, np.int64)
+        cnt = np.zeros(n, np.int64)
+        for k in range(-3, 4):
+            j = pos + k
+            inside = (j >= start) & (j < ends)
+            jj = np.clip(j, 0, n - 1)
+            use = inside & sok[jj]
+            acc = np.where(use, fn(acc, sq[jj]), acc)
+            cnt += use
+        oplib_check(name, out[name], acc[inv], (cnt > 0)[inv])
+    comp = si * (1 << 21) + sd  # days < 2^21 here
+    lo = np.searchsorted(comp, si * (1 << 21) + sd - 30, "left")
+    hi = np.searchsorted(comp, comp, "right")
+    vc = np.r_[0, np.cumsum(sok)]
+    cnt30 = (vc[hi] - vc[lo])[inv]
+    # a frame without a valid quantity is null (min_periods 1, cudf's rule)
+    oplib_check("count30", out["count30"], cnt30, cnt30 > 0)
+    # ranks by item, price descending (stable: ties keep row order)
+    rperm = np.lexsort((-cents, item))
+    rinv = np.empty(n, np.int64)
+    rinv[rperm] = np.arange(n)
+    ri, rc = item[rperm], cents[rperm]
+    rstart = segment_starts(ri)
+    rnew = np.r_[True, ri[1:] != ri[:-1]]
+    rf = np.flatnonzero(rnew)
+    rends = np.repeat(np.r_[rf[1:], n], np.diff(np.r_[rf, n]))
+    tie = np.r_[True, (ri[1:] != ri[:-1]) | (rc[1:] != rc[:-1])]
+    group_start = np.maximum.accumulate(np.where(tie, pos, 0))
+    rank = group_start - rstart + 1
+    ctie = np.cumsum(tie)
+    dense = ctie - ctie[rstart] + 1
+    rsize = rends - rstart
+    ones = np.ones(n, bool)
+    oplib_check("rank", out["rank"], rank[rinv], ones)
+    oplib_check("dense_rank", out["dense_rank"], dense[rinv], ones)
+    oplib_check("row_number", out["row_number"], (pos - rstart + 1)[rinv],
+                ones)
+    pr = np.where(rsize > 1, (rank - 1) / np.maximum(rsize - 1, 1), 0.0)
+    oplib_check("percent_rank", out["percent_rank"], pr[rinv], ones,
+                OPLIB_RTOL)
+    rp = pos - rstart
+    base, rem = rsize // 4, rsize % 4
+    big = rem * (base + 1)
+    tile = np.where(rp < big, rp // np.maximum(base + 1, 1),
+                    rem + (rp - big) // np.maximum(base, 1)) + 1
+    oplib_check("ntile4", out["ntile4"], tile[rinv], ones)
+    sp = sc / 100
+    lag_ok = np.r_[False, si[1:] == si[:-1]]
+    lead_ok = np.r_[si[1:] == si[:-1], False]
+    oplib_check("lag", out["lag"], np.r_[0.0, sp[:-1]], lag_ok)
+    oplib_check("lead", out["lead"], np.r_[sp[1:], 0.0], lead_ok)
+
+
+def oracle_n2(d: dict, od: dict, out: dict) -> None:
+    """(n2) against numpy's datetime64 calendar and integer rounding."""
+    n = d["item_sk"].shape[0]
+    ones = np.ones(n, bool)
+    for src, ticks, unit in (("date", od["days"], "D"),
+                             ("time", od["micros"], "us")):
+        t64 = ticks.astype(np.int64).astype(f"datetime64[{unit}]")
+        D = t64.astype("datetime64[D]")
+        Y, M = D.astype("datetime64[Y]"), D.astype("datetime64[M]")
+        sod = (t64 - D).astype("timedelta64[us]").astype(np.int64) // 10**6
+        sub_us = (t64 - t64.astype("datetime64[s]")).astype(
+            "timedelta64[us]").astype(np.int64)
+        month = M.astype(np.int64) % 12 + 1
+        days = D.astype(np.int64)
+        want = {
+            "year": Y.astype(np.int64) + 1970, "month": month,
+            "day": (D - M.astype("datetime64[D]")).astype(np.int64) + 1,
+            "hour": sod // 3600, "minute": sod // 60 % 60, "second": sod % 60,
+            "weekday": (D - np.datetime64("1970-01-05")).astype(np.int64) % 7 + 1,
+            "day_of_year": (D - Y.astype("datetime64[D]")).astype(np.int64) + 1,
+            "quarter": (month - 1) // 3 + 1,
+            "last_day_of_month": ((M + 1).astype("datetime64[D]")
+                                  - np.timedelta64(1, "D")).astype(np.int64),
+            "millisecond_fraction": sub_us // 1000,
+            "microsecond_fraction": sub_us % 1000,
+            "nanosecond_fraction": np.zeros(n, np.int64),
+            "day_of_week_sunday":
+                (D - np.datetime64("1970-01-04")).astype(np.int64) % 7 + 1,
+        }
+        for f in DT_FIELDS:
+            oplib_check(f"{src}.{f}", out[f"{src}.{f}"], want[f], ones)
+        q_start = M - ((month - 1) % 3).astype("timedelta64[M]")
+        week = D - ((D - np.datetime64("1970-01-05")).astype(np.int64)
+                    % 7).astype("timedelta64[D]")
+        trunc = {"year": Y, "quarter": q_start, "month": M, "week": week,
+                 "day": D, "hour": t64.astype("datetime64[h]"),
+                 "minute": t64.astype("datetime64[m]"),
+                 "second": t64.astype("datetime64[s]")}
+        for u in TRUNC_UNITS:
+            oplib_check(f"{src}.trunc_{u}", out[f"{src}.trunc_{u}"],
+                        trunc[u].astype(f"datetime64[{unit}]").astype(np.int64),
+                        ones)
+        tod = t64 - D
+        m7 = M + np.timedelta64(7, "M")
+        day = (D - M.astype("datetime64[D]")).astype(np.int64)
+        mlen = ((m7 + 1).astype("datetime64[D]")
+                - m7.astype("datetime64[D]")).astype(np.int64)
+        shifted = (m7.astype("datetime64[D]")
+                   + np.minimum(day, mlen - 1).astype("timedelta64[D]"))
+        oplib_check(f"{src}.add_months", out[f"{src}.add_months"],
+                    (shifted.astype(f"datetime64[{unit}]") + tod).astype(
+                        np.int64), ones)
+    p, cents = od["price"], od["cents"]
+    s = p * 10
+    oplib_check("round_price_half_up", out["round_price_half_up"],
+                np.where(s >= 0, np.floor(s + 0.5), np.ceil(s - 0.5)) / 10,
+                ones)
+    oplib_check("round_price_half_even", out["round_price_half_even"],
+                np.round(s) / 10, ones)
+    oplib_check("round_dprice_half_up", out["round_dprice_half_up"],
+                (cents + 5) // 10 * 10, od["dec_ok"])
+    oplib_check("round_dprice_half_even", out["round_dprice_half_even"],
+                np.round(cents / 10).astype(np.int64) * 10, od["dec_ok"])
+    oplib_check("replace_nulls", out["replace_nulls"],
+                np.where(d["customer_ok"], d["customer_sk"], 0), ones)
+    q = d["quantity"]
+    oplib_check("clamp", out["clamp"], np.clip(q, 5, 95), d["quantity_ok"])
+    lp = od["list_price"]
+    oplib_check("nans_to_nulls", out["nans_to_nulls"], lp, ~np.isnan(lp))
+    oplib_check("find_and_replace", out["find_and_replace"],
+                np.where(q == 1, 0, np.where(q == 100, 99, q)),
+                d["quantity_ok"])
+
+
+def oracle_n3(d: dict, od: dict, out: dict) -> None:
+    """(n3) against numpy: integer reductions and scans exact, float ones
+    within ``OPLIB_RTOL``."""
+    q = d["quantity"].astype(np.int64)
+    qok = d["quantity_ok"]
+    qv, p, cents = q[qok], od["price"], od["cents"]
+    with np.errstate(over="ignore"):
+        # INT64 products wrap mod 2^64, as the port's: the quantity's is
+        # 0 and the price's +inf at 2^23 rows, the odd quantity's and
+        # the ratio's are not
+        prod_q = np.prod(qv)
+        prod_p = np.prod(p)
+        prod_odd = np.prod(2 * qv + 1)
+    prod_ratio = np.prod(od["ratio"])
+    if prod_odd == 0 or not np.isfinite(prod_ratio):
+        raise AssertionError("(n) odd_qty.product is 0 or ratio.product is "
+                             "not finite: these products would check "
+                             "nothing")
+    one = np.ones(1, bool)
+    exact = {"qty.sum": qv.sum(), "qty.min": qv.min(), "qty.max": qv.max(),
+             "qty.count": qok.sum(), "qty.product": prod_q,
+             "price.min": p.min(), "price.max": p.max(),
+             "price.count": p.shape[0], "price.product": prod_p,
+             "odd_qty.product": prod_odd}
+    for k, v in exact.items():
+        oplib_check(k, out[k], [v], one)
+    close = {"qty.mean": qv.mean(), "qty.variance": qv.var(ddof=1),
+             "qty.std": qv.std(ddof=1), "price.sum": cents.sum() / 100,
+             "price.mean": cents.sum() / 100 / p.shape[0],
+             "price.variance": p.var(ddof=1), "price.std": p.std(ddof=1),
+             "ratio.product": prod_ratio}
+    for k, v in close.items():
+        oplib_check(k, out[k], [v], one, OPLIB_RTOL)
+    keep = d["keep"]
+    oplib_check("keep.any", out["keep.any"], [keep.any()], one)
+    oplib_check("keep.all", out["keep.all"], [keep.all()], one)
+    oplib_check("scan_sum_qty", out["scan_sum_qty"],
+                np.cumsum(np.where(qok, q, 0)), qok)
+    oplib_check("scan_max_qty", out["scan_max_qty"],
+                np.maximum.accumulate(np.where(qok, q, -(1 << 31))), qok)
+    oplib_check("scan_sum_price", out["scan_sum_price"],
+                np.cumsum(cents) / 100, np.ones(p.shape[0], bool), OPLIB_RTOL)
+    sp = np.sort(p)
+    pos = np.asarray(OPLIB_QS) * (p.shape[0] - 1)
+    lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+    frac = pos - np.floor(pos)
+    want = {"linear": sp[lo] + (sp[hi] - sp[lo]) * frac, "lower": sp[lo],
+            "higher": sp[hi], "midpoint": (sp[lo] + sp[hi]) * 0.5,
+            "nearest": np.where(frac <= 0.5, sp[lo], sp[hi])}
+    qone = np.ones(len(OPLIB_QS), bool)
+    for how in OPLIB_INTERP:
+        oplib_check(f"quantile_{how}", out[f"quantile_{how}"], want[how],
+                    qone, OPLIB_RTOL)
+    item, days = d["item_sk"], od["days"].astype(np.int64)
+    comp = item * (1 << 21) + days
+    b = od["bound_rows"]
+    part = np.searchsorted(comp[b], comp, "right")
+    oplib_check("range_part", out["range_part"], part,
+                np.ones(item.shape[0], bool))
+    oplib_check("promoted", out["promoted"], np.isin(item, od["promo"]),
+                np.ones(item.shape[0], bool))
+
+
+def oracle_n4(d: dict, od: dict, out: dict) -> None:
+    """(n4) against a stable numpy lexsort and a boolean filter."""
+    item, days, p = d["item_sk"], od["days"], od["price"]
+    order = np.lexsort((p, days, item))
+    oplib_check("order", out["order"], order)
+    kept = order[d["keep"][order]]
+    ones = np.ones(kept.shape[0], bool)
+    for name, src in (("item", item), ("date", days), ("price", p)):
+        oplib_check(f"unpack.{name}", out[f"unpack.{name}"], src[kept], ones)
+
+
+OPLIB_ORACLES = {"n1": oracle_n1, "n2": oracle_n2, "n3": oracle_n3,
+                 "n4": oracle_n4}
+
+
+def phase_oplib(kernels, d: dict, od: dict) -> dict:
+    """(n): each part on the card once with the launch counts set to 0
+    just before and read just after (S1 must be launched in (n1)), every
+    output byte for byte against the port's own CPU run of the same
+    inputs and against numpy; then the wall (median of 5 runs after the
+    checked run), the host syncs of one run, a profiled window (device
+    time, busy share, top kernels), and for (n1) the peak device memory
+    of the MIN window (its sparse table) and ``_lex_searchsorted`` alone
+    under the profiler (launches and device time)."""
+    from spark_rapids_jni_tpu_torch.ops import join as pjoin
+    from spark_rapids_jni_tpu_torch.ops import keys as pkeys
+    from spark_rapids_jni_tpu_torch.ops import window as pw
+
+    gpu = oplib_table(d, od, DEVICE)
+    cpu = oplib_table(d, od, "cpu")
+    gin, cin = oplib_inputs(gpu, od, DEVICE), oplib_inputs(cpu, od, "cpu")
+    out = {}
+    for part, fn in OPLIB_PARTS.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = fn(gpu, *gin)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        t0 = time.perf_counter()
+        want = fn(cpu, *cin)
+        cpu_s = time.perf_counter() - t0
+        differ = [k for k in got if column_bytes(got[k]) != column_bytes(want[k])]
+        if differ:
+            raise AssertionError(f"({part}) differs from the CPU run: {differ}")
+        OPLIB_ORACLES[part](d, od, got)
+        del want
+        runner = oplib_runner(fn, gpu, gin)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            runner()
+            times.append((time.perf_counter() - t0) * 1e3)
+        median = statistics.median(times)
+        syncs = count_syncs(runner)
+        log(f"({part}) {len(got)} outputs equal the CPU run's bytes and "
+            f"numpy; wall median {median:.2f} ms over 5 runs (all: "
+            f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
+            f"launches {launches}; CPU run {cpu_s:.1f} s")
+        profile = profile_plan(runner, median, f"({part})")
+        out[part] = {"outputs": len(got), "wall_ms": median, "syncs": syncs,
+                     "launches": launches, "cpu_run_s": cpu_s,
+                     "profile": profile}
+        del got
+    if out["n1"]["launches"]["scan16"] == 0:
+        raise AssertionError("(n1) never launched scan16")
+    # the MIN window's peak: the sparse table of 24 levels at 2^23 rows
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = pw.grouped_rolling_aggregate(gpu, ["item"], ["date"], "qty", 3, 3,
+                                       "min")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del res
+    n = gpu.row_count
+    table_bytes = (1 + (n - 1).bit_length()) * n * 4
+    log(f"(n1) MIN window: peak {peak / 2**20:.1f} MiB above the inputs "
+        f"(the position table alone {table_bytes / 2**20:.1f} MiB)")
+    out["n1"]["minmax_peak_bytes"] = peak
+    out["n1"]["sparse_table_bytes"] = table_bytes
+    # _lex_searchsorted alone: (n3)'s range partitioning of the 2^23 rows
+    hw = pkeys.table_order_keys(list(gin[0].columns))
+    qw = pkeys.table_order_keys([gpu.column("item"), gpu.column("date")])
+    m = hw[0].shape[0]
+    out["n3"]["lex_searchsorted"] = op_profile(
+        lambda: pjoin._lex_searchsorted(hw, qw, "right"),
+        f"(n3) _lex_searchsorted of {n} rows in {m} bounds "
+        f"({max(1, m.bit_length())} steps, 2 words)", 8 * 2 * n + 4 * n)
+    out["n3"]["lex_searchsorted"]["wall_ms"] = cuda_ms(
+        lambda: pjoin._lex_searchsorted(hw, qw, "right"), 5)
+    return out
+
+
+def oplib_runner(fn, t, inputs):
+    def run():
+        fn(t, *inputs)
+        torch.cuda.synchronize()
+
+    return run
+
+
+def oplib_kernel_records(d: dict, od: dict, qn: dict) -> list:
+    """S1 at (n1)'s shape: the FLOAT64 running sum's prefix over the
+    2^23 prices in (item, date) order, with (n1)'s launches."""
+    from spark_rapids_jni_tpu_torch.kernels import scan16
+    from spark_rapids_jni_tpu_torch.ops.groupby import _scan_sum16
+
+    perm = np.lexsort((od["days"], d["item_sk"]))
+    v = torch.from_numpy(od["price"][perm]).to(DEVICE)
+    n = v.shape[0]
+    return [kernel_record(
+        scan16.SCAN16, "window", f"{n} x FLOAT64",
+        qn["n1"]["launches"]["scan16"],
+        lambda: [scan16.scan_sum16(v).view(torch.int64)],
+        lambda: [_scan_sum16(v).view(torch.int64)],
+        16 * n, 0, library_fn=lambda: torch.cumsum(v, 0),
+        note="(n1): the window SUM/AVG prefix; bits compared")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3968,6 +4566,7 @@ def main(argv=None) -> int:
     dd = make_dispatch_data(rng, d)
     sd = make_string_data(rng, d)
     ld = make_lineitem_data(rng, DEC_ROWS)
+    od = make_oplib_data(rng, d)
     log(f"data made in {time.perf_counter() - t0:.1f} s")
     phases = {
         "query": lambda: phase_query(rb, kernels, d),
@@ -3991,6 +4590,7 @@ def main(argv=None) -> int:
         "spill": lambda: phase_spill(rb, mctx),
         "faults": lambda: phase_faults(rb, mctx),
         "registry": lambda: phase_registry(rb, mctx),
+        "oplib": lambda: phase_oplib(kernels, d, od),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -4050,6 +4650,12 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("stream kernels")
+    if "oplib" in res:
+        try:
+            recs += oplib_kernel_records(d, od, res["oplib"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("oplib kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -4070,7 +4676,7 @@ def main(argv=None) -> int:
         "decimal": res["decimal"], "decimal_ops": res["decimal_ops"],
         "stream": res["stream"], "spill": res["spill"],
         "faults": res["faults"], "registry": res["registry"],
-        **hard}))
+        "oplib": res["oplib"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -155,6 +155,16 @@ _FLOAT_IDS = frozenset({TypeId.FLOAT32, TypeId.FLOAT64})
 _DECIMAL_IDS = frozenset(
     {TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128}
 )
+_TIMESTAMP_IDS = frozenset(
+    {TypeId.TIMESTAMP_DAYS, TypeId.TIMESTAMP_SECONDS,
+     TypeId.TIMESTAMP_MILLISECONDS, TypeId.TIMESTAMP_MICROSECONDS,
+     TypeId.TIMESTAMP_NANOSECONDS}
+)
+_DURATION_IDS = frozenset(
+    {TypeId.DURATION_DAYS, TypeId.DURATION_SECONDS,
+     TypeId.DURATION_MILLISECONDS, TypeId.DURATION_MICROSECONDS,
+     TypeId.DURATION_NANOSECONDS}
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +200,20 @@ class DType:
         return self.id in _FLOAT_IDS
 
     @property
+    def is_numeric(self) -> bool:
+        return self.is_integer or self.is_floating or self.is_decimal
+
+    @property
     def is_boolean(self) -> bool:
         return self.id == TypeId.BOOL8
+
+    @property
+    def is_timestamp(self) -> bool:
+        return self.id in _TIMESTAMP_IDS
+
+    @property
+    def is_duration(self) -> bool:
+        return self.id in _DURATION_IDS
 
     @property
     def is_string(self) -> bool:
@@ -259,6 +281,8 @@ FLOAT64 = DType(TypeId.FLOAT64)
 BOOL8 = DType(TypeId.BOOL8)
 LIST = DType(TypeId.LIST)
 STRING = DType(TypeId.STRING)
+STRUCT = DType(TypeId.STRUCT)
+TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
 
 
 def decimal32(scale: int) -> DType:

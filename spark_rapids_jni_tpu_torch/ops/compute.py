@@ -181,3 +181,94 @@ def fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
     bb = s - p
     t = (p - (s - bb)) + (c - bb)
     return s + (t + e)
+
+
+def float_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """XLA's elementwise float min as the JAX package's CPU code runs it:
+    subnormals read and returned as zero, -0.0 below +0.0, and a NaN
+    operand returned as it is (the first when both are NaN)."""
+    a, b = flush_subnormal(a), flush_subnormal(b)
+    take_a = torch.isnan(a) | (~torch.isnan(b) & (
+        (a < b) | ((a == b) & torch.signbit(a))))
+    return torch.where(take_a, a, b)
+
+
+def float_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """XLA's elementwise float max (see :func:`float_minimum`): +0.0
+    above -0.0."""
+    a, b = flush_subnormal(a), flush_subnormal(b)
+    take_a = torch.isnan(a) | (~torch.isnan(b) & (
+        (a > b) | ((a == b) & ~torch.signbit(a))))
+    return torch.where(take_a, a, b)
+
+
+def scalar_tensor(value) -> torch.Tensor:
+    """A 0-d CPU tensor of a Python or numpy scalar in the dtype the JAX
+    package gives ``jnp.full((1,), value)``: bool, int64 for a Python
+    int, float64 for a Python float, a numpy scalar's own. Elementwise
+    ops take it beside CUDA tensors as a scalar argument, with no copy
+    to the card (and no host sync)."""
+    arr = np.asarray(value)
+    if arr.dtype.kind in "iu":  # e.g. numpy's ulonglong for 2**64 - 1
+        arr = arr.astype(f"{arr.dtype.kind}{arr.dtype.itemsize}")
+    return torch.from_numpy(arr.reshape(()))
+
+
+
+def last_true_index(flags: torch.Tensor) -> torch.Tensor:
+    """int64 (n,): for each row i the largest j <= i with ``flags[j]``,
+    -1 where there is none. ``cummax(where(flags, iota, -1))`` without
+    torch's cummax, whose CUDA kernel also computes indices and runs
+    about 100 times slower than a cumsum and a scatter at 2^23 rows."""
+    n = flags.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=flags.device)
+    rank = torch.cumsum(flags.to(torch.int64), 0) - 1
+    # slot k holds the k-th flagged row; unflagged rows write slot n
+    first = torch.full((n + 1,), -1, dtype=torch.int64, device=flags.device)
+    first.scatter_(0, torch.where(flags, rank, n), idx)
+    return torch.where(rank >= 0, first[rank.clamp(min=0)], -1)
+
+
+def next_true_index(flags: torch.Tensor) -> torch.Tensor:
+    """int64 (n,): for each row i the smallest j >= i with ``flags[j]``,
+    n where there is none (see :func:`last_true_index`)."""
+    n = flags.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=flags.device)
+    count = torch.cumsum(flags.to(torch.int64), 0)
+    first = torch.full((n + 1,), n, dtype=torch.int64, device=flags.device)
+    first.scatter_(0, torch.where(flags, count - 1, n), idx)
+    before = count - flags.to(torch.int64)  # flagged rows before row i
+    return first[before]
+
+
+def true_divide(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, as IEEE division: torch divides a CUDA
+    tensor by a Python scalar as a multiply by its reciprocal, which
+    rounds twice; a 0-d tensor on the same device (filled there, no
+    copy from the host) keeps the division."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def as_int64(v: torch.Tensor) -> torch.Tensor:
+    """``v.astype(int64)`` of integers or bools as the JAX package
+    computes it (UINT64: its bit pattern)."""
+    if v.dtype == torch.uint64:
+        return v.view(torch.int64)
+    return to_carrier(v).to(torch.int64)
+
+
+def int_order_word(v: torch.Tensor) -> torch.Tensor:
+    """Integers or bools -> int64 whose signed order is theirs (UINT64:
+    its bit pattern with the top bit flipped)."""
+    if v.dtype == torch.uint64:
+        return v.view(torch.int64) ^ (-(2**63))
+    return as_int64(v)
+
+
+def from_int_order_word(w: torch.Tensor, to: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`int_order_word` for the value dtype ``to``."""
+    if to == torch.uint64:
+        return (w ^ (-(2**63))).view(torch.uint64)
+    if to == torch.bool:
+        return w != 0
+    return from_carrier(w, to)

@@ -88,6 +88,37 @@ def _key_words(cols: Sequence[Column], occupied: Optional[torch.Tensor]):
     return words, valid
 
 
+def _lex_searchsorted(sorted_words: Sequence[torch.Tensor],
+                      query_words: Sequence[torch.Tensor],
+                      side: str) -> torch.Tensor:
+    """Vectorized multi-word binary search (lower or upper bound) of each
+    query row in rows sorted by ``sorted_words`` (int64 carrier words,
+    so signed compares are the JAX package's unsigned ones): a fixed
+    ceil(log2(m + 1)) steps, each a gather and two compares a word, the
+    same steps and the same int32 result as the JAX package's."""
+    m = sorted_words[0].shape[0]
+    nq = query_words[0].shape[0]
+    dev = query_words[0].device
+    lo = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    hi = torch.full((nq,), m, dtype=torch.int32, device=dev)
+    steps = max(1, m.bit_length())  # ceil(log2(m + 1)), at least 1
+    for _ in range(steps):
+        mid = (lo + hi) // 2
+        safe_mid = mid.clamp(0, max(m - 1, 0)).long()
+        # go_right: sorted[mid] < q (lower bound) or <= q (upper bound)
+        lt = torch.zeros((nq,), dtype=torch.bool, device=dev)
+        eq = torch.ones((nq,), dtype=torch.bool, device=dev)
+        for sw, qw in zip(sorted_words, query_words):
+            sv = sw[safe_mid] if m > 0 else torch.zeros_like(qw)
+            lt = lt | (eq & (sv < qw))
+            eq = eq & (sv == qw)
+        go_right = lt | eq if side == "right" else lt
+        active = lo < hi
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
 def _equalize_string_keys(lcols, rcols):
     """String key pairs repadded to one width, so both sides give the
     same number of order words (pad bytes are zero; lengths stay). A

@@ -22,7 +22,8 @@ import torch
 from .. import dtype as dt
 from ..column import Column
 
-SIGN64 = -(2**63)  # int64 with only the top bit set
+SIGN64 = -(2**63)  # int64 with only the top bit set; the carrier of u64 0
+CARRIER_MAX = 2**63 - 1  # the carrier of the u64 word 0xFFFF...FF
 _MASK32 = 0xFFFFFFFF
 
 

@@ -92,3 +92,36 @@ def sort_table(
     """ORDER BY: ``table`` (or ``payload``) reordered, stable."""
     perm = argsort_table(table, sort_keys, row_valid)
     return gather_table(payload if payload is not None else table, perm)
+
+
+def is_sorted(
+    table: Table, sort_keys: Sequence[Union[SortKey, str, int]]
+) -> torch.Tensor:
+    """Device bool: rows already ordered by ``sort_keys`` (cudf
+    ``is_sorted``). Nulls follow each key's resolved placement."""
+    words = _table_key_words(table, sort_keys)
+    n = words[0].shape[0]
+    if n <= 1:
+        return torch.ones((), dtype=torch.bool, device=words[0].device)
+    # adjacent-pair lexicographic compare: prev <= next
+    eq = torch.ones((n - 1,), dtype=torch.bool, device=words[0].device)
+    ok = torch.zeros_like(eq)
+    for w in words:
+        a, b = w[:-1], w[1:]
+        ok = ok | (eq & (a < b))
+        eq = eq & (a == b)
+    return (ok | eq).all()
+
+
+def merge_sorted(
+    tables: Sequence[Table],
+    sort_keys: Sequence[Union[SortKey, str, int]],
+) -> Table:
+    """K-way merge of individually sorted tables into one sorted table
+    (cudf ``cudf::merge``): concatenate, then one stable sort, so equal
+    keys keep their inputs' order."""
+    from .copying import concatenate
+
+    if not tables:
+        raise ValueError("merge_sorted: need at least one table")
+    return sort_table(concatenate(tables), sort_keys)
