@@ -142,6 +142,29 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     numpy oracle (integers exact, floats within 1e-9); each part's wall,
     host syncs and profile, the MIN window's peak memory and
     ``_lex_searchsorted`` alone under the profiler.
+(o) the shape-bucket plane — a Spark task's ragged stream of 8 batches
+    of (a)'s rows (8,388,608, 4,194,305, 3,000,000, 1,048,577,
+    1,048,575, 200,001, 1,025 and 1 rows: a full batch, a file's last
+    partial batches, AQE-coalesced and filter-shrunk ones): (h)'s plan
+    through ``table_plan_wire``, and the resident chain from_rows ->
+    filter -> sort_by ss_item_sk -> LEFT SEMI join with (i1)'s category
+    items -> hash partition 200 -> to_rows through ``table_upload_wire``
+    + ``table_plan_resident`` (donated) + ``table_download_wire``, each
+    batch exact against numpy; then the stream through
+    ``table_stream_wire`` at depth 2; all once with the default bucket
+    ladder and once with ``SPARK_RAPIDS_TPU_BUCKETS=off`` (equal
+    5-tuples). Per batch and setting: wall and device time, the
+    ``bucket.*`` and ``compile_cache.*`` counters, the tier's launches
+    and declines and each kernel's launches.
+(p) the formulations — BASELINE config 1 (16,000,000 rows, 10,000
+    int64 keys, SUM/COUNT) with a FLOAT64 SUM through
+    ``ops.groupby_aggregate`` under ``SPARK_RAPIDS_TPU_GROUPBY_FORMULATION``
+    single, packed (K4b through the router) and chunked: integers equal
+    numpy and each other, each FLOAT64 sum the port's CPU bytes for the
+    same formulation; ``sort_table_packed`` of (e)'s batch by
+    ss_item_sk against ``sort_table`` and ``inner_join_batched_packed``
+    of (a)'s batch with item against ``inner_join`` (K3 sorts the packed
+    words), equal bytes; each part timed and its device time profiled.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -4527,6 +4550,336 @@ def oplib_kernel_records(d: dict, od: dict, qn: dict) -> list:
         note="(n1): the window SUM/AVG prefix; bits compared")]
 
 
+# ---------------------------------------------------------------------------
+# (o) the shape-bucket plane over a ragged batch stream; (p) the packed and
+# chunked formulations and the eager groupby's router
+# ---------------------------------------------------------------------------
+
+# (o): a Spark task's ragged stream: a full batch, batches a row past a
+# bucket or short of one (a file's last partial batch, AQE-coalesced or
+# filter-shrunk batches), and the smallest
+BUCKET_BATCH_ROWS = (8_388_608, 4_194_305, 3_000_000, 1_048_577, 1_048_575,
+                     200_001, 1_025, 1)
+# (o)'s resident chain: the semi join's build side is (i1)'s category
+# items (table_ids[1]); the partition is (d)'s
+BUCKET_RESIDENT_PLAN = [
+    FROM_FACT_ROWS,
+    {"op": "filter", "mask": 4},
+    {"op": "sort_by", "keys": [{"column": 0}]},
+    {"op": "join", "how": "semi", "on": [0]},
+    {"op": "partition", "kind": "hash", "keys": [0, 1],
+     "num": EXCHANGE_PARTITIONS},
+    {"op": "to_rows"},
+]
+BUCKET_COUNTERS = ("bucket.pad_tables", "compile_cache.hit",
+                   "compile_cache.miss", "kernel.launches", "kernel.declines",
+                   "bucket.dispatched", "bucket.declined")
+# (p): BASELINE config 1 (16,000,000 rows, 10,000 int64 keys, SUM/COUNT)
+# with a FLOAT64 SUM beside it, under each GROUPBY_FORMULATION
+FORMULATIONS = ("single", "packed", "chunked")
+
+
+def prefix_wire(d: dict, n: int):
+    """The LIST<UINT8> wire batch of the first ``n`` fact rows."""
+    offs = (np.arange(n + 1, dtype=np.int64) * 32).astype(np.int32)
+    return ([24], [5], [offs.tobytes() + d["rows"][:n].tobytes()], [None], n)
+
+
+def bucket_chain_oracle(d: dict, dd: dict, n: int) -> np.ndarray:
+    """(o)'s resident chain over the first ``n`` rows in numpy: the kept
+    rows of the category's items, stably sorted by item_sk, then stably
+    by Spark's Pmod(Murmur3(item_sk, customer_sk), 200), as 32-byte rows
+    of four columns (the keep flag gone: its validity bit too)."""
+    m = d["keep"][:n] & category_mask(dd)[d["item_sk"][:n]]
+    idx = np.flatnonzero(m)
+    idx = idx[np.argsort(d["item_sk"][idx], kind="stable")]
+    h = np.full(idx.shape[0], 42, np.uint32)
+    h = murmur3_long_np(d["item_sk"][idx], None, h)
+    h = murmur3_long_np(d["customer_sk"][idx], d["customer_ok"][idx], h)
+    pid = np.mod(h.view(np.int32).astype(np.int64), EXCHANGE_PARTITIONS)
+    idx = idx[np.argsort(pid, kind="stable")]
+    rows = np.zeros((idx.shape[0], 32), np.uint8)
+    rows[:, :28] = d["rows"][idx, :28]
+    rows[:, 28] = d["rows"][idx, 29] & 0x0F
+    return rows
+
+
+def device_window_ms(run, runs: int = 2) -> float:
+    """Device time a call of ``run`` (which ends in a synchronise), summed
+    over every kernel ``torch.profiler`` saw, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            run()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / runs
+
+
+def phase_buckets(rb, kernels, d: dict, dd: dict) -> dict:
+    """(o): (h)'s plan through ``table_plan_wire`` and the resident chain
+    ``BUCKET_RESIDENT_PLAN`` on each batch of ``BUCKET_BATCH_ROWS``, then
+    the stream through ``table_stream_wire`` at depth 2, once with the
+    default ladder and once with ``BUCKETS=off``: every result exact
+    against numpy and the two runs' 5-tuples equal; per batch the wall
+    and device time, the bucket and runner-cache counters and the tier's
+    launches and declines, for each setting."""
+    from spark_rapids_jni_tpu_torch.utils import buckets, config, metrics
+
+    plan = json.dumps(WIRE_PLAN)
+    chain = json.dumps(BUCKET_RESIDENT_PLAN)
+    wires = {n: prefix_wire(d, n) for n in BUCKET_BATCH_ROWS}
+    oracles = {n: (wire_plan_oracle(d, n), bucket_chain_oracle(d, dd, n))
+               for n in BUCKET_BATCH_ROWS}
+    out, rows = {}, []
+    config.set_flag("METRICS", True)
+    try:
+        for setting in ("", "off"):
+            config.set_flag("BUCKETS", setting)
+            buckets.cache_clear()
+            label = setting or "default"
+            for n in BUCKET_BATCH_ROWS:
+                rec = {"rows": n, "buckets": label,
+                       "bucket": buckets.bucket_for(n)}
+
+                def run_plan():
+                    res = rb.table_plan_wire(plan, *wires[n], device=DEVICE)
+                    torch.cuda.synchronize()
+                    return res
+
+                def run_chain():
+                    ids = [rb.table_upload_wire(*wires[n], device=DEVICE),
+                           rb.table_upload_wire(*dd["item_cat_wire"],
+                                                device=DEVICE)]
+                    try:
+                        tid = rb.table_plan_resident(chain, ids, donate=True)
+                        try:
+                            return rb.table_download_wire(tid)
+                        finally:
+                            rb.table_free(tid)
+                    finally:
+                        rb.table_free(ids[1])
+
+                for tag, fn in (("plan", run_plan), ("chain", run_chain)):
+                    metrics.reset()
+                    kernels.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = fn()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    c = metrics.snapshot()
+                    rec[tag] = {
+                        "first_wall_ms": wall,
+                        "counters": {k: c["counters"].get(k, 0)
+                                     for k in BUCKET_COUNTERS},
+                        "pad_waste_bytes": c["bytes"].get(
+                            "bucket.pad_waste_bytes", 0),
+                        "launches": {k: v.launches
+                                     for k, v in kernels.KERNELS.items()
+                                     if v.launches}}
+                    out[(label, tag, n)] = res
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        fn()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    rec[tag]["wall_ms"] = statistics.median(times)
+                    rec[tag]["device_ms"] = device_window_ms(fn)
+                free = [k for k in rb._RESIDENT]
+                if free:
+                    raise AssertionError(f"(o) left resident ids {free}")
+                check_rows(out[(label, "plan", n)], oracles[n][0])
+                check_rows(out[(label, "chain", n)], oracles[n][1])
+                log(f"(o) {label:7s} {n:>9,} rows (bucket {rec['bucket']}): "
+                    f"plan {rec['plan']['wall_ms']:.2f} ms wall, "
+                    f"{rec['plan']['device_ms']:.3f} ms device, "
+                    f"{rec['plan']['counters']}, waste "
+                    f"{rec['plan']['pad_waste_bytes']} B, launches "
+                    f"{rec['plan']['launches']}; chain "
+                    f"{rec['chain']['wall_ms']:.2f} ms wall, "
+                    f"{rec['chain']['device_ms']:.3f} ms device, "
+                    f"{rec['chain']['counters']}, waste "
+                    f"{rec['chain']['pad_waste_bytes']} B, launches "
+                    f"{rec['chain']['launches']}")
+                rows.append(rec)
+            config.set_flag("PIPELINE", "2")
+            try:
+                batches = [wires[n] for n in BUCKET_BATCH_ROWS]
+                rb.table_stream_wire(plan, batches[-2:], device=DEVICE)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = rb.table_stream_wire(plan, batches, device=DEVICE)
+                torch.cuda.synchronize()
+                stream_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                config.clear_flag("PIPELINE")
+            for n, res in zip(BUCKET_BATCH_ROWS, got):
+                if tuple(res) != tuple(out[(label, "plan", n)]):
+                    raise AssertionError(
+                        f"(o) stream batch of {n} rows differs from "
+                        "table_plan_wire")
+            out[(label, "stream")] = stream_ms
+            log(f"(o) {label} stream of {len(batches)} batches at depth 2: "
+                f"{stream_ms:.1f} ms, every batch equal to table_plan_wire")
+    finally:
+        config.clear_flag("BUCKETS")
+        config.clear_flag("METRICS")
+    differ = [(tag, n) for n in BUCKET_BATCH_ROWS for tag in ("plan", "chain")
+              if tuple(out[("default", tag, n)]) != tuple(out[("off", tag, n)])]
+    if differ:
+        raise AssertionError(f"(o) buckets default and off differ: {differ}")
+    for tag in ("plan", "chain"):
+        never = [k for k in kernels.KERNELS
+                 if k in ("unpack_rows", "pack_rows", "build_table")
+                 and not any(r[tag]["launches"].get(k) for r in rows)]
+        if never:
+            raise AssertionError(f"(o) {tag} never launched {never}")
+    if not any(r["chain"]["launches"].get(k) for r in rows
+               for k in ("probe_table", "batched_sort_u64_looped",
+                         "murmur3_table_fused")):
+        raise AssertionError("(o) the chain launched no K2b/K3/K5")
+    log("(o) buckets default and off: equal 5-tuples for every batch")
+    return {"batches": rows,
+            "stream_ms": {k: out[(k, "stream")] for k in ("default", "off")}}
+
+
+def phase_formulations(kernels, g: dict, d: dict, seed: int) -> dict:
+    """(p): ``ops.groupby_aggregate`` of BASELINE config 1 with a FLOAT64
+    sum under each ``GROUPBY_FORMULATION``: the integer columns equal
+    numpy and each other, each FLOAT64 sum the port's CPU bytes for the
+    same formulation; then ``sort_table_packed`` of (e)'s batch against
+    ``sort_table`` and ``inner_join_batched_packed`` of (a)'s batch with
+    item against ``inner_join``, equal bytes; each part profiled."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch import ops, rows as rows_mod
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.ops.join_packed import (
+        inner_join_batched_packed,
+    )
+    from spark_rapids_jni_tpu_torch.ops.sort_packed import sort_table_packed
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    rng = np.random.default_rng(seed + 15)
+    f = rng.normal(50, 10, g["k"].shape[0])
+    aggs = [ops.GroupbyAgg(1, "sum"), ops.GroupbyAgg(1, "count"),
+            ops.GroupbyAgg(2, "sum")]
+
+    def table(dev):
+        return Table([Column.from_numpy(g["k"], device=dev),
+                      Column.from_numpy(g["v"], device=dev),
+                      Column.from_numpy(f, device=dev)], ["k", "v", "f"])
+
+    keys, inv = np.unique(g["k"], return_inverse=True)
+    want_sum = np.bincount(inv, weights=g["v"]).astype(np.int64)
+    want_cnt = np.bincount(inv).astype(np.int64)
+    gt, ct = table(DEVICE), table("cpu")
+    res, parts = {}, {}
+    try:
+        for form in FORMULATIONS:
+            config.set_flag("GROUPBY_FORMULATION", form)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ops.groupby_aggregate(gt, [0], aggs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                        if v.launches}
+            cols = [c.data.cpu().numpy() for c in out.columns]
+            for name, got, want in (("key", cols[0], keys),
+                                    ("sum", cols[1], want_sum),
+                                    ("count", cols[2], want_cnt)):
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"(p) {form} {name} != numpy")
+            cpu = ops.groupby_aggregate(ct, [0], aggs)
+            fsum = cols[3].tobytes()
+            if fsum != cpu.columns[3].data.numpy().tobytes():
+                raise AssertionError(
+                    f"(p) {form} FLOAT64 sums differ from the CPU's bytes")
+            res[form] = cols
+
+            def run():
+                ops.groupby_aggregate(gt, [0], aggs)
+                torch.cuda.synchronize()
+
+            parts[form] = {"first_wall_ms": wall, "launches": launches,
+                           "device_ms": device_window_ms(run),
+                           "wall_ms": cuda_ms(run, 3)}
+            log(f"(p) groupby {form}: {keys.shape[0]} groups exact, FLOAT64 "
+                f"sums equal the CPU's bytes; {parts[form]['wall_ms']:.2f} ms "
+                f"wall, {parts[form]['device_ms']:.3f} ms device; launches "
+                f"{launches}")
+    finally:
+        config.clear_flag("GROUPBY_FORMULATION")
+    for form in FORMULATIONS[1:]:
+        for i in range(3):
+            if not np.array_equal(res[form][i], res["single"][i]):
+                raise AssertionError(f"(p) {form} column {i} != single's")
+        parts[form]["float_sums_differ_from_single"] = int(
+            (res[form][3] != res["single"][3]).sum())
+    if not parts["packed"]["launches"].get("batched_sort_u32"):
+        raise AssertionError("(p) the packed router launched no K4b")
+
+    n = d["rows"].shape[0]
+    fact = rows_mod.from_rows_list(
+        Column(torch.from_numpy(d["rows"]).to(DEVICE), dt.DType(dt.TypeId.LIST),
+               None, torch.full((n,), 32, dtype=torch.int32, device=DEVICE)),
+        [dt.DType(dt.TypeId(t)) for t in FACT_TYPES])
+    item = Table([Column.from_numpy(d["i_item_sk"], device=DEVICE),
+                  Column.from_numpy(d["i_brand_id"], device=DEVICE),
+                  Column.from_numpy(d["i_category_id"], device=DEVICE)])
+
+    def same(a, b, what):
+        for i, (x, y) in enumerate(zip(a.columns, b.columns)):
+            for attr in ("data", "validity", "lengths"):
+                u, v = getattr(x, attr), getattr(y, attr)
+                if (u is None) != (v is None) or (
+                        u is not None and not torch.equal(u, v)):
+                    raise AssertionError(f"(p) {what}: column {i} {attr}")
+
+    for tag, packed_fn, plain_fn in (
+        ("sort_table_packed",
+         lambda: sort_table_packed(fact, [0]),
+         lambda: ops.sort_table(fact, [ops.SortKey(0)])),
+        ("inner_join_batched_packed",
+         lambda: inner_join_batched_packed(fact, item, [0]),
+         lambda: ops.inner_join(fact, item, [0])),
+    ):
+        kernels.reset_launches()
+        got = packed_fn()
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        if got is None:
+            raise AssertionError(f"(p) {tag} declined (e)'s batch")
+        same(got, plain_fn(), tag)
+
+        def run(fn=packed_fn):
+            fn()
+            torch.cuda.synchronize()
+
+        def run_plain(fn=plain_fn):
+            fn()
+            torch.cuda.synchronize()
+
+        parts[tag] = {"launches": launches, "rows": got.row_count,
+                      "device_ms": device_window_ms(run),
+                      "wall_ms": cuda_ms(run, 3),
+                      "plain_device_ms": device_window_ms(run_plain),
+                      "plain_wall_ms": cuda_ms(run_plain, 3)}
+        log(f"(p) {tag}: {got.row_count} rows equal the general op's bytes; "
+            f"{parts[tag]['wall_ms']:.2f} ms wall, "
+            f"{parts[tag]['device_ms']:.3f} ms device (general op "
+            f"{parts[tag]['plain_wall_ms']:.2f} ms wall, "
+            f"{parts[tag]['plain_device_ms']:.3f} ms device); launches "
+            f"{launches}")
+        if not launches.get("batched_sort_u64_looped"):
+            raise AssertionError(f"(p) {tag} launched no K3")
+    return parts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4591,15 +4944,19 @@ def main(argv=None) -> int:
         "faults": lambda: phase_faults(rb, mctx),
         "registry": lambda: phase_registry(rb, mctx),
         "oplib": lambda: phase_oplib(kernels, d, od),
+        "buckets": lambda: phase_buckets(rb, kernels, d, dd),
+        "formulations": lambda: phase_formulations(kernels, g, d, args.seed),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
     for name, fn in phases.items():
+        t0 = time.perf_counter()
         try:
             res[name] = fn()
         except Exception:  # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     recs = []
     if all(k in res for k in ("query", "rowconv", "exchange", "sort",
                               "groupby")):
@@ -4676,7 +5033,8 @@ def main(argv=None) -> int:
         "decimal": res["decimal"], "decimal_ops": res["decimal_ops"],
         "stream": res["stream"], "spill": res["spill"],
         "faults": res["faults"], "registry": res["registry"],
-        "oplib": res["oplib"], **hard}))
+        "oplib": res["oplib"], "buckets": res["buckets"],
+        "formulations": res["formulations"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,12 @@ storage values; STRING: uint8 bytes, zero past each row's length) and
 ``lengths`` the int32 element or byte counts; packed rows are
 LIST<UINT8> with every length equal to the row size.
 
-``Table.logical_rows`` is carried so the port's tables read like the JAX
-package's, but the port runs on exact shapes and never pads: it is
-always None here.
+``Table.logical_rows`` carries the real row count of a table padded to
+a shape bucket (``utils/buckets.py``): its buffers hold ``row_count``
+rows, of which the first ``logical_rows`` are real; None means every
+row is. Only the bucketed dispatch layer (``bucketed.py``, the kernel
+tier) reads a padded table; every other op gets
+``buckets.unpad_table`` of it first.
 
 Entry points that create tensors take ``device=`` (default ``"cuda"``)
 and raise when CUDA is absent and the caller did not ask for the CPU.
@@ -38,31 +41,45 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
-def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``. To a CUDA device the array
-    is staged in pinned host memory (one host copy, which also frees the
-    caller's bytes at once) and copied with ``non_blocking=True`` on the
-    current stream: the host returns before the copy ends, and the
-    caching host allocator keeps the staging block until the copy is
-    done. On the CPU the tensor shares a writeable array's memory."""
+def upload(arr: np.ndarray, device: torch.device,
+           rows: Optional[int] = None) -> torch.Tensor:
+    """A host array as a tensor on ``device``, its row dimension zero-
+    padded to ``rows`` (a shape bucket) when that is given. To a CUDA
+    device the array is staged in pinned host memory (one host copy,
+    which also frees the caller's bytes at once; the padding is zeroed
+    in that buffer) and copied with ``non_blocking=True`` on the current
+    stream: the host returns before the copy ends, and the caching host
+    allocator keeps the staging block until the copy is done. On the CPU
+    an unpadded tensor shares a writeable array's memory."""
     arr = np.asarray(arr)
+    n = arr.shape[0]
+    shape = arr.shape if rows is None or rows == n else (rows,) + arr.shape[1:]
     if torch.device(device).type != "cuda":
+        if shape != arr.shape:
+            out = np.zeros(shape, arr.dtype)
+            out[:n] = arr
+            return torch.from_numpy(out)
         if not arr.flags.writeable:  # e.g. a view of wire bytes
             arr = arr.copy()
         return torch.from_numpy(np.ascontiguousarray(arr))
     dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
-    staged = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
-    np.copyto(staged.numpy(), arr, casting="no")
-    out = torch.empty(arr.shape, dtype=dtype, device=device)
+    staged = torch.empty(shape, dtype=dtype, pin_memory=True)
+    host = staged.numpy()
+    np.copyto(host[:n], arr, casting="no")
+    if shape != arr.shape:
+        host[n:] = 0
+    out = torch.empty(shape, dtype=dtype, device=device)
     out.copy_(staged, non_blocking=True)
     return out
 
 
 def host_to_storage(
-    arr: np.ndarray, dtype: dt.DType, device: torch.device
+    arr: np.ndarray, dtype: dt.DType, device: torch.device,
+    rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Host buffer (the JAX package's storage dtype, or FLOAT64 values)
-    -> the port's storage tensor on ``device``."""
+    -> the port's storage tensor on ``device`` (zero-padded to ``rows``,
+    see :func:`upload`)."""
     arr = np.asarray(arr)
     if dtype.id == dt.TypeId.FLOAT64 and arr.dtype == np.float64:
         arr = arr.view(np.uint64)
@@ -70,7 +87,7 @@ def host_to_storage(
         arr = arr.astype(dtype.host_dtype)
     if arr.dtype == np.uint64 and dtype.storage_dtype == torch.int64:
         arr = arr.view(np.int64)  # FLOAT64 bits and DECIMAL128 limbs
-    return upload(arr, device)
+    return upload(arr, device, rows)
 
 
 def host_storage_view(arr: np.ndarray, dtype: dt.DType) -> np.ndarray:
@@ -276,9 +293,16 @@ class Table:
             names = tuple(names)
             if len(names) != len(columns):
                 raise ValueError("names/columns length mismatch")
+        if logical_rows is not None:
+            logical_rows = int(logical_rows)
+            physical = columns[0].row_count if columns else 0
+            if not 0 <= logical_rows <= physical:
+                raise ValueError(
+                    f"logical_rows {logical_rows} out of range for "
+                    f"{physical} physical rows")
         self.columns = columns
         self.names = names
-        self.logical_rows = None if logical_rows is None else int(logical_rows)
+        self.logical_rows = logical_rows
 
     @property
     def num_columns(self) -> int:
@@ -293,6 +317,10 @@ class Table:
         if self.logical_rows is not None:
             return self.logical_rows
         return self.row_count
+
+    @property
+    def is_padded(self) -> bool:
+        return self.logical_rows is not None
 
     def column(self, key: Union[int, str]) -> Column:
         if isinstance(key, str):

@@ -29,7 +29,14 @@ aggregations; float and decimal aggregation values. What does not:
   path never stands in for a kernel;
 * the TPU VMEM bounds. The port's tables live in device memory; its only
   bounds keep every row and slot id inside the kernels' int32 indices
-  (see the constants below).
+  (see the constants below);
+* the bucket. A runner takes the JAX tier's padded input (the table's
+  bucket, ``utils/buckets.py``), masks the padding with the tail
+  occupancy and returns the JAX tier's padded result, padding bytes
+  included. Where the table has no bucket (``BUCKETS=off``, past the
+  ladder's cap) the JAX tier declines ("no shape bucket"); the port's
+  kernels need none, so its runners take the exact table and give the
+  exact path's bytes.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 
 from .. import dtype as dt
 from ..column import Column, Table
-from ..utils import config, faults, metrics
+from ..utils import buckets, config, faults, metrics
 
 #: Registered kernel entries.
 KERNEL_NAMES = frozenset(
@@ -90,6 +97,22 @@ def _order_word_reason(col: Column) -> Optional[str]:
     return None
 
 
+def _bucketed_input(table: Table) -> Table:
+    """The input a runner works on: a padded table as it is, an exact one
+    padded to its bucket as the JAX tier pads it, or (no bucket) the
+    exact table."""
+    if table.logical_rows is not None or not buckets.enabled():
+        return table
+    b = buckets.bucket_for(table.logical_row_count)
+    return table if b is None else buckets.pad_table(table, b)
+
+
+def _occupancy(table: Table) -> torch.Tensor:
+    """True for the logical rows of the table's physical ones."""
+    return buckets.tail_valid(table.row_count, table.logical_row_count,
+                              table.columns[0].data.device)
+
+
 def _resolve_col(table: Table, spec) -> Optional[Column]:
     try:
         return table.column(spec)
@@ -135,29 +158,40 @@ def _a_packed_sort(op: dict, table: Table, rest) -> Optional[str]:
         return r
     from . import bitonic_sort
 
-    n = table.row_count
-    if n == 0:
+    if table.logical_row_count == 0:
         return "empty input"
-    # the rows pad to T = next_pow2(n), which the int32 perm bounds
+    # the rows pad to T = next_pow2(bucket), which the int32 perm bounds
+    n = _bucketed_rows(table)
     if _next_pow2(max(n, 2)) > bitonic_sort.MAX_T:
         return f"{n} rows over the int32 perm bound"
     return None
+
+
+def _bucketed_rows(table: Table) -> int:
+    """The physical rows of :func:`_bucketed_input` of the table."""
+    if table.logical_rows is not None or not buckets.enabled():
+        return table.row_count
+    return buckets.bucket_for(table.logical_row_count) or table.row_count
 
 
 def _r_packed_sort(op: dict, table: Table, rest) -> Table:
     from ..ops import keys as keys_mod
     from . import bitonic_sort
 
+    table = _bucketed_input(table)
     kspec = op["keys"][0]
     w = keys_mod.column_order_keys(table.column(kspec["column"]))[0]
     if not bool(kspec.get("ascending", True)):
         w = ~w
     n = table.row_count
     pad = _next_pow2(max(n, 2)) - n
-    # padding rows take the all-ones key at the tail indices, so the index
-    # tiebreak keeps a real all-ones key (INT64 max ascending, INT64 min
-    # descending) ahead of them
+    # padding rows, of the bucket and of the network, take the all-ones
+    # key, so the index tiebreak keeps a real all-ones key (INT64 max
+    # ascending, INT64 min descending) ahead of them and the bucket's
+    # padding rows in their order behind the real ones
     u = keys_mod.to_unsigned_bits(w)
+    if table.logical_rows is not None:
+        u = torch.where(_occupancy(table), u, -1)
     key = torch.cat([u, u.new_full((pad,), -1)]) if pad else u
     bufs = _payload_buffers(table)
     pays = [torch.cat([b, b.new_zeros(pad)]) if pad else b.contiguous()
@@ -175,7 +209,7 @@ def _r_packed_sort(op: dict, table: Table, rest) -> Table:
             data = c.data[perm.to(torch.int64)]
         cols.append(Column(data, c.dtype, got.get((i, "validity")),
                            got.get((i, "lengths"))))
-    return Table(cols, table.names)
+    return Table(cols, table.names, logical_rows=table.logical_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -204,51 +238,67 @@ def _a_hash_join(op: dict, table: Table, rest) -> Optional[str]:
         r = _order_word_reason(col)
         if r is not None:
             return f"{side} side: {r}"
-    if table.row_count == 0 or rest[0].row_count == 0:
+    if table.logical_row_count == 0 or rest[0].logical_row_count == 0:
         return "empty join side"
-    if rest[0].row_count > JOIN_BUILD_MAX_ROWS:
+    if _bucketed_rows(rest[0]) > JOIN_BUILD_MAX_ROWS:
         return f"build side {rest[0].row_count} rows over the int32 slot bound"
-    if table.row_count > JOIN_PROBE_MAX_ROWS:
+    if _bucketed_rows(table) > JOIN_PROBE_MAX_ROWS:
         return f"probe side {table.row_count} rows over the int32 row bound"
     return None
 
 
 def _r_hash_join(op: dict, table: Table, rest) -> Table:
-    from ..ops.filter import filter_table
+    from ..ops.filter import filter_table, filter_table_capped
     from ..ops.join import join_output
     from . import hash_table
 
-    right = rest[0]
+    table = _bucketed_input(table)
+    right = _bucketed_input(rest[0])
+    padded = table.logical_rows is not None or right.logical_rows is not None
+    lv, rv = _occupancy(table), _occupancy(right)
     on = list(op["on"])
     blo, bhi = _key_halves(right.column(on[0]))
-    bval = torch.ones_like(blo)
     slots = 2 * _next_pow2(right.row_count)
     _, tlo, thi, trow, ovf, dup = hash_table.build_table(
-        blo, bhi, bval, table_slots=slots
+        blo, bhi, rv.to(torch.int32)[None, :], table_slots=slots
     )
     plo, phi = _key_halves(table.column(on[0]))
     found, rrow, unres = hash_table.probe_table(
-        plo, phi, torch.ones_like(plo), tlo, thi, trow
+        plo, phi, lv.to(torch.int32)[None, :], tlo, thi, trow
     )
     ovf, dup, unres = (int(x) for x in torch.stack([ovf, dup, unres]).cpu())
     if ovf or unres:
         raise KernelDecline("hash table probe bound exceeded")
     how = op.get("how", "inner")
+    # padding rows neither build nor probe; the probe keys are not null
+    # (the predicate declines nullable keys)
+    has = (found[0] != 0) & lv
     if how in ("semi", "anti"):
-        # membership only: duplicate build keys change nothing, and the
-        # probe keys are not null (the predicate declines nullable keys)
-        has = found[0] != 0
-        return filter_table(table, Column(~has if how == "anti" else has,
-                                          dt.BOOL8, None))
+        # membership only: duplicate build keys change nothing
+        keep = Column((~has & lv) if how == "anti" else has, dt.BOOL8, None)
+        if table.logical_rows is None:
+            return filter_table(table, keep)
+        out, count = filter_table_capped(table, keep,
+                                         capacity=table.row_count)
+        return Table(out.columns, out.names, logical_rows=int(count))
     if dup:
         # the one-slot-per-key table holds one right row per key, so only
         # a unique-key build is byte-exact here
         raise KernelDecline("duplicate build-side keys")
-    left_idx = torch.nonzero(found[0]).flatten()
-    if left_idx.numel() == 0:
+    left_idx = torch.nonzero(has).flatten()
+    total = left_idx.numel()
+    if total == 0:
         raise KernelDecline("empty join result (exact path's schema)")
     right_idx = rrow[0][left_idx].to(torch.int64)
-    return join_output(table, right, on, left_idx, right_idx, None)
+    cap = buckets.bucket_for(total) if padded else None
+    if cap is None:
+        return join_output(table, right, on, left_idx, right_idx, None)
+    # the JAX tier's output bucket: slots past the total read row 0 of
+    # both sides
+    pad = torch.zeros(cap - total, dtype=torch.int64, device=left_idx.device)
+    out = join_output(table, right, on, torch.cat([left_idx, pad]),
+                      torch.cat([right_idx, pad]), None)
+    return Table(out.columns, out.names, logical_rows=total)
 
 
 # ---------------------------------------------------------------------------
@@ -279,28 +329,33 @@ def _a_hash_groupby(op: dict, table: Table, rest) -> Optional[str]:
         d = vc.dtype
         if d.is_string or d.is_decimal or d.is_floating or vc.data.ndim != 1:
             return f"{d.id.name} aggregation value (order-sensitive or multi-word)"
-    if table.row_count == 0:
+    if table.logical_row_count == 0:
         return "empty input"
-    if table.row_count > GROUPBY_MAX_ROWS:
+    if _bucketed_rows(table) > GROUPBY_MAX_ROWS:
         return f"{table.row_count} rows over the int32 slot bound"
     return None
 
 
 def _partial(acol: Column, aop: str, pid, ns: int, m) -> Column:
-    """One aggregation's per-slot partial over the live rows ``m``."""
+    """One aggregation's per-slot partial over the live rows ``m``, in
+    ``ns + 1`` slots: slot ``ns``, which no row reaches, holds what an
+    unused slot holds (no rows: count 0, sum 0, the extremes' sentinel,
+    not valid)."""
     from ..ops import compute
 
     dev = pid.device
+
+    def seg_sum(v):
+        return torch.zeros(ns + 1, dtype=torch.int64, device=dev).index_add_(
+            0, pid, v)
+
     if aop == "count":
-        part = torch.zeros(ns, dtype=torch.int64, device=dev)
-        return Column(part.index_add_(0, pid, m.to(torch.int64)), dt.INT64)
-    pv = torch.zeros(ns, dtype=torch.int64, device=dev).index_add_(
-        0, pid, m.to(torch.int64)) > 0
+        return Column(seg_sum(m.to(torch.int64)), dt.INT64)
+    pv = seg_sum(m.to(torch.int64)) > 0
     vals = compute.values(acol)
     if aop == "sum":
         v = torch.where(m, vals.to(torch.int64), 0)
-        part = torch.zeros(ns, dtype=torch.int64, device=dev)
-        return compute.from_values(part.index_add_(0, pid, v), dt.INT64, pv)
+        return compute.from_values(seg_sum(v), dt.INT64, pv)
     is_min = aop == "min"
     if acol.dtype.is_boolean:
         work, sentinel = vals.to(torch.uint8), int(is_min)
@@ -308,66 +363,90 @@ def _partial(acol: Column, aop: str, pid, ns: int, m) -> Column:
         info = torch.iinfo(vals.dtype)
         work, sentinel = vals, info.max if is_min else info.min
     masked = torch.where(m, work, torch.full_like(work, sentinel))
-    part = torch.full((ns,), sentinel, dtype=work.dtype, device=dev)
+    part = torch.full((ns + 1,), sentinel, dtype=work.dtype, device=dev)
     part = part.scatter_reduce(0, pid, masked, "amin" if is_min else "amax")
     if acol.dtype.is_boolean:
         part = part.to(torch.bool)
     return compute.from_values(part, acol.dtype, pv)
 
 
+def _group_names(op: dict, table: Table) -> list:
+    """The exact path's output names of a one-key groupby."""
+    by0 = op["by"][0]
+    names = table.names
+    out = [by0 if isinstance(by0, str)
+           else (names[by0] if names else "key0")]
+    for a in op["aggs"]:
+        ac = a["column"]
+        base = ac if isinstance(ac, str) else (names[ac] if names else f"c{ac}")
+        out.append(f"{a['agg']}_{base}")
+    return out
+
+
+_MERGE_OP = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
 def _r_hash_groupby(op: dict, table: Table, rest) -> Table:
+    """The JAX tier's runner at the bucket length, and its bytes: the
+    padding rows build nothing, and the exact capped groupby merges the
+    C x S partial slots over the used ones into a result of the bucket's
+    rows (the exact path's rows, unpadded, for a table without a
+    bucket). The JAX package merges all C x S slots, the unused ones (each
+    no rows, with row 0's key) sorting behind the used ones as one
+    segment; one such slot in their place gives the same bytes, and the
+    partials take only the logical rows (the padding's are the dropped
+    slot's, and would pile onto one address)."""
     from ..ops import compute
     from ..ops.gather import gather_table
-    from ..ops.groupby import GroupbyAgg, groupby_aggregate
+    from ..ops.groupby import GroupbyAgg, groupby_aggregate_capped
     from . import hash_table
 
+    table = _bucketed_input(table)
+    exact = table.logical_rows is None  # no bucket: an exact result
     by0 = op["by"][0]
     aggs = list(op["aggs"])
-    n = table.row_count
-    t = min(GROUPBY_CHUNK_ROWS, _next_pow2(n))
-    c = -(-n // t)
+    b, n = table.row_count, table.logical_row_count
+    t = min(GROUPBY_CHUNK_ROWS, _next_pow2(b))
+    c = -(-b // t)
     s = 2 * t
     ns = c * s
     key_col = table.column(by0)
     lo, hi = _key_halves(key_col)
+    rv = _occupancy(table)
     dev = lo.device
-    pad = c * t - n
 
     def chunks(x):
-        return torch.nn.functional.pad(x[0], (0, pad)).reshape(c, t)
+        return torch.nn.functional.pad(x, (0, c * t - b)).reshape(c, t)
 
-    valid = chunks(torch.ones_like(lo))
     slot, _, _, trow, ovf, _ = hash_table.build_table(
-        chunks(lo), chunks(hi), valid, table_slots=s
-    )
+        chunks(lo[0]), chunks(hi[0]), chunks(rv.to(torch.int32)),
+        table_slots=s)
     if int(ovf):
         raise KernelDecline("chunk hash table overflow")
-    # partial id per input row: chunk * S + slot
-    chunk_of_row = torch.arange(n, device=dev) // t
-    pid = chunk_of_row * s + slot.reshape(-1)[:n].to(torch.int64)
-    # the claim winner of each used slot is the lowest row id of its key
-    # group in the chunk — the representative the exact sort elects
+    # every logical row holds a slot (no overflow): partial id chunk * S
+    # + slot
+    pid = (torch.arange(n, device=dev) // t) * s + slot.reshape(-1)[:n].to(
+        torch.int64)
     trow_f = trow.reshape(-1).to(torch.int64)
     used = torch.nonzero(trow_f >= 0).flatten()
-    rep = (used // s) * t + trow_f[used]
+    # the used slots in slot order, then one unused slot (index ns)
+    take = torch.cat([used, used.new_full((1,), ns)])
+    rep = torch.cat([(used // s) * t + trow_f[used], used.new_zeros(1)])
     part_cols = [Column(key_col.data[rep], key_col.dtype, None)]
+    rows = buckets.unpad_table(table)
     for a in aggs:
-        acol = table.column(a["column"])
+        acol = rows.column(a["column"])
         part = _partial(acol, a["agg"], pid, ns, compute.valid_mask(acol))
-        part_cols.append(gather_table(Table([part]), used).columns[0])
-    merge_op = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
-    merged = groupby_aggregate(
+        part_cols.append(gather_table(Table([part]), take).columns[0])
+    merged, num_groups = groupby_aggregate_capped(
         Table(part_cols), [0],
-        [GroupbyAgg(i + 1, merge_op[a["agg"]]) for i, a in enumerate(aggs)],
-    )
-    names = table.names
-    out_names = [by0 if isinstance(by0, str)
-                 else (names[by0] if names else "key0")]
-    for a in aggs:
-        ac = a["column"]
-        base = ac if isinstance(ac, str) else (names[ac] if names else f"c{ac}")
-        out_names.append(f"{a['agg']}_{base}")
-    return Table(merged.columns, out_names)
+        [GroupbyAgg(i + 1, _MERGE_OP[a["agg"]]) for i, a in enumerate(aggs)],
+        num_segments=b, row_valid=take < ns)
+    out = Table(merged.columns, _group_names(op, table),
+                logical_rows=int(num_groups))
+    return buckets.unpad_table(out) if exact else out
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +464,7 @@ def _a_row_pack(op: dict, table: Table, rest) -> Optional[str]:
 def _r_row_pack(op: dict, table: Table, rest) -> Table:
     from .. import rows as rows_mod
 
-    return Table([rows_mod.to_rows_list(table)])
+    return Table([rows_mod.to_rows_list(buckets.unpad_table(table))])
 
 
 def _a_row_unpack(op: dict, table: Table, rest) -> Optional[str]:
@@ -402,7 +481,8 @@ def _r_row_unpack(op: dict, table: Table, rest) -> Table:
 
     schema = [dt.DType(dt.TypeId(t_), s_)
               for t_, s_ in zip(op["type_ids"], op["scales"])]
-    return rows_mod.from_rows_list(table.columns[0], schema)
+    return rows_mod.from_rows_list(buckets.unpad_table(table).columns[0],
+                                   schema)
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +566,17 @@ def _on_cuda(table: Table, rest: Sequence[Table]) -> bool:
     return any(c.data.is_cuda for t in (table, *rest) for c in t.columns[:1])
 
 
+def _gate_open(table: Table, rest: Sequence[Table]) -> bool:
+    mode = tier_mode()
+    return mode == "on" or (mode == "auto" and _on_cuda(table, rest))
+
+
+def routes(name: str, table: Table, rest: Sequence[Table] = ()) -> bool:
+    """True when the tier's gate is open for these tables and an entry
+    covers the op ``name`` (it may still decline the op)."""
+    return bool(_BY_OP.get(name)) and _gate_open(table, rest)
+
+
 def dispatch_kernel(
     op: dict, table: Table, rest: Sequence[Table], name: str
 ) -> Optional[Table]:
@@ -495,8 +586,7 @@ def dispatch_kernel(
     ``FAULTS`` plan injects at the ``kernel`` site retries the same
     runner (``kernel.retries``); a failure of the runner itself raises.
     Neither is replayed on the exact path."""
-    mode = tier_mode()
-    if mode == "off" or (mode == "auto" and not _on_cuda(table, rest)):
+    if not _gate_open(table, rest):
         return None
     for spec in _BY_OP.get(name, ()):
         if spec.applicable(op, table, rest) is not None:

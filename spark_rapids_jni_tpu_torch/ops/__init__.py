@@ -1,6 +1,6 @@
 """The port's op library: the JAX package's ``ops/`` (keys, gather,
-filter, sort, groupby with its capped and packed-key two-level forms,
-the joins of every kind with their capped, count and chunked forms,
+filter, sort, groupby with its capped, chunked and packed-key forms, the
+joins of every kind with their capped, count and chunked forms,
 compaction, the copy family with ``sample``, binary and unary ops,
 casts, Murmur3 hashing, partitioning, the STRING casts and comparisons,
 regular expressions, LIST explode, window functions, reductions, scans,
@@ -20,6 +20,9 @@ from .copying import (
 from .filter import filter_table, filter_table_capped
 from .gather import gather_column, gather_table
 from .groupby import GroupbyAgg, groupby_aggregate, groupby_aggregate_capped
+from .groupby_chunked import (
+    groupby_aggregate_capped_chunked, groupby_aggregate_chunked,
+)
 from .hashing import murmur3_column, murmur3_table
 from .lists import (
     count_elements, explode, explode_outer, explode_position,
@@ -53,15 +56,14 @@ from .window import (
 
 #: JAX ``ops.__all__`` names still to port -> the ROADMAP Queue 1 item
 WAITING = {
-    "groupby_aggregate_chunked": "item 4 (packed and chunked variants)",
-    "groupby_aggregate_capped_chunked": "item 4 (packed and chunked variants)",
     "split_explode": "item 6 (the rest of the strings)",
 }
 
 __all__ = [
     "compute", "keys", "filter_table", "filter_table_capped",
     "gather_column", "gather_table", "GroupbyAgg", "groupby_aggregate",
-    "groupby_aggregate_capped", "inner_join", "inner_join_capped",
+    "groupby_aggregate_capped", "groupby_aggregate_chunked",
+    "groupby_aggregate_capped_chunked", "inner_join", "inner_join_capped",
     "inner_join_count", "inner_join_batched", "inner_join_batches",
     "left_join", "left_join_capped", "left_join_count", "right_join",
     "full_join", "semi_join", "anti_join", "membership_mask", "distinct",

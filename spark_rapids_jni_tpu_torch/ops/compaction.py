@@ -21,14 +21,15 @@ from ..column import Column, Table
 from . import compute
 from .filter import filter_table, filter_table_capped
 from .keys import SIGN64, column_order_keys
-from .sort import lexsort
+from .sort import lexsort, occupied_prefix
 
 
 def _first_of_run_mask(table: Table, keys: Optional[Sequence],
                        row_valid: Optional[torch.Tensor] = None) -> Column:
     """BOOL8 mask of the first occurrence of each distinct key row. A
     ``row_valid`` False row (padding) joins no real row's run and is never
-    kept."""
+    kept; when ``row_valid`` is a prefix (a padded table), only the
+    prefix is sorted."""
     cols = ([table.column(k) for k in keys] if keys is not None
             else list(table.columns))
     words: list = []
@@ -36,16 +37,22 @@ def _first_of_run_mask(table: Table, keys: Optional[Sequence],
         cwords = column_order_keys(c)
         if c.validity is not None:
             cwords = [torch.where(c.validity, w, SIGN64) for w in cwords]
-            cwords.append(c.validity.to(torch.int64))
+            cwords.append(c.validity.to(torch.uint8))
         words.extend(cwords)
-    if row_valid is not None:
-        words.append(row_valid.to(torch.int64))
     n = table.row_count
+    rows = n
+    if row_valid is not None and n:
+        rows = occupied_prefix(row_valid)
+        if rows is None:
+            rows = n
+            words.append(row_valid.to(torch.uint8))
+        else:
+            words = [w[:rows] for w in words]
     dev = table.columns[0].data.device
     keep = torch.zeros(n, dtype=torch.bool, device=dev)
-    if n:
+    if rows:
         perm = lexsort(words)
-        head = torch.zeros(n, dtype=torch.bool, device=dev)
+        head = torch.zeros(rows, dtype=torch.bool, device=dev)
         head[0] = True
         for w in words:
             sw = w[perm]

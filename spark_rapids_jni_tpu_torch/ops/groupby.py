@@ -44,7 +44,7 @@ from ..column import Column, Table
 from . import compute
 from . import keys as keys_mod
 from .gather import take_rows
-from .sort import lexsort
+from .sort import lexsort, lexsort_occupied
 
 _AGG_OPS = {
     "sum", "count", "min", "max", "mean", "variance", "std",
@@ -80,11 +80,11 @@ def _group_words(key_cols: Sequence[Column],
     with null rows set to the u64 word 0."""
     words: list[torch.Tensor] = []
     if row_valid is not None:
-        words.append((~row_valid).to(torch.int64))
+        words.append((~row_valid).to(torch.uint8))
     for c in key_cols:
         ks = keys_mod.column_order_keys(c)
         if c.validity is not None:
-            words.append(c.validity.to(torch.int64))
+            words.append(c.validity.to(torch.uint8))
             words.extend(torch.where(c.validity, w, keys_mod.SIGN64)
                          for w in ks)
         else:
@@ -92,10 +92,12 @@ def _group_words(key_cols: Sequence[Column],
     return words
 
 
-def _sorted_segments(words):
-    """(perm, seg, boundary) of a stable sort by ``words``: segment ids
-    count the rows where any word changes."""
-    perm = lexsort(words)
+def _sorted_segments(words, perm=None):
+    """(perm, seg, boundary) of a stable sort by ``words`` (``perm`` when
+    the caller sorted them): segment ids count the rows where any word
+    changes."""
+    if perm is None:
+        perm = lexsort(words)
     n = perm.shape[0]
     boundary = torch.zeros(n, dtype=torch.bool, device=perm.device)
     boundary[:1] = True
@@ -293,16 +295,11 @@ def _valid_rank_rows(valid: torch.Tensor, starts, ranks) -> torch.Tensor:
         target.shape)
 
 
-def _masked_rows(data: torch.Tensor, rows: torch.Tensor, n: int,
-                 scan_rows: int) -> torch.Tensor:
+def _masked_rows(data: torch.Tensor, rows: torch.Tensor,
+                 n: int) -> torch.Tensor:
     """``data[rows]`` clipped to the table, as the JAX package's gather
-    clips. Where the JAX wire entries padded the table (``scan_rows`` past
-    ``n``), a row past the last real one is a zero padding row."""
-    out = take_rows(data, _clip_rows(rows, n))
-    if scan_rows > n:
-        past = (rows >= n).reshape(-1, *[1] * (out.dim() - 1))
-        out = torch.where(past, torch.zeros_like(out), out)
-    return out
+    clips."""
+    return take_rows(data, _clip_rows(rows, n))
 
 
 def _first_occurrence(d: dt.DType, seg, data, valid):
@@ -313,7 +310,7 @@ def _first_occurrence(d: dt.DType, seg, data, valid):
     from .sort import lexsort
 
     vword = keys_mod.column_order_keys(Column(data, d))[0]
-    perm = lexsort([seg.to(torch.int64), (~valid).to(torch.int64), vword])
+    perm = lexsort([seg.to(torch.int64), (~valid).to(torch.uint8), vword])
     seg2, vword2 = seg[perm], vword[perm]
     new = torch.ones(perm.shape[0], dtype=torch.bool, device=perm.device)
     new[1:] = (seg2[1:] != seg2[:-1]) | (vword2[1:] != vword2[:-1])
@@ -352,7 +349,7 @@ def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
     if op in ("first", "last"):
         ranks = (torch.ones_like(n_valid) if op == "first" else n_valid)
         rows = _valid_rank_rows(valid, starts, ranks[:, None])[:, 0]
-        return Column(_masked_rows(data, rows, data.shape[0], scan_rows),
+        return Column(_masked_rows(data, rows, data.shape[0]),
                       d, has)
     if d.id == dt.TypeId.DECIMAL128:
         return _reduce_dec128(d, op, data, valid, seg, starts, ends, segsum,
@@ -527,26 +524,47 @@ def groupby_aggregate(
     table: Table,
     by: Sequence[Union[int, str]],
     aggs: Sequence[GroupbyAgg],
-    padded: bool = False,
 ) -> Table:
     """Groupby with an exact output size (one host sync for the count;
     one more sizes the LIST pad of a collect aggregation without a
     ``list_capacity``: the largest group's valid rows, as the JAX
     package's count pre-pass gives it).
 
-    ``padded=True`` reduces as the JAX package's wire entries do: they pad
-    a table to its shape bucket (:func:`wire_rows`) before the groupby,
-    so a 1-row table's -0.0 float sum, min or max comes out +0.0 there,
-    and a ``first`` that finds no valid row reads a zero padding row.
-    Every other result is the same either way."""
+    Above :data:`CHUNKED_MIN_ROWS` rows the ``GROUPBY_FORMULATION`` flag
+    routes it as the JAX package does: ``single`` (the default) runs the
+    one sort below; ``packed`` tries the packed-key design
+    (``groupby_packed.groupby_aggregate_packed``), then the chunked one;
+    ``chunked`` the chunked one (``groupby_chunked``). A design that
+    cannot take the shape gives way to the next."""
+    formulation = "single"
+    if table.row_count > CHUNKED_MIN_ROWS:
+        from ..utils.config import get_flag
+
+        formulation = get_flag("GROUPBY_FORMULATION")
+    if formulation == "packed":
+        from .groupby_packed import (
+            groupby_aggregate_packed, packed_groupby_supported,
+        )
+
+        if packed_groupby_supported(table, by, aggs):
+            out = groupby_aggregate_packed(table, by, aggs)
+            if out is not None:
+                return out
+    if formulation in ("packed", "chunked"):
+        from .groupby_chunked import (
+            chunked_groupby_supported, groupby_aggregate_chunked,
+        )
+
+        if chunked_groupby_supported(table, aggs):
+            out = groupby_aggregate_chunked(table, by, aggs)
+            if out is not None:
+                return out
     for a in aggs:
         _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
     out_names = _agg_names(table, by, aggs)
     if table.row_count == 0:
         return _empty_result(table, key_cols, aggs, out_names)
-    n = table.row_count
-    rows = wire_rows(n) if padded else n
     perm, seg, starts, ends = _segment_ids(key_cols)
     first_rows = perm[starts]
     out_cols = []
@@ -563,24 +581,14 @@ def groupby_aggregate(
             nv = _segment_sum(compute.valid_mask(col)[perm].to(torch.int64),
                               starts, ends)
             cap = max(1, int(nv.max()))
-        out_cols.append(_aggregate(col, a.op, perm, seg, starts, ends, rows,
-                                   cap))
+        out_cols.append(_aggregate(col, a.op, perm, seg, starts, ends,
+                                   table.row_count, cap))
     return Table(out_cols, out_names)
 
 
-def wire_rows(n: int) -> int:
-    """The rows a JAX wire entry pads an ``n``-row table to: its default
-    shape-bucket ladder (x2 from 1,024, none past 2^23 rows)."""
-    if n <= 0 or n > _BUCKET_CAP:
-        return n
-    b = _BUCKET_FLOOR
-    while b < n:
-        b *= 2
-    return b
-
-
-_BUCKET_FLOOR = 1024
-_BUCKET_CAP = 1 << 23
+#: above this, ``GROUPBY_FORMULATION`` packed/chunked routes a groupby
+#: through the two-level designs (the JAX package's threshold)
+CHUNKED_MIN_ROWS = 4_000_000
 
 
 def _empty_result(table, key_cols, aggs, out_names) -> Table:
@@ -660,19 +668,28 @@ def groupby_aggregate_capped(
     ``row_valid`` False rows (padding) sort behind every real row, behind
     a leading occupancy word, and the count is the highest segment that
     holds a valid row. A collect aggregation needs its ``list_capacity``
-    (groups past it are truncated to it)."""
+    (groups past it are truncated to it).
+
+    Every segment id past the last one the rows reach is empty, and its
+    output row is the same for each of them (a range past the last row):
+    the aggregations run over the segments reached and one empty one,
+    whose row fills the rest (one host sync reads the segment count)."""
     for a in aggs:
         _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
     n = table.row_count
-    perm, seg, _ = _sorted_segments(_group_words(key_cols, row_valid))
+    words = _group_words(key_cols, row_valid)
+    perm = (None if row_valid is None
+            else lexsort_occupied(words[1:], row_valid))
+    perm, seg, _ = _sorted_segments(words, perm)
     if row_valid is not None:
         rv_sorted = row_valid[perm]
         num_groups = torch.where(rv_sorted, seg + 1, 0).max()
     else:
         num_groups = seg[-1] + 1
-    starts, ends = _segment_bounds(seg, num_segments)
-    in_range = torch.arange(num_segments, device=perm.device) < num_groups
+    m = num_segments if n == 0 else min(num_segments, int(seg[-1]) + 2)
+    starts, ends = _segment_bounds(seg, m)
+    in_range = torch.arange(m, device=perm.device) < num_groups
     first_rows = perm[_clip_rows(starts.to(torch.int64), n)]
     out_cols = []
     for col in key_cols:
@@ -682,7 +699,18 @@ def groupby_aggregate_capped(
             None if col.lengths is None else col.lengths[first_rows]))
     for a in aggs:
         r = _capped_aggregate(table.column(a.column), a.op, perm, seg, starts,
-                              ends, row_valid, num_segments, a.list_capacity)
+                              ends, row_valid, m, a.list_capacity)
         valid = compute.valid_mask(r) & in_range
         out_cols.append(Column(r.data, r.dtype, valid, r.lengths))
+    out_cols = [Column(*(_fill_rows(x, num_segments)
+                         for x in (c.data, c.dtype, c.validity, c.lengths)))
+                for c in out_cols]
     return Table(out_cols, _agg_names(table, by, aggs)), num_groups
+
+
+def _fill_rows(x, rows: int):
+    """``x`` (a column's buffer) to ``rows`` rows, its last row repeated;
+    anything else as it is."""
+    if not isinstance(x, torch.Tensor) or x.shape[0] >= rows:
+        return x
+    return torch.cat([x, x[-1:].expand(rows - x.shape[0], *x.shape[1:])])

@@ -28,7 +28,10 @@ package carries them through a variadic ``lax.sort``); ``"pallas"``, the
 word alone through K4a (``kernels.bitonic_sort.batched_sort_u64``);
 ``"pallas32"``, the word's low 32 bits through K4b
 (``batched_sort_u32``) when the range fits. The two kernel engines take
-the permutation from the sorted words' iota bits.
+the permutation from the sorted words' iota bits. The eager
+:func:`groupby_aggregate_packed` picks the engine (:func:`_engine`):
+``"pallas32"`` on a CUDA table whose keys fit the u32 word, else
+``"pallas"``; ``"lax"`` on the CPU.
 
 Eligibility is static (one or more no-null integer-family keys, no-null
 decomposable values); whether the range fits is data-dependent and comes
@@ -474,6 +477,20 @@ def _assemble_output(table, plan, finals, valid_out, out_cols, out_names):
     return out_cols, out_names
 
 
+def _engine(table: Table, rel_max: int, chunk_rows: int) -> str:
+    """Phase 1's sort engine for the eager groupby: on a CUDA table K4b
+    (``"pallas32"``) where every relative key fits the u32 word beside
+    the chunk's iota bits, else K4a (``"pallas"``); on the CPU the
+    stable sort the JAX package uses (``"lax"``). The bytes are the same
+    under every engine."""
+    if not table.columns[0].data.is_cuda or chunk_rows & (chunk_rows - 1):
+        return "lax"
+    iota_bits = max(1, (chunk_rows - 1).bit_length())
+    if iota_bits < 32 and rel_max < (1 << (32 - iota_bits)) - 1:
+        return "pallas32"
+    return "pallas"
+
+
 def groupby_aggregate_packed(
     table: Table,
     by: Sequence[Union[int, str]],
@@ -543,11 +560,13 @@ def groupby_aggregate_packed(
             raise RuntimeError("flat packed groupby overflow")
         return _slice_groups(out, int(ng))
 
+    engine = _engine(table, spans[0] if field_bits is None
+                     else (1 << span_bits) - 1, chunk_rows)
     for _ in range(2):
         out, num_groups, max_chunk, overflow = (
             groupby_aggregate_packed_chunked(
                 table, by, aggs, min(c * chunk_segments, n), chunk_rows,
-                chunk_segments, field_bits,
+                chunk_segments, field_bits, engine,
             ))
         if bool(overflow):
             raise RuntimeError("packed groupby range overflow")

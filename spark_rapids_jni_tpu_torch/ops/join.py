@@ -169,11 +169,17 @@ def match_ranges(
     nl = lvalid.shape[0]
     kid = _dense_ids(lwords, rwords)
     lkid, rkid = kid[:nl], kid[nl:]
-    nkeys = nl + rkid.shape[0]  # a bound on the ids, known without a sync
+    nr = rkid.shape[0]
+    nkeys = nl + nr  # a bound on the ids, known without a sync
     perm_r = torch.sort(rkid + rvalid.to(torch.int64) * nkeys,
                         stable=True).indices
-    per_key = torch.zeros(nkeys, dtype=torch.int64, device=kid.device)
-    per_key.index_add_(0, rkid, rvalid.to(torch.int64))
+    # rows that cannot match count in a slot of their own past the ids
+    # (padding rows would pile onto their one key's counter)
+    per_key = torch.zeros(nkeys + nr, dtype=torch.int64, device=kid.device)
+    per_key.index_add_(0, torch.where(
+        rvalid, rkid, nkeys + torch.arange(nr, device=kid.device)),
+        rvalid.to(torch.int64))
+    per_key = per_key[:nkeys]
     first = torch.cumsum(per_key, 0) - per_key
     n_invalid = (~rvalid).sum()
     lo = n_invalid + first[lkid]
@@ -369,27 +375,14 @@ def left_join(
     right: Table,
     on: Sequence[Union[int, str]],
     right_on: Optional[Sequence[Union[int, str]]] = None,
-    padded: bool = False,
 ) -> Table:
     """LEFT OUTER equi-join with an exact output size (one host sync):
-    every left row with its matches, or once with a null right side.
-
-    ``padded=True`` gives the bytes of the JAX package's wire entries,
-    which pad the build side to its shape bucket first: when no build
-    key is valid, an unmatched row's null right side reads a zero
-    padding row there, where the exact join reads the last build row."""
-    from ..ops.groupby import wire_rows
-    from .copying import slice_rows
-
+    every left row with its matches, or once with a null right side."""
     right_on = right_on or on
     perm_r, lo, counts = match_ranges(left, right, on, right_on)
     emit = counts.clamp(min=1)
     left_idx, right_idx, matched, _ = _expand(perm_r, lo, counts,
                                               int(emit.sum()), emit)
-    m = right.row_count
-    if padded and m and wire_rows(m) > m and not bool(
-            _key_words([right.column(c) for c in right_on], None)[1].any()):
-        right = slice_rows(right, 0, 0)  # every right side reads zeros
     return join_output(left, right, right_on, left_idx, right_idx, matched)
 
 

@@ -44,7 +44,7 @@ def _key_words(col: Column, key: SortKey) -> list[torch.Tensor]:
         words = [
             torch.where(col.validity, w, keys_mod.SIGN64) for w in words
         ]
-        v = col.validity.to(torch.int64)
+        v = col.validity.to(torch.uint8)  # a one-byte word sorts in one pass
         words = [v if key.resolved_nulls_first else 1 - v] + words
     return words
 
@@ -70,6 +70,44 @@ def lexsort(words: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def occupied_prefix(row_valid: torch.Tensor) -> Optional[int]:
+    """k when ``row_valid`` holds exactly its first k rows (a padded
+    table's occupancy), else None. One host sync."""
+    k = row_valid.sum()
+    iota = torch.arange(row_valid.shape[0], device=row_valid.device)
+    is_prefix = (row_valid == (iota < k)).all()
+    k, is_prefix = torch.stack([k, is_prefix.to(k.dtype)]).tolist()
+    return int(k) if is_prefix else None
+
+
+def lexsort_occupied(words: Sequence[torch.Tensor],
+                     row_valid: torch.Tensor) -> torch.Tensor:
+    """``lexsort`` of the occupancy word (``row_valid`` False rows last)
+    and ``words``. When the occupancy is a prefix of k rows (a padded
+    table), the two parts sort apart: the k rows by ``words``, and the
+    padding behind them by ``words`` too, unless every word is constant
+    there (a padding of zeros or of one row's clones), which a stable
+    sort leaves in row order. The permutation is the same either way;
+    one host sync reads both tests."""
+    n = row_valid.shape[0]
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=row_valid.device)
+    dev = row_valid.device
+    k = row_valid.sum()
+    iota = torch.arange(n, device=dev)
+    tests = [k, (row_valid == (iota < k)).all()] + [
+        (row_valid | (w == w[-1])).all() for w in words]
+    k, is_prefix, *constant = torch.stack(
+        [t.to(torch.int64) for t in tests]).tolist()
+    if not is_prefix:
+        return lexsort([(~row_valid).to(torch.uint8)] + list(words))
+    head = (lexsort([w[:k] for w in words]) if words and k
+            else torch.arange(k, device=dev))
+    if all(constant):
+        return torch.cat([head, torch.arange(k, n, device=dev)])
+    return torch.cat([head, k + lexsort([w[k:] for w in words])])
+
+
 def argsort_table(
     table: Table,
     sort_keys: Sequence[Union[SortKey, str, int]],
@@ -79,7 +117,7 @@ def argsort_table(
     ``row_valid`` False rows sink to the end."""
     words = _table_key_words(table, sort_keys)
     if row_valid is not None:
-        words = [(~row_valid).to(torch.int64)] + words
+        return lexsort_occupied(words, row_valid)
     return lexsort(words)
 
 

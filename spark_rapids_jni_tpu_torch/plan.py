@@ -1,16 +1,21 @@
 """Plan runner (port of ``plan.py`` ``run_plan``).
 
 A plan is a JSON list of op objects run one after another over a flowing
-table. PyTorch runs eagerly, so there is no fusion and no segmenting:
-every op goes through ``runtime_bridge._dispatch_once`` (kernel tier
-first, then the exact path), under the fault ladder the JAX package
-applies to a fused segment (``_run_fused_tolerant``), here per op
-(:func:`_run_op_tolerant`).
+table. The JAX package compiles maximal runs of fusable ops into one
+executable a segment; the port runs eagerly and fuses nothing: every op
+goes through ``runtime_bridge._dispatch_once`` (kernel tier, then the
+bucketed runner, then the exact path on unpadded inputs; a runner's
+``_Decline`` runs the exact path), under the fault ladder the JAX
+package applies to a fused segment (``_run_fused_tolerant``), here per
+op (:func:`_run_op_tolerant`). :func:`op_fusable` and
+:func:`segment_plan` are the JAX package's host functions: the wire
+entries read them to decide, as the JAX package does, whether a plan's
+upload is padded to its bucket.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from .column import Table, table_tensors
 from .utils import faults, hbm, metrics, spill
@@ -20,6 +25,64 @@ from .utils import faults, hbm, metrics, spill
 # concatenate, byte-identically. sort_by/distinct/groupby/slice are
 # global and never split.
 _ROW_LOCAL = frozenset({"cast", "filter", "rlike"})
+
+
+# single-table ops a fused segment of the JAX package carries anywhere
+_SIMPLE_FUSABLE = frozenset(
+    {"cast", "filter", "rlike", "distinct", "sort_by", "slice"})
+
+
+def op_fusable(op: dict) -> bool:
+    """Could this op ride inside one of the JAX package's fused segments?
+    (A groupby closes its run, see :func:`segment_plan`.) The bucketable
+    single-table ops, ``slice`` with non-negative bounds, and a groupby
+    without a collect aggregation."""
+    if not isinstance(op, dict):
+        return False
+    name = op.get("op")
+    if name in _SIMPLE_FUSABLE:
+        if name == "slice":
+            try:
+                start = int(op.get("start", 0))
+                stop = op.get("stop")
+                return start >= 0 and (stop is None or int(stop) >= 0)
+            except (TypeError, ValueError):
+                return False
+        return True
+    if name == "groupby":
+        from .ops.groupby import _COLLECT_OPS
+
+        return not any(a.get("agg") in _COLLECT_OPS
+                       for a in op.get("aggs", ()))
+    return False
+
+
+def segment_plan(ops: Sequence[dict]) -> List[Tuple[str, list]]:
+    """The JAX package's segments of a plan, ``[(kind, ops)]``:
+    ``"fused"`` (a run of two or more fusable ops, a groupby closing its
+    run) or ``"exact"`` (one op through the per-op dispatch). The port
+    runs both kinds op by op."""
+    segs: List[Tuple[str, list]] = []
+    cur: list = []
+
+    def flush():
+        nonlocal cur
+        if len(cur) >= 2:
+            segs.append(("fused", cur))
+        else:
+            segs.extend(("exact", [o]) for o in cur)
+        cur = []
+
+    for op in ops:
+        if op_fusable(op):
+            cur.append(op)
+            if op.get("op") == "groupby":
+                flush()
+        else:
+            flush()
+            segs.append(("exact", [op]))
+    flush()
+    return segs
 
 
 def _take_rest(op: dict, orig_rest: tuple, queue: list) -> list:
@@ -54,13 +117,15 @@ def _run_chunked(op: dict, table: Table, rest: list) -> Table:
     when the input is too small to split."""
     from . import runtime_bridge
     from .ops.copying import concatenate, slice_rows
+    from .utils import buckets
 
+    table = buckets.unpad_table(table)
     n = int(table.row_count)
     if n < 2:
         raise faults.ResourceExhausted(
             f"op OOM at {n} row(s): nothing left to split")
-    halves = [runtime_bridge._dispatch_once(
-        op, slice_rows(table, lo, hi), rest, op["op"])
+    halves = [buckets.unpad_table(runtime_bridge._dispatch_once(
+        op, slice_rows(table, lo, hi), rest, op["op"]))
         for lo, hi in ((0, n // 2), (n // 2, n))]
     metrics.counter_add("plan.chunked_segments")
     return concatenate(halves)

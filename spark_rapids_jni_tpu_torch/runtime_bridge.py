@@ -28,9 +28,18 @@ spill tier (``utils/spill.py``: a resident id may be a
 ``SpilledTable``, repaged on access). On CUDA a wire table is staged in
 pinned host memory and copied asynchronously, and a result comes back
 through pinned buffers with one event synchronised
-(``column.upload``/``column.download``). The JAX package pads wire
-tables to a shape bucket; the port runs exact shapes, which gives the
-same logical rows.
+(``column.upload``/``column.download``).
+
+The shape-bucket plane (``utils/buckets.py``, ``SPARK_RAPIDS_TPU_BUCKETS``)
+runs under these entries as it does in the JAX package: a wire upload
+whose first op can take a bucketed runner (``bucketed.is_bucketable``;
+for a plan, its first segment, ``plan.segment_plan``), and every
+resident upload, is padded to its row-count bucket on the host, in the
+pinned staging buffer, and carries its real count as
+``Table.logical_rows``; every op goes to the kernel tier, then to the
+bucketed runner, then to the exact path on unpadded inputs; results
+stay padded on the device, and the wire encode slices the padding away.
+Row counters count logical rows.
 Where the JAX entries raise on an input Spark can send (a join with a
 0-row side, a ``concat`` of unnamed tables), the port returns Spark's
 result.
@@ -52,7 +61,7 @@ from .column import (
     Column, Table, download, host_storage_view, host_to_storage,
     resolve_device, table_tensors, upload,
 )
-from .utils import faults, hbm, lockcheck, log, metrics, spill
+from .utils import buckets, faults, hbm, lockcheck, log, metrics, spill
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -119,24 +128,26 @@ def _wire_validity(valid: Optional[bytes], num_rows: int):
 
 def _column_from_wire(type_id: int, scale: int, data: Optional[bytes],
                       valid: Optional[bytes], num_rows: int,
-                      device: torch.device) -> Column:
-    """Decode one wire column onto ``device``."""
+                      device: torch.device,
+                      pad_to: Optional[int] = None) -> Column:
+    """Decode one wire column onto ``device``, every buffer zero-padded
+    to ``pad_to`` rows in its staging copy when that is given."""
     v = _wire_validity(valid, num_rows)
-    vt = None if v is None else upload(v, device)
+    vt = None if v is None else upload(v, device, pad_to)
     tid = dt.TypeId(type_id)
     if tid in (dt.TypeId.LIST, dt.TypeId.STRING):
         child = (dt.UINT8 if tid == dt.TypeId.STRING
                  else dt.DType(dt.TypeId(scale)))
         mat, lens = _padded_from_offsets(data, num_rows, child.host_dtype,
                                          tid.name)
-        return Column(upload(mat, device), dt.DType(tid), vt,
-                      upload(lens, device))
+        return Column(upload(mat, device, pad_to), dt.DType(tid), vt,
+                      upload(lens, device, pad_to))
     d = dt.DType(tid, scale)
     if d.id == dt.TypeId.DECIMAL128:
         arr = np.frombuffer(data, np.uint64, 2 * num_rows).reshape(num_rows, 2)
     else:
         arr = np.frombuffer(data, _wire_np(d), num_rows)
-    return Column(host_to_storage(arr, d, device), d, vt)
+    return Column(host_to_storage(arr, d, device, pad_to), d, vt)
 
 
 def _column_to_wire(c: Column, data: np.ndarray, valid, lens):
@@ -152,18 +163,24 @@ def _column_to_wire(c: Column, data: np.ndarray, valid, lens):
 
 
 def _table_from_wire(type_ids, scales, datas, valids, num_rows: int,
-                     device: torch.device) -> Table:
-    """One wire decode: host decode per column, then the upload. A
-    decode is pure (the caller's bytes are never consumed), so the
-    ``serde`` fault site retries transient failures here freely."""
+                     device: torch.device,
+                     pad_to: Optional[int] = None) -> Table:
+    """One wire decode: host decode per column, then the upload, padded
+    to the bucket ``pad_to`` when that is given (the table then carries
+    ``logical_rows``). A decode is pure (the caller's bytes are never
+    consumed), so the ``serde`` fault site retries transient failures
+    here freely."""
 
     def attempt():
         faults.inject("serde")
         with metrics.span("wire.deserialize"):
-            return Table([
-                _column_from_wire(t, s, d, v, num_rows, device)
+            tbl = Table([
+                _column_from_wire(t, s, d, v, num_rows, device, pad_to)
                 for t, s, d, v in zip(type_ids, scales, datas, valids)
-            ])
+            ], logical_rows=None if pad_to is None else num_rows)
+        if pad_to is not None:
+            buckets.note_padded(tbl)
+        return tbl
 
     return faults.run_with_retry(attempt, "wire.in")
 
@@ -171,15 +188,20 @@ def _table_from_wire(type_ids, scales, datas, valids, num_rows: int,
 def _table_to_wire(t: Table):
     """The 5-tuple every wire entry returns. Every tensor of the table
     crosses to the host in one pass (``column.download``: pinned buffers,
-    one event). Pure reads, so the ``serde`` fault site retries here
-    too."""
+    one event), the padding of a bucketed table left behind: only the
+    logical rows of each buffer (a view, no device work) are copied.
+    Pure reads, so the ``serde`` fault site retries here too."""
+    rows = t.logical_rows
+
+    def cut(x):
+        return x if x is None or rows is None else x[:rows]
 
     def attempt():
         faults.inject("serde")
         with metrics.span("wire.serialize"):
             flat = []
             for c in t.columns:
-                flat += [c.data, c.validity, c.lengths]
+                flat += [cut(c.data), cut(c.validity), cut(c.lengths)]
             host = download(flat)
             out_t, out_s, out_d, out_v = [], [], [], []
             for i, c in enumerate(t.columns):
@@ -230,14 +252,29 @@ def _dispatch(op: dict, table: Table, rest: Sequence[Table] = ()) -> Table:
 
 def _dispatch_once(op: dict, table: Table, rest: Sequence[Table],
                    name: str) -> Table:
-    """Run one op, kernel tier first; ``join`` takes the probe side as
-    ``table`` and the build side as ``rest[0]``."""
+    """Run one op: the kernel tier first, then (with bucketing on) the
+    bucketed runner, then the exact path on unpadded inputs; ``join``
+    takes the probe side as ``table`` and the build side as ``rest[0]``.
+    The op's row counters count logical rows."""
     from .kernels import registry as kernel_registry
 
     with metrics.span("dispatch." + name):
         out = kernel_registry.dispatch_kernel(op, table, rest, name)
+        if out is None and buckets.enabled():
+            from . import bucketed
+
+            out = bucketed.dispatch_bucketed(op, table, rest, name)
         if out is None:
-            out = _dispatch_impl(op, table, rest, name)
+            out = _dispatch_impl(op, buckets.unpad_table(table),
+                                 [buckets.unpad_table(t) for t in rest],
+                                 name)
+    if metrics.enabled():
+        rows_in = table.logical_row_count + sum(
+            t.logical_row_count for t in rest)
+        metrics.counter_add("op." + name + ".calls")
+        metrics.counter_add("op." + name + ".rows_in", rows_in)
+        metrics.counter_add("op." + name + ".rows_out", out.logical_row_count)
+        metrics.hist_observe("dispatch.rows_in", rows_in)
     return out
 
 
@@ -275,18 +312,12 @@ def _dispatch_impl(op: dict, table: Table, rest: Sequence[Table],
             raise ValueError(f"unknown join how={how!r}")
         if not rest:
             raise ValueError("join needs two input tables")
-        if how == "left":  # the JAX wire entries pad its build side
-            return ops.left_join(table, rest[0], op["on"], padded=True)
         return getattr(ops, _JOINS[how])(table, rest[0], op["on"])
     if name == "concat":
         return ops.concatenate([table, *rest])
     if name == "groupby":
         aggs = [ops.GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
-        # the JAX wire entries pad to a shape bucket and reduce as they
-        # do, but for a collect, which runs on their exact path
-        collect = any(a.op.startswith("collect") for a in aggs)
-        return ops.groupby_aggregate(table, op["by"], aggs,
-                                     padded=not collect)
+        return ops.groupby_aggregate(table, op["by"], aggs)
     if name == "distinct":
         return ops.distinct(table, op.get("keys"))
     if name == "cross_join":
@@ -466,10 +497,16 @@ def table_upload_wire(
     num_rows: int,
     device: Union[str, torch.device] = "cuda",
 ) -> int:
-    """Host bytes -> device-resident table; returns its id."""
+    """Host bytes -> device-resident table; returns its id. With
+    bucketing on, the resident buffers are padded to the row-count
+    bucket on the host, before the upload, and the table carries its
+    logical row count: a chain of bucketed ops then runs at one length a
+    bucket without padding again."""
     dev = resolve_device(device)
+    pad_to = buckets.bucket_for(int(num_rows)) if buckets.enabled() else None
     return _resident_put(
-        _table_from_wire(type_ids, scales, datas, valids, int(num_rows), dev)
+        _table_from_wire(type_ids, scales, datas, valids, int(num_rows), dev,
+                         pad_to)
     )
 
 
@@ -572,9 +609,10 @@ def _run_resident(ops, inputs, donate: bool, barrier):
     for p in barrier:
         p.settle_terminally()
     with _on_device(tables):
+        protected = _live_storages() if donate else None
         return plan_mod.run_plan(
             ops, tables[0], tables[1:], donate_input=donate,
-            protected=_live_storages() if donate else None)
+            protected=protected)
 
 
 def _resident_entry(ops, table_ids: Sequence[int], donate: bool,
@@ -659,9 +697,34 @@ def table_op_wire(
     is checked on the wire schema before the upload."""
     op = json.loads(op_json)
     _check_wire_plan([op], type_ids, scales, num_rows)
+    pad_to = None
+    if buckets.enabled():
+        from . import bucketed
+
+        # pad only an upload whose op can take the bucketed path: any
+        # other op would unpad it at once
+        if bucketed.is_bucketable(op):
+            pad_to = buckets.bucket_for(int(num_rows))
     tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
-                           resolve_device(device))
+                           resolve_device(device), pad_to)
     return _table_to_wire(_dispatch(op, tbl))
+
+
+def _plan_pad_to(ops, num_rows: int) -> Optional[int]:
+    """The bucket a plan's wire upload is padded to: only when the JAX
+    package's first segment reads the padding (a fused segment, or a
+    one-op segment with a bucketed runner); a malformed plan falls
+    through to ``plan.run_plan``'s own errors."""
+    from . import bucketed
+    from . import plan as plan_mod
+
+    if not (buckets.enabled() and ops and isinstance(ops[0], dict)):
+        return None
+    segs = plan_mod.segment_plan(ops)
+    if segs and (segs[0][0] == "fused"
+                 or bucketed.is_bucketable(segs[0][1][0])):
+        return buckets.bucket_for(int(num_rows))
+    return None
 
 
 def table_plan_wire(
@@ -685,7 +748,7 @@ def table_plan_wire(
         raise TypeError("table_plan_wire: plan must be a JSON list of ops")
     _check_wire_plan(ops, type_ids, scales, num_rows)
     tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
-                           resolve_device(device))
+                           resolve_device(device), _plan_pad_to(ops, num_rows))
     return _table_to_wire(plan_mod.run_plan(ops, tbl, donate_input=True))
 
 
@@ -720,7 +783,8 @@ def table_stream_wire(plan_json: str, batches: Sequence,
         type_ids, scales, datas, valids, num_rows = batch
         with pipeline.device_lane(dev, "decode"):
             tbl = _table_from_wire(type_ids, scales, datas, valids,
-                                   int(num_rows), dev)
+                                   int(num_rows), dev,
+                                   _plan_pad_to(ops, num_rows))
             return tbl, pipeline.mark(dev)
 
     def compute(decoded):

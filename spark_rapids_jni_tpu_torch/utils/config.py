@@ -16,6 +16,11 @@ taking precedence. Ported flags:
   ``BREAKER_THRESHOLD``, ``BREAKER_PROBE_S`` — ``utils/faults.py``.
 * ``SPILL``, ``SPILL_DIR``, ``HOST_SPILL_BUDGET_GB`` —
   ``utils/spill.py``; ``HBM_BUDGET_GB`` — ``utils/hbm.py``.
+* ``BUCKETS`` — the shape-bucket ladder of the dispatch plane
+  (``utils/buckets.py``, parsed there when it is read).
+* ``GROUPBY_FORMULATION`` — the eager groupby's route above
+  ``ops.groupby.CHUNKED_MIN_ROWS``: ``single`` (the default), ``packed``
+  or ``chunked``; any other value raises :class:`ValueError`.
 
 Defaults and parsers are the JAX package's; an invalid value raises
 :class:`ValueError` naming the flag when it is read.
@@ -41,6 +46,14 @@ def _parse_kernels(v: str) -> str:
     got = v.strip().lower()
     if got not in ("on", "off", "auto"):
         raise ValueError(f"KERNELS must be on|off|auto, got {v!r}")
+    return got
+
+
+def _parse_formulation(v: str) -> str:
+    got = v.strip().lower()
+    if got not in ("single", "packed", "chunked"):
+        raise ValueError(
+            f"GROUPBY_FORMULATION must be single|packed|chunked, got {v!r}")
     return got
 
 
@@ -138,6 +151,14 @@ _FLAGS = {
              "device memory budget in GiB for the footprint planner "
              "(utils/hbm.py); 0 = the device's own (CUDA: its total "
              "memory; CPU: 16)"),
+        Flag("GROUPBY_FORMULATION", "single", _parse_formulation,
+             "large-input eager groupby routing: single (one sort, the "
+             "default) | packed | chunked (the two-level designs)"),
+        Flag("BUCKETS", "", str,
+             "shape-bucket spec for the dispatch plane (utils/buckets.py):"
+             " '' = default geometric ladder (1024 x2 up to 8.4M rows), "
+             "'floor:growth[:cap]', an explicit 'a,b,c' size list, or "
+             "off|none|0 to disable pad-to-bucket batching"),
         Flag("PIPELINE", "", str,
              "pipelined dispatch plane (pipeline.py): off (default) = "
              "synchronous; an integer = depth (stages in flight: wire "

@@ -70,12 +70,14 @@ def test_distinct_matches_jax(n, keys):
 def test_distinct_capped_matches_jax(n):
     jt = _table(n, 3 * n)
     rv = np.random.default_rng(n).random(n) > 0.3
-    for row_valid in (None, rv):
+    # no occupancy, a random one, and a prefix (a padded table's)
+    for row_valid in (None, rv, np.arange(n) < 3 * n // 4):
         want, wc = jc.distinct_capped(jt, [0, 2], capacity=n,
                                       row_valid=row_valid)
         got, gc = pc.distinct_capped(
             _port(jt), [0, 2], capacity=n,
-            row_valid=None if row_valid is None else torch.from_numpy(rv))
+            row_valid=(None if row_valid is None
+                       else torch.from_numpy(row_valid)))
         assert int(wc) == int(gc)
         _same(want, got)
 

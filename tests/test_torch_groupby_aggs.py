@@ -142,15 +142,32 @@ def test_groupby_aggs_match_jax(case, n, key_nulls):
     _same(want, got)
 
 
-@pytest.mark.parametrize("with_row_valid", [False, True],
-                         ids=["all_rows", "row_valid"])
+def _clone_tail(jt: JTable, k: int) -> JTable:
+    """``jt`` with every row from ``k`` on a clone of row 0 (the tail a
+    capped filter leaves in a padded table)."""
+    idx = np.where(np.arange(jt.row_count) < k, np.arange(jt.row_count), 0)
+    return JTable([JColumn(c.data[idx], c.dtype,
+                           None if c.validity is None else c.validity[idx])
+                   for c in jt.columns], jt.names)
+
+
+@pytest.mark.parametrize("with_row_valid", [
+    "all_rows", "row_valid", "prefix", "prefix_clones"])
 @pytest.mark.parametrize("n", [2, 1023, 1025])
 def test_capped_aggs_match_jax(n, with_row_valid):
     """The capped groupby, every output row (padding rows included), with
-    a static LIST capacity that truncates the largest groups."""
+    a static LIST capacity that truncates the largest groups. The
+    occupancy is random, or a prefix of 3/4 of the rows (a padded
+    table) over random rows or over clones of row 0, which the port
+    leaves unsorted."""
     jt = _table(n, 7 * n, True)
-    rv = (np.random.default_rng(n).random(n) > 0.25 if with_row_valid
-          else None)
+    k = 3 * n // 4
+    if with_row_valid == "prefix_clones":
+        jt = _clone_tail(jt, k)
+    rv = {"all_rows": None,
+          "row_valid": np.random.default_rng(n).random(n) > 0.25,
+          "prefix": np.arange(n) < k,
+          "prefix_clones": np.arange(n) < k}[with_row_valid]
     aggs = (_aggs([1, 4], NEW_AGGS) + _aggs([3], NEW_AGGS + COLLECT)
             + _aggs([2], COLLECT))
     seg = n + 3

@@ -81,7 +81,9 @@ def test_scan_covers_the_package():
             "partition.py", "groupby_packed.py", "groupby_chunked.py",
             "graft_entry.py", "plancheck.py", "binaryop.py", "unaryop.py",
             "cast.py", "config.py", "metrics.py", "scan16.py",
-            "compaction.py", "copying.py", "join.py"} <= names
+            "compaction.py", "copying.py", "join.py", "buckets.py",
+            "bucketed.py", "factories.py", "sort_packed.py",
+            "join_packed.py"} <= names
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():

@@ -20,8 +20,6 @@ from spark_rapids_jni_tpu_torch.ops import window
 
 #: the JAX exports still to port, each with its ROADMAP Queue 1 item
 WAITING = {
-    "groupby_aggregate_chunked": "item 4",
-    "groupby_aggregate_capped_chunked": "item 4",
     "split_explode": "item 6",
 }
 

@@ -363,9 +363,9 @@ def test_free_spilled_releases_backing(tmp_path):
 @pytest.mark.parametrize("spilled", (False, True))
 def test_reclaim_returns_the_tables_bytes(spilled):
     """``table_reclaim`` returns the table's bytes, spilled or not, as
-    the JAX package's does for the same wire table."""
+    the JAX package's does for the same wire table (both padded to its
+    shape bucket)."""
     w = _mixed_wire(1025, 5)
-    jconfig.set_flag("BUCKETS", "off")
     jt = jrb.table_upload_wire(*w)
     want = jrb.table_reclaim(jt)
     config.set_flag("SPILL", "on")
