@@ -51,8 +51,11 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     from_rows -> filter -> cast quantity to INT64 -> groupby the sold date
     (SUM/COUNT/MIN/MAX) -> sort_by the date -> to_rows, exact against
     numpy, once with SPARK_RAPIDS_TPU_KERNELS=on and once off (equal
-    5-tuples; the tier's launch and decline counters printed for each);
-    then a 2^20-row legacy flat UINT8 input.
+    5-tuples; the tier's launch and decline counters printed for each):
+    [filter, cast, groupby] is one fused segment, where the tier is not
+    consulted; then once op by op (SPARK_RAPIDS_TPU_BUCKETS=off), where
+    the groupby runs K2a, and a 2^20-row legacy flat UINT8 input op by
+    op.
 (i) the rest of the dispatch plane — four resident plans through
     ``table_upload_wire`` + ``table_plan_resident`` over (a)'s batch:
     (i1) a LEFT SEMI join with the ~20,400 items of one category (K2a +
@@ -89,7 +92,13 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     rest of the string surface once at 2^20 rows against the CPU's
     bytes: explode, distinct, a descending sort on a nullable string,
     concat and cross_join of two pad widths, rlike, casts with
-    unparseable rows, the regex span ops, comparisons and ||.
+    unparseable rows, the regex span ops, comparisons and ||. (k5) runs
+    the string function library (``ops/strings.py`` length ... translate,
+    ``ops/strings_utf8.py``, ``concat_ws``, ``substring_column`` and
+    ``ops.split_explode``) over a 2,000,000-row multi-byte UTF-8 column
+    made from ``--seed`` beside customer's names, each call byte
+    for byte against the port's own CPU run, with its device time and
+    launches from the profiler.
 (l) DECIMAL128 — one Spark task's batch of TPC-H lineitem (2^23 rows,
     the specification's value ranges, the money columns DECIMAL64 at
     scale -2 with ~2 % nulls) through ``table_upload_wire`` +
@@ -165,6 +174,12 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     ss_item_sk against ``sort_table`` and ``inner_join_batched_packed``
     of (a)'s batch with item against ``inner_join`` (K3 sorts the packed
     words), equal bytes; each part timed and its device time profiled.
+(q) plan fusion — (h)'s plan and (o)'s resident chain over (a)'s 2^23
+    rows with the default ladder ([filter, cast, groupby] and [filter,
+    sort_by] are fused segments) and with ``SPARK_RAPIDS_TPU_BUCKETS=off``
+    (op by op): equal 5-tuples, each exact against numpy; the ``plan.*``
+    counters asserted (no fallback); the host syncs inside each fused
+    segment counted (at most one, its count); wall and device time.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -309,9 +324,12 @@ WIRE_PLAN = [
     {"op": "sort_by", "keys": [{"column": 0}]},
     {"op": "to_rows"},
 ]
-# the tier's kernels (h) runs: the sort's key comes out of the groupby
-# with a validity vector, so packed_sort (K3) declines in both packages
-WIRE_KERNELS = ("unpack_rows", "build_table", "pack_rows")
+# the tier's kernels (h) runs: [filter, cast, groupby] is one fused
+# segment (no tier inside it), and the sort's key comes out of the
+# groupby with a validity vector, so packed_sort (K3) declines in both
+# packages; op by op (BUCKETS=off) the groupby runs K2a too
+WIRE_KERNELS = ("unpack_rows", "pack_rows")
+WIRE_OFF_KERNELS = ("unpack_rows", "build_table", "pack_rows")
 FLAT_ROWS = 1 << 20  # (h)'s second run: a legacy flat UINT8 buffer
 
 
@@ -1739,9 +1757,10 @@ def query_step_tables(q: dict, device):
     return sales, items
 
 
-def count_syncs(fn) -> int:
-    """Host syncs one call of ``fn`` makes: the warnings of
-    ``torch.cuda.set_sync_debug_mode("warn")``."""
+def sync_sites(fn) -> list:
+    """Where one call of ``fn`` syncs with the host ("file:line" of the
+    Python call of each op that warns under
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
     import warnings
 
     torch.cuda.synchronize()
@@ -1752,7 +1771,13 @@ def count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def count_syncs(fn) -> int:
+    """Host syncs one call of ``fn`` makes (:func:`sync_sites`)."""
+    return len(sync_sites(fn))
 
 
 def phase_scan16(n: int, seed: int, launches: int) -> dict:
@@ -2075,6 +2100,14 @@ def phase_wire_plan(kernels, d: dict) -> dict:
             torch.cuda.synchronize()
 
         profile = profile_plan(run, median, "(h)")
+        # op by op: the groupby meets the tier (K2a)
+        config.set_flag("BUCKETS", "off")
+        kernels.reset_launches()
+        out["per_op"] = rb.table_plan_wire(plan, *d["fact_wire"],
+                                           device=DEVICE)
+        torch.cuda.synchronize()
+        per_op_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        check_rows(out["per_op"], want)
         n = FLAT_ROWS
         flat = ([5], [0], [d["rows"][:n].tobytes()], [None], n * 32)
         flat_plan = [dict(WIRE_PLAN[0], num_rows=n)] + WIRE_PLAN[1:]
@@ -2083,18 +2116,23 @@ def phase_wire_plan(kernels, d: dict) -> dict:
         torch.cuda.synchronize()
         flat_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
         check_rows(got, wire_plan_oracle(d, n))
-        log(f"(h) legacy flat UINT8 input: {n} rows exact; launches "
-            f"{flat_launches}")
+        log(f"(h) op by op (BUCKETS=off): equal 5-tuple, launches "
+            f"{per_op_launches}; legacy flat UINT8 input op by op: {n} rows "
+            f"exact; launches {flat_launches}")
     finally:
         config.clear_flag("KERNELS")
         config.clear_flag("METRICS")
-    if out["on"] != out["off"]:
-        raise AssertionError("(h) tier on and off give different bytes")
-    missing = [k for k in WIRE_KERNELS
-               if counters["on"]["kernels"][k] == 0 or flat_launches[k] == 0]
+        config.clear_flag("BUCKETS")
+    if not out["on"] == out["off"] == out["per_op"]:
+        raise AssertionError("(h) tier on, off and op by op give different "
+                             "bytes")
+    missing = ([k for k in WIRE_KERNELS if counters["on"]["kernels"][k] == 0]
+               + [k for k in WIRE_OFF_KERNELS
+                  if per_op_launches[k] == 0 or flat_launches[k] == 0])
     if missing:
         raise AssertionError(f"(h) never launched {missing}")
     return {"counters": counters, "wall_ms": median, "profile": profile,
+            "per_op_launches": per_op_launches,
             "flat_launches": flat_launches}
 
 
@@ -3054,6 +3092,134 @@ def phase_string_ops(rb, sd: dict, seed: int) -> dict:
     return out
 
 
+# (k5): the string function library over (k)'s customer table and a
+# multi-byte UTF-8 column made from --seed: Spark's length, upper,
+# substring, instr, lpad/rpad, replace, split(...)[i], concat_ws,
+# translate, url codecs, the character classes and their UTF-8 forms
+K5_WORDS = ["UNITED STATES", "Mary", "Smith", "Électron", "東京", "Zürich",
+            "straße", "Ωmega", "Привет", "😀", "%41", "%2", "%zz", "a+b",
+            " pad ", "-12", "+7", "007", "x", "", "İstanbul", "ǅemal"]
+K5_INVALID = [b"\xff", b"\xc3", b"a\x80"]
+K5_VOCAB = 4096  # distinct composite strings; rows draw from them
+K5_NULLS = 0.05
+
+
+def string_lib() -> dict:
+    """name -> one call of the library on a STRING column."""
+    from spark_rapids_jni_tpu_torch.ops import strings, strings_utf8
+
+    return {
+        "length": lambda c: strings.length(c),
+        "upper": lambda c: strings.upper(c),
+        "contains": lambda c: strings.contains(c, "an"),
+        "starts_with": lambda c: strings.starts_with(c, "Mi"),
+        "ends_with": lambda c: strings.ends_with(c, "a"),
+        "substring": lambda c: strings.substring(c, 1, 4),
+        "lstrip": lambda c: strings.lstrip(c),
+        "rstrip": lambda c: strings.rstrip(c, " ,"),
+        "find": lambda c: strings.find(c, "an"),
+        "lpad": lambda c: strings.pad(c, 16, "left", "*"),
+        "rpad": lambda c: strings.pad(c, 17, "right", "-="),
+        "replace": lambda c: strings.replace(c, "a", "4"),
+        "split_get": lambda c: strings.split_get(c, ",", 1),
+        "reverse": lambda c: strings.reverse(c),
+        "is_digit": lambda c: strings.is_digit(c),
+        "is_alpha": lambda c: strings.is_alpha(c),
+        "is_alnum": lambda c: strings.is_alnum(c),
+        "is_space": lambda c: strings.is_space(c),
+        "is_upper": lambda c: strings.is_upper(c),
+        "is_lower": lambda c: strings.is_lower(c),
+        "zfill": lambda c: strings.zfill(c, 12),
+        "capitalize": lambda c: strings.capitalize(c),
+        "title": lambda c: strings.title(c),
+        "url_decode": lambda c: strings.url_decode(c),
+        "url_encode": lambda c: strings.url_encode(c),
+        "translate": lambda c: strings.translate(c, "aeiou,", "AEIOU"),
+        "char_length": lambda c: strings_utf8.char_length(c),
+        "utf8_substring": lambda c: strings_utf8.utf8_substring(c, 1, 3),
+        "utf8_upper": lambda c: strings_utf8.utf8_upper(c),
+        "utf8_lower": lambda c: strings_utf8.utf8_lower(c),
+    }
+
+
+def make_k5_wire(seed: int, n: int):
+    """(k5)'s UTF-8 column: ``K5_VOCAB`` strings of one to three words
+    joined by ',' (at times with a ',' at either end), drawn ``n`` times,
+    ``K5_NULLS`` of the rows null."""
+    rng = np.random.default_rng(seed + 16)
+    words = [w.encode() for w in K5_WORDS] + K5_INVALID
+    vocab = []
+    for _ in range(K5_VOCAB):
+        k = int(rng.integers(1, 4))
+        v = b",".join(words[i] for i in rng.integers(0, len(words), k))
+        r = rng.random()
+        vocab.append(b"," + v if r < 0.1 else v + b"," if r < 0.2 else v)
+    idx = rng.integers(0, K5_VOCAB, n)
+    ok = rng.random(n) > K5_NULLS
+    starts = rng.integers(-2, 12, n).astype(np.int32)
+    lens = rng.integers(-1, 10, n).astype(np.int32)
+    return string_wire(vocab, idx, ok), starts, lens
+
+
+def phase_string_lib(rb, sd: dict, seed: int) -> dict:
+    """(k5): every function of the string library (``string_lib``, then
+    ``concat_ws`` of the customer table's c_first_name and c_last_name
+    (nulls) with a 2,000,000-row multi-byte UTF-8 column,
+    ``substring_column``, the width-changing ``replace`` and
+    ``split_explode``) on the card over the UTF-8 column, byte for byte
+    against the port's own CPU run of the same function on the same
+    input; each function's device time and launches from the
+    profiler."""
+    from spark_rapids_jni_tpu_torch import interop
+    from spark_rapids_jni_tpu_torch.column import Table
+    from spark_rapids_jni_tpu_torch.ops import lists, strings
+
+    n = CUSTOMER_ROWS
+    (u_data, u_valid), starts, lens = make_k5_wire(seed, n)
+    wire = ([23, 23, 23, 3, 3], [0] * 5,
+            [sd["customer_wire"][2][3], sd["customer_wire"][2][2], u_data,
+             starts.tobytes(), lens.tobytes()],
+            [sd["customer_wire"][3][3], sd["customer_wire"][3][2], u_valid,
+             None, None], n)
+    tables = {dev: rb._table_from_wire(*wire, torch.device(dev))
+              for dev in (DEVICE, "cpu")}
+    last, first, utf8 = 0, 1, 2
+    cases = {name: (lambda t, f=fn: f(t.columns[utf8]))
+             for name, fn in string_lib().items()}
+    cases.update({
+        "concat_ws": lambda t: strings.concat_ws(
+            " ", t.columns[first], t.columns[last], t.columns[utf8]),
+        "substring_column": lambda t: strings.substring_column(
+            t.columns[utf8], t.columns[3], t.columns[4]),
+        "replace width-changing utf8": lambda t: strings.replace(
+            t.columns[utf8], ",", ", "),
+    })
+    out = {}
+    for what, fn in cases.items():
+        got = fn(tables[DEVICE])
+        same_column(got, fn(tables["cpu"]), f"(k5) {what}")
+        col = tables[DEVICE].columns[utf8]
+        nbytes = col.data.numel() + 5 * n
+        out[what] = op_profile(lambda f=fn: f(tables[DEVICE]),
+                               f"(k5) {what}", nbytes)
+    explode = {dev: lists.split_explode(
+        Table([t.columns[3], t.columns[utf8]], ["k", "s"]), "s", ",")
+        for dev, t in tables.items()}
+    same_buffers(interop.table_to_buffers(explode[DEVICE]),
+                 interop.table_to_buffers(explode["cpu"]),
+                 "(k5) split_explode")
+    out["split_explode"] = op_profile(
+        lambda: lists.split_explode(Table([tables[DEVICE].columns[3],
+                                           tables[DEVICE].columns[utf8]],
+                                          ["k", "s"]), "s", ","),
+        "(k5) split_explode", tables[DEVICE].columns[utf8].data.numel())
+    out["split_explode"]["rows_out"] = explode[DEVICE].row_count
+    log(f"(k5) string library at {n} rows: {len(cases) + 1} calls equal to "
+        f"the CPU run's bytes; split_explode gives "
+        f"{explode[DEVICE].row_count} rows")
+    return out
+
+
 def ptxas_lines(text: str) -> list:
     """One line a kernel from ``nvcc -Xptxas -v`` output: its (mangled)
     name, registers, static shared memory and spills."""
@@ -3894,31 +4060,12 @@ def phase_registry(rb, ctx: dict) -> dict:
     return {"count": count, "reclaimed": nbytes, "allocated_drop": drop}
 
 
-def date_chunks(d: dict, t: int):
-    """The groupby build of (h) and (m): the date of every kept row, as
-    (C, t) lo/hi halves and valid flags (the registry's chunked hash
-    groupby's input)."""
-    from spark_rapids_jni_tpu_torch import dtype as dt
-
-    date = d["date_sk"][d["keep"]]
-    n = date.shape[0]
-    c = -(-n // t)
-
-    def chunked(x):
-        return torch.nn.functional.pad(x[0], (0, c * t - n)).reshape(c, t)
-
-    lo, hi = key_halves(date, dt.INT64)
-    ones = torch.ones((1, n), dtype=torch.int32, device=DEVICE)
-    return chunked(lo), chunked(hi), chunked(ones)
-
-
 def stream_kernel_records(d: dict, qm: dict) -> list:
-    """K1b, K2a and K1a at (m)'s shapes (one batch of the stream: (h)'s
-    plan), with the launches of (m1)'s first stream at depth 2."""
+    """K1b and K1a at (m)'s shapes (one batch of the stream: (h)'s plan),
+    with the launches of (m1)'s first stream at depth 2. The plan's
+    groupby closes its fused segment, so K2a is not on (m)'s path."""
     from spark_rapids_jni_tpu_torch import dtype as dt
     from spark_rapids_jni_tpu_torch import rows
-    from spark_rapids_jni_tpu_torch.kernels import hash_table as ht
-    from spark_rapids_jni_tpu_torch.kernels import registry
     from spark_rapids_jni_tpu_torch.kernels import row_transpose as rt
 
     dev = torch.device(DEVICE)
@@ -3940,19 +4087,6 @@ def stream_kernel_records(d: dict, qm: dict) -> list:
         lambda: columns(rt.unpack_rows_columns_plain),
         transpose_bytes(fact_layout, src.shape[0]),
         src.shape[0] * fact_layout.row_size, note=note)]
-    t = registry.GROUPBY_CHUNK_ROWS
-    glo, ghi, gval = date_chunks(d, t)
-    c, gs = glo.shape[0], 2 * t
-    gbuilt = ht.build_table(glo, ghi, gval, table_slots=gs)
-    rounds = build_rounds(glo, ghi, gval, gbuilt, gs, ht.MAX_PROBES)
-    recs.append(kernel_record(
-        ht.BUILD, "stream", f"{c}x{t} keys, {c}x{gs} slots",
-        la["build_table"],
-        lambda: ht.build_table(glo, ghi, gval, table_slots=gs),
-        lambda: ht.build_table_plain(glo, ghi, gval, table_slots=gs),
-        16 * c * t + 12 * c * gs + 8, 20 * c * t,
-        note=f"{note}; the date groupby; regime {ht.build_regime(t, gs)}, "
-             f"{rounds} probe rounds"))
     out_layout = rows.compute_fixed_width_layout([dt.INT64] * 5)
     g = qm["groups"]
     col_bytes = [torch.randint(0, 256, (g, w), dtype=torch.uint8, device=dev,
@@ -4571,6 +4705,18 @@ BUCKET_RESIDENT_PLAN = [
      "num": EXCHANGE_PARTITIONS},
     {"op": "to_rows"},
 ]
+# the kernels each (o) run launches on some batch: under the default
+# ladder the plan's groupby closes the fused [filter, cast, groupby] and
+# the chain's sort_by sits in the fused [filter, sort_by], where the tier
+# is not consulted, so K2a and K3 run there only op by op
+_CHAIN_KERNELS = ("unpack_rows", "build_table", "probe_table",
+                  "murmur3_table_fused", "pack_rows")
+BUCKET_KERNELS = {
+    ("default", "plan"): (WIRE_KERNELS, ("build_table",)),
+    ("off", "plan"): (WIRE_OFF_KERNELS, ()),
+    ("default", "chain"): (_CHAIN_KERNELS, ("batched_sort_u64_looped",)),
+    ("off", "chain"): (_CHAIN_KERNELS + ("batched_sort_u64_looped",), ()),
+}
 BUCKET_COUNTERS = ("bucket.pad_tables", "compile_cache.hit",
                    "compile_cache.miss", "kernel.launches", "kernel.declines",
                    "bucket.dispatched", "bucket.declined")
@@ -4730,16 +4876,15 @@ def phase_buckets(rb, kernels, d: dict, dd: dict) -> dict:
               if tuple(out[("default", tag, n)]) != tuple(out[("off", tag, n)])]
     if differ:
         raise AssertionError(f"(o) buckets default and off differ: {differ}")
-    for tag in ("plan", "chain"):
-        never = [k for k in kernels.KERNELS
-                 if k in ("unpack_rows", "pack_rows", "build_table")
-                 and not any(r[tag]["launches"].get(k) for r in rows)]
+    for (label, tag), (want, fused_out) in BUCKET_KERNELS.items():
+        runs = [r[tag]["launches"] for r in rows if r["buckets"] == label]
+        never = [k for k in want if not any(la.get(k) for la in runs)]
         if never:
-            raise AssertionError(f"(o) {tag} never launched {never}")
-    if not any(r["chain"]["launches"].get(k) for r in rows
-               for k in ("probe_table", "batched_sort_u64_looped",
-                         "murmur3_table_fused")):
-        raise AssertionError("(o) the chain launched no K2b/K3/K5")
+            raise AssertionError(f"(o) {label} {tag} never launched {never}")
+        inside = [k for k in fused_out if any(la.get(k) for la in runs)]
+        if inside:
+            raise AssertionError(f"(o) {label} {tag} launched {inside} "
+                                 "inside a fused segment")
     log("(o) buckets default and off: equal 5-tuples for every batch")
     return {"batches": rows,
             "stream_ms": {k: out[(k, "stream")] for k in ("default", "off")}}
@@ -4880,6 +5025,124 @@ def phase_formulations(kernels, g: dict, d: dict, seed: int) -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# (q) plan fusion
+# ---------------------------------------------------------------------------
+
+FUSION_COUNTERS = ("plan.calls", "plan.segments", "plan.fused_segments",
+                   "plan.fused_ops", "plan.exact_ops", "plan.fallbacks",
+                   "plan.declined", "plan.chunked_segments")
+# the segments under the default ladder: (h)'s plan is [from_rows]
+# [filter, cast, groupby] [sort_by] [to_rows]; (o)'s chain is
+# [from_rows] [filter, sort_by] [join] [partition] [to_rows]
+FUSION_WANT = {
+    "plan": {"plan.segments": 4, "plan.fused_segments": 1,
+             "plan.fused_ops": 3, "plan.exact_ops": 3, "plan.fallbacks": 0},
+    "chain": {"plan.segments": 5, "plan.fused_segments": 1,
+              "plan.fused_ops": 2, "plan.exact_ops": 4, "plan.fallbacks": 0},
+}
+FUSION_OPS = {"plan": len(WIRE_PLAN), "chain": len(BUCKET_RESIDENT_PLAN)}
+
+
+def phase_fusion(rb, d: dict, dd: dict) -> dict:
+    """(q): (h)'s plan through ``table_plan_wire`` and (o)'s resident
+    chain (donated) over (a)'s 2^23-row batch, with the default ladder
+    (fused segments) and with ``BUCKETS=off`` (op by op): each exact
+    against its numpy oracle, the two settings' 5-tuples equal, the
+    ``plan.*`` counters as ``FUSION_WANT`` (no fallback), every fused
+    segment's host syncs counted (at most one: its count), wall (median
+    of 3) and device time for each setting."""
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+    from spark_rapids_jni_tpu_torch.utils import buckets, config, metrics
+
+    n = FACT_ROWS
+    wire = prefix_wire(d, n)
+    oracles = {"plan": wire_plan_oracle(d, n),
+               "chain": bucket_chain_oracle(d, dd, n)}
+    plan, chain = json.dumps(WIRE_PLAN), json.dumps(BUCKET_RESIDENT_PLAN)
+
+    def run_plan():
+        res = rb.table_plan_wire(plan, *wire, device=DEVICE)
+        torch.cuda.synchronize()
+        return res
+
+    def run_chain():
+        ids = [rb.table_upload_wire(*wire, device=DEVICE),
+               rb.table_upload_wire(*dd["item_cat_wire"], device=DEVICE)]
+        try:
+            tid = rb.table_plan_resident(chain, ids, donate=True)
+            try:
+                return rb.table_download_wire(tid)
+            finally:
+                rb.table_free(tid)
+        finally:
+            rb.table_free(ids[1])
+
+    real, syncs = plan_mod._run_fused, []
+
+    def counted(seg_ops, table):
+        box = {}
+        syncs.append(sync_sites(
+            lambda: box.setdefault("out", real(seg_ops, table))))
+        return box["out"]
+
+    out, recs = {}, {}
+    config.set_flag("METRICS", True)
+    try:
+        for setting in ("", "off"):
+            label = setting or "default"
+            config.set_flag("BUCKETS", setting)
+            buckets.cache_clear()
+            for tag, fn in (("plan", run_plan), ("chain", run_chain)):
+                metrics.reset()
+                syncs.clear()
+                plan_mod._run_fused = counted
+                try:
+                    res = fn()
+                finally:
+                    plan_mod._run_fused = real
+                counters = metrics.counter_values(list(FUSION_COUNTERS))
+                check_rows(res, oracles[tag])
+                out[(label, tag)] = res
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                rec = {"counters": counters, "segment_syncs": list(syncs),
+                       "wall_ms": statistics.median(times),
+                       "device_ms": device_window_ms(fn)}
+                recs[f"{label} {tag}"] = rec
+                log(f"(q) {label:7s} {tag:5s}: exact against numpy; "
+                    f"{rec['wall_ms']:.2f} ms wall, {rec['device_ms']:.3f} ms "
+                    f"device; host syncs of each fused segment (where) "
+                    f"{rec['segment_syncs']}"
+                    f"; {counters}")
+    finally:
+        plan_mod._run_fused = real
+        config.clear_flag("BUCKETS")
+        config.clear_flag("METRICS")
+    for tag, want in FUSION_WANT.items():
+        if tuple(out[("default", tag)]) != tuple(out[("off", tag)]):
+            raise AssertionError(f"(q) {tag}: default and off differ")
+        got = recs[f"default {tag}"]
+        bad = {k: (got["counters"][k], v) for k, v in want.items()
+               if got["counters"][k] != v}
+        if bad:
+            raise AssertionError(f"(q) {tag} counters (got, want): {bad}")
+        if (len(got["segment_syncs"]) != 1
+                or max(map(len, got["segment_syncs"])) > 1):
+            raise AssertionError(f"(q) {tag}: a fused segment read the host "
+                                 f"{got['segment_syncs']} times")
+        off = recs[f"off {tag}"]["counters"]
+        if (off["plan.fused_segments"], off["plan.exact_ops"]) != (
+                0, FUSION_OPS[tag]):
+            raise AssertionError(f"(q) {tag} off did not run op by op: {off}")
+    log("(q) plan fusion: default and off equal for the plan and the chain; "
+        "no fallback; one host read a fused segment at most")
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4937,6 +5200,7 @@ def main(argv=None) -> int:
         "remaining_ops": lambda: phase_remaining_ops(rb, d, args.seed),
         "strings": lambda: phase_strings(rb, kernels, d, sd),
         "string_ops": lambda: phase_string_ops(rb, sd, args.seed),
+        "string_lib": lambda: phase_string_lib(rb, sd, args.seed),
         "decimal": lambda: phase_decimal(rb, kernels, ld),
         "decimal_ops": lambda: phase_decimal_ops(rb, args.seed),
         "stream": lambda: phase_stream(rb, kernels, d, mctx),
@@ -4946,6 +5210,7 @@ def main(argv=None) -> int:
         "oplib": lambda: phase_oplib(kernels, d, od),
         "buckets": lambda: phase_buckets(rb, kernels, d, dd),
         "formulations": lambda: phase_formulations(kernels, g, d, args.seed),
+        "fusion": lambda: phase_fusion(rb, d, dd),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -5030,11 +5295,13 @@ def main(argv=None) -> int:
         "query_step": res["query_step"], "wire_plan": res["wire_plan"],
         "dispatch": res["dispatch"], "remaining_ops": res["remaining_ops"],
         "strings": res["strings"], "string_ops": res["string_ops"],
+        "string_lib": res["string_lib"],
         "decimal": res["decimal"], "decimal_ops": res["decimal_ops"],
         "stream": res["stream"], "spill": res["spill"],
         "faults": res["faults"], "registry": res["registry"],
         "oplib": res["oplib"], "buckets": res["buckets"],
-        "formulations": res["formulations"], **hard}))
+        "formulations": res["formulations"], "fusion": res["fusion"],
+        **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,9 +127,14 @@ def _gate(mask: Column, rv: torch.Tensor) -> Column:
 
 
 # ---------------------------------------------------------------------------
-# the op bodies of the runners: each takes (op, padded table, logical
-# count, occupancy) and returns (table at the same physical length, new
-# logical count)
+# the op bodies of the runners and of the plan's fused segments: each
+# takes (op, padded table, logical count, occupancy) and returns (table at
+# the same physical length, new logical count). A per-op runner gives the
+# count as a Python int and the body may read the host once more (the
+# prefix shortcuts of ``lexsort_occupied`` and of a prefix-occupied
+# distinct, the groupby's segment count);
+# a fused segment gives it as a device scalar and the body reads nothing
+# (``plan._run_fused``). Both forms give the same bytes, padding included.
 # ---------------------------------------------------------------------------
 
 
@@ -141,6 +146,11 @@ def _do_cast(op, t, n, rv):
     cols = list(t.columns)
     cols[ci] = cast(t.columns[ci], target)
     return Table(cols, t.names), n
+
+
+def _host(n) -> bool:
+    """May the body read the host (a per-op runner's Python count)?"""
+    return not isinstance(n, torch.Tensor)
 
 
 def _do_filter(op, t, n, rv):
@@ -164,7 +174,7 @@ def _do_distinct(op, t, n, rv):
     from .ops.compaction import distinct_capped
 
     return distinct_capped(t, op.get("keys"), capacity=t.row_count,
-                           row_valid=rv)
+                           row_valid=rv, host_sync=_host(n))
 
 
 def _do_sort(op, t, n, rv):
@@ -172,7 +182,7 @@ def _do_sort(op, t, n, rv):
 
     ks = [SortKey(k["column"], ascending=k.get("ascending", True))
           for k in op["keys"]]
-    return sort_table(t, ks, row_valid=rv), n
+    return sort_table(t, ks, row_valid=rv, host_sync=_host(n)), n
 
 
 def _do_groupby(op, t, n, rv):
@@ -180,7 +190,8 @@ def _do_groupby(op, t, n, rv):
 
     aggs = [GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
     return groupby_aggregate_capped(t, list(op["by"]), aggs,
-                                    num_segments=t.row_count, row_valid=rv)
+                                    num_segments=t.row_count, row_valid=rv,
+                                    host_sync=_host(n))
 
 
 def _single(kind: str, body, name: str):

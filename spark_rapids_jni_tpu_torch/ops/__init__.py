@@ -4,10 +4,11 @@ joins of every kind with their capped, count and chunked forms,
 compaction, the copy family with ``sample``, binary and unary ops,
 casts, Murmur3 hashing, partitioning, the STRING casts and comparisons,
 regular expressions, LIST explode, window functions, reductions, scans,
-quantiles, search, replace, rounding and datetime).
+quantiles, search, replace, rounding and datetime), and the STRING
+function library (``strings``, ``strings_utf8``, ``split_explode``).
 
 ``WAITING`` names the JAX package's exports the port does not have yet,
-each with the ROADMAP Queue 1 item that brings it."""
+each with the ROADMAP Queue 1 item that brings it: none."""
 
 from . import compute, datetime, keys, lists, regex, replace, rounding, window
 from .binaryop import add, binary_op, div, eq, ge, gt, le, lt, mul, ne, sub
@@ -26,7 +27,7 @@ from .groupby_chunked import (
 from .hashing import murmur3_column, murmur3_table
 from .lists import (
     count_elements, explode, explode_outer, explode_position,
-    extract_list_element, list_contains,
+    extract_list_element, list_contains, split_explode,
 )
 from .regex import (
     contains_re, count_re, extract_re, find_re, matches_re, replace_re, rlike,
@@ -55,9 +56,7 @@ from .window import (
 )
 
 #: JAX ``ops.__all__`` names still to port -> the ROADMAP Queue 1 item
-WAITING = {
-    "split_explode": "item 6 (the rest of the strings)",
-}
+WAITING: dict = {}
 
 __all__ = [
     "compute", "keys", "filter_table", "filter_table_capped",
@@ -75,6 +74,7 @@ __all__ = [
     "lt", "le", "gt", "ge", "unary_op", "is_null", "is_not_null", "is_nan",
     "cast", "lists", "regex", "count_elements", "explode", "explode_outer",
     "explode_position", "extract_list_element", "list_contains",
+    "split_explode",
     "contains_re", "count_re", "extract_re", "find_re", "matches_re",
     "replace_re", "rlike", "murmur3_column", "murmur3_table",
     "hash_partition", "round_robin_partition", "reduce_column",

@@ -25,11 +25,13 @@ from .sort import lexsort, occupied_prefix
 
 
 def _first_of_run_mask(table: Table, keys: Optional[Sequence],
-                       row_valid: Optional[torch.Tensor] = None) -> Column:
+                       row_valid: Optional[torch.Tensor] = None,
+                       host_sync: bool = True) -> Column:
     """BOOL8 mask of the first occurrence of each distinct key row. A
     ``row_valid`` False row (padding) joins no real row's run and is never
     kept; when ``row_valid`` is a prefix (a padded table), only the
-    prefix is sorted."""
+    prefix is sorted (one host read; ``host_sync=False`` sorts every row
+    with the occupancy word instead, for the same mask)."""
     cols = ([table.column(k) for k in keys] if keys is not None
             else list(table.columns))
     words: list = []
@@ -42,7 +44,7 @@ def _first_of_run_mask(table: Table, keys: Optional[Sequence],
     n = table.row_count
     rows = n
     if row_valid is not None and n:
-        rows = occupied_prefix(row_valid)
+        rows = occupied_prefix(row_valid) if host_sync else None
         if rows is None:
             rows = n
             words.append(row_valid.to(torch.uint8))
@@ -73,12 +75,14 @@ def distinct_capped(
     keys: Optional[Sequence] = None,
     capacity: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
+    host_sync: bool = True,
 ) -> tuple[Table, torch.Tensor]:
     """Distinct with a static output size: (table of ``capacity`` rows,
-    by default the input's, device count). ``row_valid`` excludes rows."""
+    by default the input's, device count). ``row_valid`` excludes rows;
+    ``host_sync=False`` reads nothing on the host, for the same bytes."""
     cap = capacity if capacity is not None else table.row_count
     return filter_table_capped(
-        table, _first_of_run_mask(table, keys, row_valid), cap)
+        table, _first_of_run_mask(table, keys, row_valid, host_sync), cap)
 
 
 def distinct_count(obj: Union[Table, Column],

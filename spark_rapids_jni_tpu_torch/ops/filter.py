@@ -1,7 +1,9 @@
 """Filter (port of ``ops/filter.py``, cudf ``apply_boolean_mask``).
 
-Kept rows are compacted in order; ``torch.nonzero`` yields the stable
-indices that the JAX package builds with a cumsum and a scatter.
+Kept rows are compacted in order: the exact filter takes the stable
+indices from ``torch.nonzero`` (it sizes its output on the host anyway),
+the capped one builds them with a cumsum and a scatter, as the JAX
+package does, without a host read.
 """
 
 from __future__ import annotations
@@ -22,6 +24,18 @@ def _selection_mask(mask: Column) -> torch.Tensor:
     return keep
 
 
+def _compact_index(keep: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The kept rows' indices in order, then zeros, to ``capacity``
+    entries without a host read: each kept row scatters its index to its
+    rank (the JAX package's cumsum and scatter); the rest land in one
+    dropped slot."""
+    rank = torch.cumsum(keep, 0) - 1
+    slot = torch.where(keep & (rank < capacity), rank, capacity)
+    idx = torch.zeros(capacity + 1, dtype=torch.int64, device=keep.device)
+    idx.scatter_(0, slot, torch.arange(keep.shape[0], device=keep.device))
+    return idx[:capacity]
+
+
 def filter_table_capped(
     table: Table, mask: Column, capacity: int
 ) -> tuple[Table, torch.Tensor]:
@@ -29,10 +43,8 @@ def filter_table_capped(
     repeat row 0, as the JAX package's zero-initialised index vector
     does; consumers must respect the count."""
     keep = _selection_mask(mask)
-    kept = torch.nonzero(keep).flatten()[:capacity]
-    idx = torch.zeros(capacity, dtype=torch.int64, device=keep.device)
-    idx[: kept.numel()] = kept
-    return gather_table(table, idx), keep.sum().to(torch.int32)
+    return (gather_table(table, _compact_index(keep, capacity)),
+            keep.sum().to(torch.int32))
 
 
 def filter_table(table: Table, mask: Column) -> Table:

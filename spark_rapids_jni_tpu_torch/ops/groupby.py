@@ -662,6 +662,7 @@ def groupby_aggregate_capped(
     aggs: Sequence[GroupbyAgg],
     num_segments: int,
     row_valid: Optional[torch.Tensor] = None,
+    host_sync: bool = True,
 ) -> tuple[Table, torch.Tensor]:
     """Groupby with a static output size: (result of ``num_segments``
     rows, device group count). Keys and values past the count are null.
@@ -673,13 +674,16 @@ def groupby_aggregate_capped(
     Every segment id past the last one the rows reach is empty, and its
     output row is the same for each of them (a range past the last row):
     the aggregations run over the segments reached and one empty one,
-    whose row fills the rest (one host sync reads the segment count)."""
+    whose row fills the rest (one host sync reads the segment count).
+    ``host_sync=False`` reads nothing on the host: one sort of every row
+    behind the occupancy word, and every one of ``num_segments``
+    aggregated, for the same bytes."""
     for a in aggs:
         _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
     n = table.row_count
     words = _group_words(key_cols, row_valid)
-    perm = (None if row_valid is None
+    perm = (None if row_valid is None or not host_sync
             else lexsort_occupied(words[1:], row_valid))
     perm, seg, _ = _sorted_segments(words, perm)
     if row_valid is not None:
@@ -687,7 +691,8 @@ def groupby_aggregate_capped(
         num_groups = torch.where(rv_sorted, seg + 1, 0).max()
     else:
         num_groups = seg[-1] + 1
-    m = num_segments if n == 0 else min(num_segments, int(seg[-1]) + 2)
+    m = (num_segments if n == 0 or not host_sync
+         else min(num_segments, int(seg[-1]) + 2))
     starts, ends = _segment_bounds(seg, m)
     in_range = torch.arange(m, device=perm.device) < num_groups
     first_rows = perm[_clip_rows(starts.to(torch.int64), n)]

@@ -8,7 +8,8 @@ Explode's output size depends on the data: it is read on the host once
 (``repeat_interleave`` of the per-row element counts), as the JAX
 package's eager call reads it; so is whether any exploded element is
 null, which decides whether the element column carries a validity
-vector. ``split_explode`` waits for the string function library.
+vector. ``split_explode`` splits a STRING column on a one-byte delimiter
+and explodes the tokens in one op (Spark ``explode(split(...))``).
 """
 
 from __future__ import annotations
@@ -123,3 +124,32 @@ def explode_position(table: Table, column: Union[int, str],
     """Explode with a leading ``pos`` INT32 column of element indexes
     (Spark ``posexplode``)."""
     return _explode_table(table, column, outer=outer, position=True)
+
+
+def split_explode(table: Table, column: Union[int, str],
+                  delimiter: Union[str, bytes]) -> Table:
+    """Split a STRING column on a one-byte delimiter and give each token
+    a row (Spark ``explode(split(col, d))``, cudf ``split_record`` +
+    ``explode``) without a LIST<STRING> column in between. A null string
+    gives no row, an empty one one empty token; the other columns repeat
+    a token. The token total is read on the host once."""
+    from .strings import _extract_token, _literal_bytes, _require_string
+
+    ci = _resolve(table, column)
+    scol = table.columns[ci]
+    _require_string(scol)
+    d = _literal_bytes(delimiter)
+    if len(d) != 1:
+        raise ValueError("split_explode: single-byte delimiter only")
+    n, pad = scol.data.shape
+    dev = scol.data.device
+    in_str = torch.arange(pad, device=dev)[None, :] < scol.lengths[:, None]
+    counts = ((scol.data == d[0]) & in_str).sum(dim=1) + 1
+    if scol.validity is not None:
+        counts = torch.where(scol.validity, counts, 0)
+    parent = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    tok = (torch.arange(parent.shape[0], device=dev)
+           - (torch.cumsum(counts, 0) - counts)[parent])
+    tokens = _extract_token(scol.data[parent], scol.lengths[parent], None,
+                            d[0], tok)
+    return _replicate_siblings(table, ci, parent, tokens)

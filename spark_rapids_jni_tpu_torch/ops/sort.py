@@ -112,13 +112,18 @@ def argsort_table(
     table: Table,
     sort_keys: Sequence[Union[SortKey, str, int]],
     row_valid: Optional[torch.Tensor] = None,
+    host_sync: bool = True,
 ) -> torch.Tensor:
     """Stable row permutation ordering ``table`` by ``sort_keys``;
-    ``row_valid`` False rows sink to the end."""
+    ``row_valid`` False rows sink to the end (``lexsort_occupied``, or
+    with ``host_sync=False`` one sort of every row behind the one-byte
+    occupancy word: the same permutation, no host read)."""
     words = _table_key_words(table, sort_keys)
-    if row_valid is not None:
+    if row_valid is None:
+        return lexsort(words)
+    if host_sync:
         return lexsort_occupied(words, row_valid)
-    return lexsort(words)
+    return lexsort([(~row_valid).to(torch.uint8)] + words)
 
 
 def sort_table(
@@ -126,9 +131,10 @@ def sort_table(
     sort_keys: Sequence[Union[SortKey, str, int]],
     payload: Optional[Table] = None,
     row_valid: Optional[torch.Tensor] = None,
+    host_sync: bool = True,
 ) -> Table:
     """ORDER BY: ``table`` (or ``payload``) reordered, stable."""
-    perm = argsort_table(table, sort_keys, row_valid)
+    perm = argsort_table(table, sort_keys, row_valid, host_sync)
     return gather_table(payload if payload is not None else table, perm)
 
 

@@ -1,11 +1,12 @@
-"""STRING columns in the dispatch plane (the part of ``ops/strings.py``
-the wire ops reach): repadding, comparisons and ``||``, Spark CAST to and
-from STRING, and the order-preserving dictionary codes of string keys.
+"""STRING columns (port of ``ops/strings.py``): repadding, comparisons
+and ``||``, Spark CAST to and from STRING, the order-preserving
+dictionary codes of string keys, and the string function library
+(``length`` ... ``translate``, at the end of the module).
 
 A STRING column is an ``(n, pad)`` uint8 matrix, zero past each row's
 length, plus int32 ``lengths``. Every op here is vector byte arithmetic
 over that matrix, as in the JAX package; the result pad widths of the
-formatters are constants of the source type, so no op syncs with the
+formatters are constants of the source type, so no cast syncs with the
 host.
 
 CAST follows Spark's non-ANSI contract: a string that does not parse
@@ -13,9 +14,7 @@ gives null. STRING -> FLOAT parses through the Eisel-Lemire core and
 FLOAT -> STRING formats through Ryu (``ops/ryu.py``) with Java's
 ``Double.toString`` layout. STRING -> DECIMAL128 runs a masked Horner
 over the byte matrix in 128-bit limbs, DECIMAL128 -> STRING a long
-division into base-10^9 chunks (``ops/int128.py``). The rest of the JAX
-module's function library (``length`` ... ``translate``) is not ported
-yet.
+division into base-10^9 chunks (``ops/int128.py``).
 """
 
 from __future__ import annotations
@@ -729,3 +728,534 @@ def encode_join_keys(left: Column, right: Column):
     nl = left.row_count
     return (Column(codes[:nl], dt.INT32, left.validity),
             Column(codes[nl:], dt.INT32, right.validity))
+
+
+# ---------------------------------------------------------------------------
+# the string function library (Spark ``length``, ``upper``, ``substring``,
+# ``instr``, ``lpad``, ``replace``, ``split(...)[i]``, ``concat_ws``,
+# ``translate``, ...): byte-level vector arithmetic over the padded
+# matrix, the JAX package's functions with its bytes, pad widths
+# included. ``replace`` with a width change and ``url_encode`` read the
+# host as the JAX package's eager calls do.
+# ---------------------------------------------------------------------------
+
+
+def length(col: Column) -> Column:
+    """Byte length (Spark ``length`` counts characters: equal for
+    ASCII; ``strings_utf8.char_length`` counts characters)."""
+    _require_string(col)
+    return Column(col.lengths.to(torch.int32), dt.INT32, col.validity)
+
+
+def upper(col: Column) -> Column:
+    """ASCII upper case."""
+    _require_string(col)
+    return _case_map(col, True)
+
+
+def _literal_bytes(pat: Union[str, bytes]) -> bytes:
+    if isinstance(pat, str):
+        return pat.encode("utf-8", "surrogateescape")
+    return bytes(pat)
+
+
+def _bools(n: int, value: bool, device) -> torch.Tensor:
+    return torch.full((n,), value, dtype=torch.bool, device=device)
+
+
+def _match_ends(col: Column, pat: bytes) -> torch.Tensor:
+    """(n, pad) bool: the literal ``pat`` (1 <= len <= pad) ends at byte
+    j, all of it inside the string. One compare a pattern byte over the
+    matrix (the JAX package runs a shift-or scan; the matches are the
+    same)."""
+    m = len(pat)
+    data = col.data
+    span = data.shape[1] - m + 1
+    hit = data[:, :span] == pat[0]
+    for i in range(1, m):
+        hit = hit & (data[:, i:i + span] == pat[i])
+    ends = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    ends[:, m - 1:] = hit
+    return ends & _in_str(col)
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """(has any, index of the first True) along each row."""
+    return mask.any(dim=1), mask.to(torch.uint8).argmax(dim=1)
+
+
+def contains(col: Column, pattern: Union[str, bytes]) -> Column:
+    """Literal substring search (Spark ``contains``)."""
+    _require_string(col)
+    pat = _literal_bytes(pattern)
+    n, pad = col.data.shape
+    if not pat or len(pat) > pad:
+        return Column(_bools(n, not pat, col.data.device), dt.BOOL8,
+                      col.validity)
+    return Column(_match_ends(col, pat).any(dim=1), dt.BOOL8, col.validity)
+
+
+def starts_with(col: Column, pattern: Union[str, bytes]) -> Column:
+    _require_string(col)
+    pat = _literal_bytes(pattern)
+    m = len(pat)
+    n, pad = col.data.shape
+    if not m or m > pad:
+        return Column(_bools(n, not m, col.data.device), dt.BOOL8,
+                      col.validity)
+    want = const(tuple(pat), torch.uint8, col.data.device)
+    ok = (col.data[:, :m] == want).all(dim=1) & (col.lengths >= m)
+    return Column(ok, dt.BOOL8, col.validity)
+
+
+def ends_with(col: Column, pattern: Union[str, bytes]) -> Column:
+    _require_string(col)
+    pat = _literal_bytes(pattern)
+    m = len(pat)
+    n, pad = col.data.shape
+    if not m or m > pad:
+        return Column(_bools(n, not m, col.data.device), dt.BOOL8,
+                      col.validity)
+    dev = col.data.device
+    starts = (col.lengths - m).clamp(0, pad - m).to(torch.int64)
+    tail = torch.gather(col.data, 1, starts[:, None] + _cols(m, dev))
+    ok = ((tail == const(tuple(pat), torch.uint8, dev)).all(dim=1)
+          & (col.lengths >= m))
+    return Column(ok, dt.BOOL8, col.validity)
+
+
+def substring(col: Column, start: int, slice_len: int) -> Column:
+    """0-based substring with a fixed start and length (Spark
+    ``substring``); the result's pad is ``slice_len`` (at most the
+    input's, at least 1)."""
+    _require_string(col)
+    pad = col.data.shape[1]
+    out_pad = max(min(slice_len, pad), 1)
+    out = torch.roll(col.data, -start, dims=1)[:, :out_pad]
+    new_len = (col.lengths - start).clamp(0, slice_len).to(torch.int32)
+    out = torch.where(_cols(out_pad, out.device) < new_len[:, None], out,
+                      0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, new_len)
+
+
+def _strip_set(chars) -> bytes:
+    return chars.encode() if isinstance(chars, str) else bytes(chars)
+
+
+def lstrip(col: Column, chars: Union[str, bytes] = b" ") -> Column:
+    """Spark ``ltrim`` (spaces by default)."""
+    _require_string(col)
+    left = _strip_counts(col, _strip_set(chars), True)
+    return _shift_left(col, left, col.lengths - left)
+
+
+def rstrip(col: Column, chars: Union[str, bytes] = b" ") -> Column:
+    """Spark ``rtrim`` (spaces by default)."""
+    _require_string(col)
+    right = _strip_counts(col, _strip_set(chars), False)
+    return _shift_left(col, torch.zeros_like(col.lengths),
+                       col.lengths - right)
+
+
+def find(col: Column, pattern: Union[str, bytes]) -> Column:
+    """First byte index of the literal pattern, -1 if absent (Spark
+    ``instr`` is this + 1)."""
+    _require_string(col)
+    pat = _literal_bytes(pattern)
+    m = len(pat)
+    n, pad = col.data.shape
+    dev = col.data.device
+    if not m:
+        return Column(torch.zeros(n, dtype=torch.int32, device=dev),
+                      dt.INT32, col.validity)
+    pos = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if m <= pad:
+        has, end = _first(_match_ends(col, pat))
+        pos = torch.where(has, (end - (m - 1)).to(torch.int32), pos)
+    return Column(pos, dt.INT32, col.validity)
+
+
+def pad(col: Column, width: int, side: str = "right",
+        fill: Union[str, bytes] = " ") -> Column:
+    """Spark ``lpad``/``rpad``: exactly ``width`` bytes, padded with the
+    (possibly multi-byte) ``fill`` pattern or cut to the leading
+    ``width`` bytes; the result's pad is ``max(width, 1)``."""
+    _require_string(col)
+    fill_b = _literal_bytes(fill)
+    if not fill_b:
+        raise ValueError("pad: fill must be non-empty")
+    if side not in ("left", "right"):
+        raise ValueError("side must be 'left' or 'right'")
+    n, old = col.data.shape
+    c = repad(col, max(old, width))
+    out_pad = c.data.shape[1]
+    dev = c.data.device
+    j = _cols(out_pad, dev)
+    fillv = const(tuple(fill_b), torch.uint8, dev)
+    m = len(fill_b)
+    lens = c.lengths[:, None]
+    if side == "right":
+        data = torch.where(j < lens.clamp(max=width), c.data,
+                           fillv[torch.remainder(j - lens, m).to(torch.int64)])
+    else:
+        shift = (width - lens).clamp(min=0)
+        src = (j - shift).clamp(0, out_pad - 1).to(torch.int64)
+        data = torch.where(j < shift, fillv[(j % m).to(torch.int64)],
+                           torch.gather(c.data, 1, src))
+    data = torch.where(j < width, data, 0).to(torch.uint8)
+    out = Column(data, dt.STRING, c.validity,
+                 torch.full((n,), width, dtype=torch.int32, device=dev))
+    return repad(out, max(width, 1))
+
+
+def replace(col: Column, old: Union[str, bytes],
+            new: Union[str, bytes]) -> Column:
+    """Literal, non-overlapping, leftmost-first replacement (Spark
+    ``replace``). An equal-width substitution stays on the device; a
+    width-changing one rebuilds the column on the host, as the JAX
+    package's eager call does."""
+    _require_string(col)
+    old_b, new_b = _literal_bytes(old), _literal_bytes(new)
+    m = len(old_b)
+    if not m:
+        return col
+    n, pad_w = col.data.shape
+    if len(new_b) == m and m <= pad_w:
+        # row s: the matches that start at byte s
+        starts = _match_ends(col, old_b)[:, m - 1:].T.contiguous()
+        span = starts.shape[0]
+        sel = torch.zeros_like(starts)
+        next_free = torch.zeros(n, dtype=torch.int32, device=starts.device)
+        for s in range(span):  # greedy: a match after the last one taken
+            sel[s] = starts[s] & (next_free <= s)
+            next_free = torch.where(sel[s], s + m, next_free)
+        sel = sel.T
+        data = col.data
+        for i, b in enumerate(new_b):
+            at = torch.zeros_like(col.data, dtype=torch.bool)
+            at[:, i:i + span] = sel
+            data = torch.where(at, b, data)
+        return Column(data.to(torch.uint8), dt.STRING, col.validity,
+                      col.lengths)
+    o = old if isinstance(old, str) else old.decode("utf-8", "surrogateescape")
+    w = new if isinstance(new, str) else new.decode("utf-8", "surrogateescape")
+    return Column.from_strings(
+        [None if v is None else v.replace(o, w) for v in col.to_pylist()],
+        device=col.data.device)
+
+
+def _extract_token(data, lengths, validity, delim_byte: int,
+                   token_index) -> Column:
+    """The k-th ``delim_byte``-separated token of each row (``split_get``
+    and ``lists.split_explode``); ``token_index`` is an int or a per-row
+    tensor. A token past the last is the empty string."""
+    pad_w = data.shape[1]
+    in_str = _cols(pad_w, data.device) < lengths[:, None]
+    is_delim = (data == delim_byte) & in_str
+    d = is_delim.to(torch.int32)
+    field = torch.cumsum(d, dim=1) - d
+    idx = (token_index[:, None] if isinstance(token_index, torch.Tensor)
+           else token_index)
+    keep = in_str & ~is_delim & (field == idx)
+    has, first = _first(keep)
+    start = torch.where(has, first, 0).to(torch.int32)
+    return _shift_left(Column(data, dt.STRING, validity, lengths), start,
+                       keep.sum(dim=1).to(torch.int32))
+
+
+def split_get(col: Column, delimiter: Union[str, bytes],
+              index: int) -> Column:
+    """The 0-based ``index``-th field after splitting on a one-byte
+    delimiter (Spark ``split(...)[i]``); the empty string past the
+    last."""
+    _require_string(col)
+    d = _literal_bytes(delimiter)
+    if len(d) != 1:
+        raise ValueError("split_get: single-byte delimiter only")
+    return _extract_token(col.data, col.lengths, col.validity, d[0], index)
+
+
+def reverse(col: Column) -> Column:
+    """Byte-wise reversal (Spark ``reverse``; exact for ASCII)."""
+    _require_string(col)
+    pad_w = col.data.shape[1]
+    j = _cols(pad_w, col.data.device)
+    src = (col.lengths[:, None] - 1 - j).clamp(0, pad_w - 1).to(torch.int64)
+    out = torch.where(j < col.lengths[:, None],
+                      torch.gather(col.data, 1, src), 0).to(torch.uint8)
+    return Column(out, dt.STRING, col.validity, col.lengths)
+
+
+# character classes (cudf ``all_characters_of_type``)
+
+
+def _between(m, lo: str, hi: str):
+    return (m >= ord(lo)) & (m <= ord(hi))
+
+
+def _char_class_pred(col: Column, in_class) -> Column:
+    """True where every byte of the non-empty string is in the class
+    (an empty string is False, as in cudf and Python)."""
+    _require_string(col)
+    ok = ((~_in_str(col) | in_class(col.data)).all(dim=1)
+          & (col.lengths > 0))
+    return Column(ok, dt.BOOL8, col.validity)
+
+
+def is_digit(col: Column) -> Column:
+    return _char_class_pred(col, lambda m: _between(m, "0", "9"))
+
+
+def is_alpha(col: Column) -> Column:
+    return _char_class_pred(
+        col, lambda m: _between(m, "a", "z") | _between(m, "A", "Z"))
+
+
+def is_alnum(col: Column) -> Column:
+    return _char_class_pred(
+        col, lambda m: (_between(m, "a", "z") | _between(m, "A", "Z")
+                        | _between(m, "0", "9")))
+
+
+def is_space(col: Column) -> Column:
+    return _char_class_pred(col, lambda m: (m == ord(" ")) | ((m >= 9)
+                                                              & (m <= 13)))
+
+
+def _case_pred(col: Column, want_upper: bool) -> Column:
+    _require_string(col)
+    in_str = _in_str(col)
+    low = _between(col.data, "a", "z") & in_str
+    up = _between(col.data, "A", "Z") & in_str
+    if want_upper:
+        ok = ~low.any(dim=1) & up.any(dim=1)
+    else:
+        ok = ~up.any(dim=1) & low.any(dim=1)
+    return Column(ok, dt.BOOL8, col.validity)
+
+
+def is_upper(col: Column) -> Column:
+    """No lower-case letter and at least one upper-case (cudf
+    ``isUpper``)."""
+    return _case_pred(col, True)
+
+
+def is_lower(col: Column) -> Column:
+    """No upper-case letter and at least one lower-case (cudf
+    ``isLower``)."""
+    return _case_pred(col, False)
+
+
+def zfill(col: Column, width: int) -> Column:
+    """Left-pad with '0' to ``width`` bytes after a leading +/- sign
+    (Python ``str.zfill``); longer strings are unchanged."""
+    _require_string(col)
+    out_pad = max(col.data.shape[1], width)
+    c = repad(col, out_pad)
+    j = _cols(out_pad, c.data.device)
+    first = c.data[:, 0]
+    has_sign = ((first == ord("+")) | (first == ord("-"))) & (c.lengths > 0)
+    shift = (width - c.lengths).clamp(min=0)[:, None]
+    new_len = c.lengths.clamp(min=width)
+    sign = has_sign.to(torch.int32)[:, None]
+    src = (j - shift).clamp(0, out_pad - 1).to(torch.int64)
+    data = torch.where((j >= sign) & (j < sign + shift), ord("0"),
+                       torch.gather(c.data, 1, src))
+    data[:, 0] = torch.where(has_sign, first, data[:, 0])
+    data = torch.where(j < new_len[:, None], data, 0).to(torch.uint8)
+    return Column(data, dt.STRING, col.validity, new_len.to(torch.int32))
+
+
+def capitalize(col: Column) -> Column:
+    """First byte upper-cased, the rest lower-cased (cudf
+    ``capitalize``)."""
+    _require_string(col)
+    data = _case_map(col, False).data.clone()
+    first = data[:, 0]
+    data[:, 0] = torch.where(_between(first, "a", "z"), first - 32, first)
+    return Column(data, dt.STRING, col.validity, col.lengths)
+
+
+def title(col: Column) -> Column:
+    """Every letter after a non-letter upper-cased, the rest lower-cased
+    (cudf ``title``)."""
+    _require_string(col)
+    low = _case_map(col, False).data
+    letter = _between(low, "a", "z") | _between(low, "A", "Z")
+    prev = torch.zeros_like(letter)
+    prev[:, 1:] = letter[:, :-1]
+    start = letter & ~prev & _between(low, "a", "z")
+    data = torch.where(start, low - 32, low).to(torch.uint8)
+    return Column(data, dt.STRING, col.validity, col.lengths)
+
+
+# URL encoding (cudf ``url_encode``/``url_decode``)
+
+_HEX_UPPER = b"0123456789ABCDEF"
+
+
+def _hex_val(m: torch.Tensor) -> torch.Tensor:
+    """Each byte's hex digit value (garbage for a non-hex byte)."""
+    m = m.to(torch.int32)
+    out = torch.where(_between(m, "a", "f"), m - ord("a") + 10, m - ord("0"))
+    return torch.where(_between(m, "A", "F"), m - ord("A") + 10, out)
+
+
+def _compact_bytes(values: torch.Tensor, keep: torch.Tensor):
+    """The kept bytes of each row moved to its front (each to its rank,
+    the rest into one dropped column): ((n, pad) uint8 zero past the new
+    lengths, (n,) int32 lengths)."""
+    n, pad_w = values.shape
+    k = keep.to(torch.int32)
+    new_len = k.sum(dim=1).to(torch.int32)
+    idx = torch.where(keep, torch.cumsum(k, dim=1) - 1, pad_w)
+    out = torch.zeros((n, pad_w + 1), dtype=torch.uint8, device=values.device)
+    out.scatter_(1, idx.to(torch.int64),
+                 torch.where(keep, values, 0).to(torch.uint8))
+    data = torch.where(_cols(pad_w, values.device) < new_len[:, None],
+                       out[:, :pad_w], 0).to(torch.uint8)
+    return data, new_len
+
+
+def _shifted(x: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """``x`` moved ``k`` columns (left for k > 0, right for k < 0), the
+    columns moved in set to ``fill``."""
+    out = torch.full_like(x, fill)
+    if k > 0:
+        out[:, :-k] = x[:, k:]
+    else:
+        out[:, -k:] = x[:, :k]
+    return out
+
+
+def url_decode(col: Column) -> Column:
+    """Percent-decoding: ``%XX`` -> its byte, ``+`` -> space (cudf
+    ``url_decode``, java.net.URLDecoder); a malformed escape passes
+    through as it is."""
+    _require_string(col)
+    m = col.data
+    j = _cols(m.shape[1], m.device)
+    in_str = _in_str(col)
+    is_hex = (_between(m, "0", "9") | _between(m, "A", "F")
+              | _between(m, "a", "f"))
+    esc = ((m == ord("%")) & _shifted(is_hex, 1, False)
+           & _shifted(is_hex, 2, False) & ((j + 2) < col.lengths[:, None])
+           & in_str)
+    decoded = (_hex_val(torch.roll(m, -1, dims=1)) * 16
+               + _hex_val(torch.roll(m, -2, dims=1))).to(torch.uint8)
+    emits = in_str & ~_shifted(esc, -1, False) & ~_shifted(esc, -2, False)
+    out_val = torch.where(esc, decoded,
+                          torch.where(m == ord("+"), ord(" "), m))
+    data, new_len = _compact_bytes(out_val, emits)
+    return Column(data, dt.STRING, col.validity, new_len)
+
+
+def url_encode(col: Column) -> Column:
+    """Percent-encoding: unreserved bytes (alnum and ``-_.~``) pass, every
+    other byte becomes ``%XX`` (upper-case hex), space included (cudf
+    ``url_encode``). The result's pad is read on the host (one sync, as
+    the JAX package's eager call)."""
+    _require_string(col)
+    n, pad_w = col.data.shape
+    m = col.data
+    dev = m.device
+    in_str = _in_str(col)
+    unreserved = (_between(m, "a", "z") | _between(m, "A", "Z")
+                  | _between(m, "0", "9") | (m == ord("-")) | (m == ord("_"))
+                  | (m == ord(".")) | (m == ord("~")))
+    widths = torch.where(in_str, torch.where(unreserved, 1, 3), 0)
+    ends = torch.cumsum(widths, dim=1)
+    starts = ends - widths
+    new_len = ends[:, -1].to(torch.int32)
+    if n == 0:
+        return Column(col.data, dt.STRING, col.validity, col.lengths)
+    pad_out = max(int(new_len.max()), 1)
+    hexv = const(tuple(_HEX_UPPER), torch.uint8, dev)
+    out = torch.zeros((n, pad_out + 1), dtype=torch.uint8, device=dev)
+    esc = in_str & ~unreserved
+    mi = m.to(torch.int64)
+    for at, val, where in (
+            (starts, torch.where(unreserved, m, ord("%")), in_str),
+            (starts + 1, hexv[mi >> 4], esc),
+            (starts + 2, hexv[mi & 0xF], esc)):
+        idx = torch.where(where, at.clamp(max=pad_out), pad_out)
+        out.scatter_(1, idx.to(torch.int64),
+                     torch.where(where, val, 0).to(torch.uint8))
+    data = torch.where(_cols(pad_out, dev) < new_len[:, None],
+                       out[:, :pad_out], 0).to(torch.uint8)
+    return Column(data, dt.STRING, col.validity, new_len)
+
+
+def concat_ws(sep: Union[str, bytes], *cols: Column) -> Column:
+    """Separator-joined rowwise concatenation (Spark ``concat_ws``): null
+    inputs are skipped, and the result is never null (a row whose inputs
+    are all null is the empty string)."""
+    if not cols:
+        raise ValueError("concat_ws needs at least one column")
+    for c in cols:
+        _require_string(c)
+    sep_b = _literal_bytes(sep)
+    n = cols[0].data.shape[0]
+    dev = cols[0].data.device
+    sep_data = const(tuple(sep_b.ljust(max(len(sep_b), 1), b"\0")),
+                     torch.uint8, dev).expand(n, -1)
+    out = None
+    started = None  # a piece was emitted before
+    for c in cols:
+        have = compute.valid_mask(c)
+        lens = torch.where(have, c.lengths, 0).to(torch.int32)
+        data = c.data
+        if c.validity is not None:
+            # a null row's bytes past its zeroed length go
+            data = torch.where(_cols(data.shape[1], dev) < lens[:, None],
+                               data, 0).to(torch.uint8)
+        piece = Column(data, dt.STRING, None, lens)
+        if out is None:
+            out, started = piece, have
+            continue
+        sep_lens = torch.where(started & have, len(sep_b), 0).to(torch.int32)
+        out = concat(concat(out, Column(sep_data, dt.STRING, None,
+                                        sep_lens)), piece)
+        started = started | have
+    return Column(out.data, dt.STRING, None, out.lengths)
+
+
+def substring_column(col: Column, starts: Column, lengths: Column) -> Column:
+    """Per-row substring with 0-based start and length columns (cudf
+    ``slice_strings`` with column offsets); out-of-range starts clamp, a
+    null start or length gives null."""
+    _require_string(col)
+    s = torch.minimum(starts.data.to(torch.int32).clamp(min=0), col.lengths)
+    want = lengths.data.to(torch.int32).clamp(min=0)
+    out = _shift_left(col, s, torch.minimum(want, col.lengths - s))
+    return Column(out.data, dt.STRING,
+                  compute.merge_validity(col, starts, lengths), out.lengths)
+
+
+def translate(col: Column, from_chars: Union[str, bytes],
+              to_chars: Union[str, bytes]) -> Column:
+    """Per-byte mapping (Spark ``translate``): byte ``from_chars[i]``
+    becomes ``to_chars[i]``, and a byte of ``from_chars`` past
+    ``len(to_chars)`` is deleted (the first occurrence of a byte
+    decides)."""
+    _require_string(col)
+    for name, s in (("from_chars", from_chars), ("to_chars", to_chars)):
+        if isinstance(s, str) and not s.isascii():
+            raise ValueError(
+                f"translate: {name} must be ASCII (byte-level op; "
+                "multi-byte UTF-8 chars would corrupt unrelated bytes)")
+    f, t = _literal_bytes(from_chars), _literal_bytes(to_chars)
+    lut = list(range(256))  # -1 deletes
+    seen = set()
+    for i, ch in enumerate(f):
+        if ch not in seen:
+            seen.add(ch)
+            lut[ch] = t[i] if i < len(t) else -1
+    dev = col.data.device
+    mapped = const(tuple(lut), torch.int32, dev)[col.data.to(torch.int64)]
+    in_str = _in_str(col)
+    if min(lut) >= 0:
+        data = torch.where(in_str, mapped, 0).to(torch.uint8)
+        return Column(data, dt.STRING, col.validity, col.lengths)
+    data, new_len = _compact_bytes(mapped, in_str & (mapped >= 0))
+    return Column(data, dt.STRING, col.validity, new_len)

@@ -1,24 +1,39 @@
 """Plan runner (port of ``plan.py`` ``run_plan``).
 
 A plan is a JSON list of op objects run one after another over a flowing
-table. The JAX package compiles maximal runs of fusable ops into one
-executable a segment; the port runs eagerly and fuses nothing: every op
-goes through ``runtime_bridge._dispatch_once`` (kernel tier, then the
-bucketed runner, then the exact path on unpadded inputs; a runner's
-``_Decline`` runs the exact path), under the fault ladder the JAX
-package applies to a fused segment (``_run_fused_tolerant``), here per
-op (:func:`_run_op_tolerant`). :func:`op_fusable` and
-:func:`segment_plan` are the JAX package's host functions: the wire
-entries read them to decide, as the JAX package does, whether a plan's
-upload is padded to its bucket.
+table. With bucketing on (``SPARK_RAPIDS_TPU_BUCKETS``) the plan runs by
+:func:`segment_plan`, as in the JAX package: a ``"fused"`` segment (a
+run of two or more fusable ops, a groupby closing its run) threads
+``(table, device count)`` through the bucketed runners' op bodies
+(``bucketed._do_*``) at its input's one bucket length and reads the
+count on the host once, at its end (:func:`_run_fused`); the kernel tier
+is not consulted inside it, as the JAX package's fused executable
+consults none. An ``"exact"`` segment is one op through
+``runtime_bridge._dispatch_once`` (kernel tier, then the bucketed runner,
+then the exact path on unpadded inputs). With bucketing off every op is
+an exact segment.
+
+Fault tolerance: an exact op runs under :func:`_run_op_tolerant`, a
+fused segment under :func:`_run_fused_tolerant` (spill for headroom,
+half-batch chunks of an all-row-local segment, transient retries); a
+fused segment that still fails is replayed op by op
+(``plan.fallbacks``), and one without a bucket runs op by op
+(``plan.declined``). Counters: ``plan.calls``, ``plan.segments``,
+``plan.fused_segments``, ``plan.fused_ops``, ``plan.exact_ops``,
+``plan.fallbacks``, ``plan.declined``, ``plan.chunked_segments``,
+``plan.oom_spill_retries``; spans ``plan`` and ``plan.segment``.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-from .column import Table, table_tensors
-from .utils import faults, hbm, metrics, spill
+import torch
+
+from . import bucketed
+from . import dtype as dt
+from .column import Column, Table, table_tensors
+from .utils import buckets, faults, hbm, log, metrics, spill
 
 # ops whose output over a row range depends only on the rows in that
 # range: an out-of-memory failure may run them in two halves and
@@ -27,16 +42,20 @@ from .utils import faults, hbm, metrics, spill
 _ROW_LOCAL = frozenset({"cast", "filter", "rlike"})
 
 
-# single-table ops a fused segment of the JAX package carries anywhere
+# single-table ops a fused segment carries anywhere in its run
 _SIMPLE_FUSABLE = frozenset(
     {"cast", "filter", "rlike", "distinct", "sort_by", "slice"})
 
+# a fused segment's failure replays it op by op; warn once an op chain
+_WARNED_SIGS = set()
+
 
 def op_fusable(op: dict) -> bool:
-    """Could this op ride inside one of the JAX package's fused segments?
-    (A groupby closes its run, see :func:`segment_plan`.) The bucketable
-    single-table ops, ``slice`` with non-negative bounds, and a groupby
-    without a collect aggregation."""
+    """Could this op ride inside a fused segment? (A groupby closes its
+    run, see :func:`segment_plan`.) The bucketable single-table ops,
+    ``slice`` with non-negative bounds (a negative one raises on the
+    exact path), and a groupby without a collect aggregation (its list
+    pad is sized from the data)."""
     if not isinstance(op, dict):
         return False
     name = op.get("op")
@@ -57,32 +76,172 @@ def op_fusable(op: dict) -> bool:
     return False
 
 
-def segment_plan(ops: Sequence[dict]) -> List[Tuple[str, list]]:
-    """The JAX package's segments of a plan, ``[(kind, ops)]``:
-    ``"fused"`` (a run of two or more fusable ops, a groupby closing its
-    run) or ``"exact"`` (one op through the per-op dispatch). The port
-    runs both kinds op by op."""
-    segs: List[Tuple[str, list]] = []
-    cur: list = []
+def segment_indices(ops: Sequence[dict]) -> List[Tuple[str, List[int]]]:
+    """A plan's segments by op index, ``[(kind, [indices])]``: ``"fused"``
+    (a run of two or more fusable ops, a groupby closing its run) or
+    ``"exact"`` (one op through the per-op dispatch)."""
+    segs: List[Tuple[str, List[int]]] = []
+    cur: List[int] = []
 
     def flush():
         nonlocal cur
         if len(cur) >= 2:
             segs.append(("fused", cur))
         else:
-            segs.extend(("exact", [o]) for o in cur)
+            segs.extend(("exact", [i]) for i in cur)
         cur = []
 
-    for op in ops:
+    for i, op in enumerate(ops):
         if op_fusable(op):
-            cur.append(op)
+            cur.append(i)
             if op.get("op") == "groupby":
                 flush()
         else:
             flush()
-            segs.append(("exact", [op]))
+            segs.append(("exact", [i]))
     flush()
     return segs
+
+
+def segment_plan(ops: Sequence[dict]) -> List[Tuple[str, list]]:
+    """A plan's segments, ``[(kind, ops)]`` (:func:`segment_indices`)."""
+    return [(kind, [ops[i] for i in idx])
+            for kind, idx in segment_indices(ops)]
+
+
+# ---------------------------------------------------------------------------
+# fused segments
+# ---------------------------------------------------------------------------
+
+
+def _fused_slice(op, t, n, rv):
+    """``slice`` inside a fused segment: rows [start, stop) of the first
+    ``n`` (the exact path's clamps, against the device count), compacted
+    to the front at the same physical length. The bounds are clamped to
+    the physical length on the host first (``n`` never exceeds it), so a
+    valid bound past int32 stays exact."""
+    from .ops.filter import filter_table_capped
+
+    cap = t.row_count
+    s = torch.clamp(n, max=min(int(op.get("start", 0)), cap))
+    stop = op.get("stop")
+    e = n if stop is None else torch.clamp(n, max=min(int(stop), cap))
+    e = torch.maximum(s, e)
+    iota = torch.arange(cap, device=n.device)
+    keep = (iota >= s) & (iota < e)
+    return filter_table_capped(t, Column(keep, dt.BOOL8, None),
+                               capacity=cap)
+
+
+#: op name -> fused body ``(op, padded table, device count, occupancy) ->
+#: (table at the same physical length, device count)``
+_FUSED = {"cast": bucketed._do_cast, "filter": bucketed._do_filter,
+          "rlike": bucketed._do_rlike, "distinct": bucketed._do_distinct,
+          "sort_by": bucketed._do_sort, "slice": _fused_slice,
+          "groupby": bucketed._do_groupby}
+
+
+def _run_fused(seg_ops: Sequence[dict], table: Table) -> Table:
+    """One fused segment: the input at its bucket (``bucketed._Decline``
+    without one), the count a device scalar through every op body, and
+    one host read of the final count."""
+    pt = bucketed._padded_input(table)
+    t = bucketed._strip(pt)
+    dev = bucketed._device(t)
+    # a fill, not a copy from the host: no synchronisation
+    n = torch.full((), int(pt.logical_row_count), dtype=torch.int64,
+                   device=dev)
+    for op in seg_ops:
+        rv = buckets.tail_valid(t.row_count, n)
+        t, n = _FUSED[op["op"]](op, t, n, rv)
+    # the segment's one host read: the count that sizes the result
+    return bucketed._finish(t, int(n))
+
+
+def _run_chunked(seg_ops: Sequence[dict], table: Table,
+                 run=None) -> Table:
+    """The degradation path of an all-row-local segment that ran out of
+    memory: run each half of the rows (``run``, by default the fused
+    segment at the half's bucket) and concatenate, byte-identically.
+    Raises ``faults.ResourceExhausted`` when the input is too small to
+    split."""
+    from .ops.copying import concatenate, slice_rows
+
+    run = run or (lambda part: _run_fused(seg_ops, part))
+    t = buckets.unpad_table(table)
+    n = int(t.row_count)
+    if n < 2:
+        raise faults.ResourceExhausted(
+            f"segment OOM at {n} row(s): nothing left to split")
+    halves = [buckets.unpad_table(run(slice_rows(t, lo, hi)))
+              for lo, hi in ((0, n // 2), (n // 2, n))]
+    metrics.counter_add("plan.chunked_segments")
+    return concatenate(halves)
+
+
+def _run_fused_tolerant(seg_ops: Sequence[dict], table: Table) -> Table:
+    """One fused segment under the fault ladder:
+
+    * a ``bucketed._Decline`` and ``Cancelled``/``DeadlineExceeded``
+      propagate at once;
+    * an input that a failed run already consumed is at-most-once: its
+      error surfaces as-is;
+    * a ``ResourceExhausted``-classified failure first asks the spill
+      tier for headroom (twice the input's bytes) and retries the same
+      segment; when nothing could spill, an all-row-local segment runs in
+      half-batch chunks, and if that fails too the first error surfaces;
+    * a retryable failure retries with backoff up to ``RETRY_MAX`` (an
+      injected fault fires before the run, so its retry is safe);
+    * anything else propagates to :func:`run_plan`'s per-op replay."""
+    attempt = 0
+    spill_tried = False
+    while True:
+        faults.check_cancel()
+        try:
+            faults.inject("dispatch")
+            return _run_fused(seg_ops, table)
+        except (bucketed._Decline, faults.Cancelled,
+                faults.DeadlineExceeded):
+            raise
+        except Exception as e:
+            if _input_consumed(table):
+                raise
+            cls = faults.classify(e)
+            if cls is faults.ResourceExhausted and not spill_tried:
+                spill_tried = True
+                if spill.request_headroom(2 * hbm.table_bytes(table),
+                                          reason="oom"):
+                    metrics.counter_add("plan.oom_spill_retries")
+                    continue
+            if cls is faults.ResourceExhausted and all(
+                    o.get("op") in _ROW_LOCAL for o in seg_ops):
+                try:
+                    return _run_chunked(seg_ops, table)
+                except Exception:  # the replay owns the first error
+                    raise e
+            if faults.retryable_class(cls) and attempt < faults.retry_max():
+                attempt += 1
+                faults.sleep_backoff(attempt, "plan.segment", error=e)
+                continue
+            raise
+
+
+def _replay(seg_ops: Sequence[dict], table: Table, e: Exception) -> Table:
+    """A fused segment that failed, op by op through the dispatch (the
+    exact path raises an op's own error); counted and warned once an op
+    chain."""
+    from . import runtime_bridge
+
+    metrics.counter_add("plan.fallbacks")
+    names = ",".join(str(o.get("op", "?")) for o in seg_ops)
+    if names not in _WARNED_SIGS:
+        _WARNED_SIGS.add(names)
+        log.log("WARN", "plan", "fused_segment_failed", ops=names,
+                error=f"{type(e).__name__}: {str(e)[:200]}")
+    for op in seg_ops:
+        table = runtime_bridge._dispatch(op, table)
+        metrics.counter_add("plan.exact_ops")
+    return table
 
 
 def _take_rest(op: dict, orig_rest: tuple, queue: list) -> list:
@@ -110,27 +269,6 @@ def _input_consumed(table: Table) -> bool:
     return any(spill.storage_freed(t) for t in table_tensors(table))
 
 
-def _run_chunked(op: dict, table: Table, rest: list) -> Table:
-    """The degradation path of a row-local op that ran out of memory: run
-    each half of the rows and concatenate (byte-identical: the op is
-    row-local, :data:`_ROW_LOCAL`). Raises ``faults.ResourceExhausted``
-    when the input is too small to split."""
-    from . import runtime_bridge
-    from .ops.copying import concatenate, slice_rows
-    from .utils import buckets
-
-    table = buckets.unpad_table(table)
-    n = int(table.row_count)
-    if n < 2:
-        raise faults.ResourceExhausted(
-            f"op OOM at {n} row(s): nothing left to split")
-    halves = [buckets.unpad_table(runtime_bridge._dispatch_once(
-        op, slice_rows(table, lo, hi), rest, op["op"]))
-        for lo, hi in ((0, n // 2), (n // 2, n))]
-    metrics.counter_add("plan.chunked_segments")
-    return concatenate(halves)
-
-
 def _run_op_tolerant(op: dict, table: Table, rest: list) -> Table:
     """One op under the fault ladder, ``faults.run_with_retry`` with the
     plan's own steps in its ``on_error`` hook:
@@ -156,7 +294,8 @@ def _run_op_tolerant(op: dict, table: Table, rest: list) -> Table:
 
     def run() -> Table:
         if chunk_oom:
-            return _run_chunked(op, table, rest)
+            return _run_chunked([op], table, run=lambda part: (
+                runtime_bridge._dispatch_once(op, part, rest, name)))
         faults.inject("dispatch")
         return runtime_bridge._dispatch_once(op, table, rest, name)
 
@@ -182,10 +321,18 @@ def _run_op_tolerant(op: dict, table: Table, rest: list) -> Table:
     return faults.run_with_retry(run, f"plan.op {name}", on_error=on_error)
 
 
-def _release_consumed(inp: Table, out: Table, protected: set) -> int:
-    """Free the storages of a consumed input that neither the op's output
-    nor a protected table holds; returns their bytes (a donation)."""
-    keep = protected | {spill.storage_key(t) for t in table_tensors(out)}
+def _storages(tables) -> set:
+    """The storage identities of ``tables``' tensors (empty ones left
+    out)."""
+    keys = {spill.storage_key(t) for tb in tables for t in table_tensors(tb)}
+    keys.discard(0)
+    return keys
+
+
+def _release_consumed(inp: Table, out: Table, keep: set) -> int:
+    """Free the storages of a consumed input that neither the segment's
+    output nor ``keep`` holds; returns their bytes (a donation)."""
+    keep = keep | _storages([out])
     seen, nbytes = set(), 0
     for t in table_tensors(inp):
         k = spill.storage_key(t)
@@ -197,34 +344,68 @@ def _release_consumed(inp: Table, out: Table, protected: set) -> int:
     return nbytes
 
 
+def _run_segment(kind: str, seg_ops: list, table: Table, orig_rest: tuple,
+                 queue: list) -> Table:
+    if kind == "fused":
+        try:
+            out = _run_fused_tolerant(seg_ops, table)
+        except bucketed._Decline:  # no bucket for this shape
+            metrics.counter_add("plan.declined")
+        except (faults.Cancelled, faults.DeadlineExceeded):
+            raise
+        except Exception as e:
+            if _input_consumed(table):
+                raise
+            return _replay(seg_ops, table, e)
+        else:
+            metrics.counter_add("plan.fused_segments")
+            metrics.counter_add("plan.fused_ops", len(seg_ops))
+            return out
+    for op in seg_ops:
+        table = _run_op_tolerant(op, table,
+                                 _take_rest(op, orig_rest, queue))
+        metrics.counter_add("plan.exact_ops")
+    return table
+
+
 def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
              donate_input: bool = False,
              protected: Optional[set] = None) -> Table:
     """Execute a plan over ``table``; ``rest`` supplies the extra tables
-    of multi-table ops. Returns the final table.
+    of multi-table ops. Returns the final (possibly padded) table.
 
     ``donate_input=True`` declares ``table`` consumed by this plan
     (nothing else reads it: a wire upload, a resident id the caller gave
-    up): once the first op has returned, the input's storages that the
-    output, a ``rest`` table or ``protected`` (storage identities) does
-    not hold are freed, counted by ``hbm.note_donation``. Later
-    intermediates are the plan's own and go as the loop moves on."""
+    up). A segment whose input the plan owns (the donated input, then
+    every intermediate) releases, once it has returned, the input's
+    storages that its output, a ``rest`` table or ``protected`` (storage
+    identities) does not hold, counted by ``hbm.note_donation``. A later
+    segment's input that shares a storage with the plan's input, a
+    ``rest`` table or ``protected`` (an aliasing op passed it on) is not
+    the plan's own, and releases nothing."""
     if not isinstance(ops, (list, tuple)):
         raise TypeError("plan must be a JSON list of op objects")
     for op in ops:
         if not isinstance(op, dict) or "op" not in op:
             raise ValueError(f"plan entries must be op objects, got {op!r}")
     orig_rest, queue = tuple(rest), list(rest)
+    segs = (segment_plan(ops) if buckets.enabled()
+            else [("exact", [op]) for op in ops])
     metrics.counter_add("plan.calls")
-    for i, op in enumerate(ops):
-        faults.check_cancel()  # between-op checkpoint
-        out = _run_op_tolerant(op, table, _take_rest(op, orig_rest, queue))
-        if i == 0 and donate_input:
-            keep = set(protected or ())
-            for t in orig_rest:
-                keep.update(spill.storage_key(x) for x in table_tensors(t))
-            donated = _release_consumed(table, out, keep)
-            if donated:
-                hbm.note_donation(donated)
-        table = out
+    metrics.counter_add("plan.segments", len(segs))
+    keep = set(protected or ()) | _storages(orig_rest)
+    guard = keep | _storages([table])
+    with metrics.span("plan", segments=len(segs), ops=len(ops)):
+        for i, (kind, seg_ops) in enumerate(segs):
+            faults.check_cancel()  # between-segment checkpoint
+            owned = (donate_input if i == 0
+                     else guard.isdisjoint(_storages([table])))
+            with metrics.span("plan.segment", index=i, kind=kind,
+                              ops=len(seg_ops)):
+                out = _run_segment(kind, seg_ops, table, orig_rest, queue)
+            if owned:
+                donated = _release_consumed(table, out, keep)
+                if donated:
+                    hbm.note_donation(donated)
+            table = out
     return table

@@ -10,9 +10,10 @@ index, op name and reason. Like the reference it is permissive: only
 what is certain to raise is refused, and a walk whose schema is unknown
 checks structure only.
 
-The rules are those of every op the JAX package dispatches. Fusion
-tiers, kernel tags, segment prediction and the HBM estimate (with its
-per-type width estimates) wait for plan fusion.
+The rules are those of every op the JAX package dispatches.
+:func:`predict_segments` gives a plan's fusion segments by op index.
+Fusion tiers, kernel tags and the HBM estimate (with its per-type width
+estimates) are not ported.
 """
 
 from __future__ import annotations
@@ -633,3 +634,11 @@ def check_plan(ops, schema: Optional[Sequence[ColType]] = None,
         bad = report["ops"][-1]
         raise PlanCheckError(bad["index"], bad["op"], bad["reason"], report)
     return report
+
+
+def predict_segments(ops: Sequence[dict]) -> List[Tuple[str, List[int]]]:
+    """The plan's fusion segments as ``[(kind, [op indices])]``, by the
+    runner's own rule (``plan.segment_indices``)."""
+    from .plan import segment_indices
+
+    return segment_indices(ops)

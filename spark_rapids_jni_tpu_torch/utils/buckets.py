@@ -156,9 +156,13 @@ def bucket_for(n: int) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 
-def tail_valid(physical: int, n: int, device=None) -> torch.Tensor:
+def tail_valid(physical: int, n, device=None) -> torch.Tensor:
     """Row-occupancy mask of a padded buffer: True for the first ``n``
-    of ``physical`` rows."""
+    of ``physical`` rows. ``n`` is a Python int or a device scalar (a
+    fused segment's count, compared on its device without a host
+    read)."""
+    if isinstance(n, torch.Tensor):
+        return torch.arange(physical, device=n.device) < n
     return torch.arange(physical, device=device) < int(n)
 
 

@@ -214,18 +214,26 @@ TIER_PLANS = {
 @pytest.mark.parametrize("n", (17,))
 def test_kernel_tier_on_padded_inputs_matches_jax(n):
     """The tier's runners on padded resident tables (the JAX tier runs in
-    interpret mode here): equal 5-tuples, and the port's tier launches."""
+    interpret mode here): equal 5-tuples, and the port's tier launches,
+    but inside a fused segment ([filter, groupby] in both packages),
+    where the tier is not consulted."""
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+
     _set("BUCKETS", LADDER)
     _set("KERNELS", "on")
     _set("METRICS", "1")
     wires = [_wire(n, n + 4), _wire(40, 5, key_range=8)]
-    for name in ("sort", "filter_groupby", "semi"):
+    for name in ("sort", "groupby", "filter_groupby", "semi"):
         plan = TIER_PLANS[name]
         pmetrics.reset()
         want, got = _resident_both(plan, wires)
         assert got == want, name
-        assert pmetrics.counter_values(["kernel.launches"])[
-            "kernel.launches"] >= 1, name
+        launches = pmetrics.counter_values(["kernel.launches"])[
+            "kernel.launches"]
+        if plan_mod.segment_plan(plan)[0][0] == "fused":
+            assert launches == 0, name
+        else:
+            assert launches >= 1, name
 
 
 def test_tier_keeps_launching_without_a_bucket():

@@ -156,3 +156,46 @@ def test_plancheck_matches_jax(name):
         [(c["type_id"], c["scale"], c["child"]) for c in e["out_schema"]]
         for e in want["ops"]]
     assert got["rows_out_bound"] == want["rows_out_bound"]
+
+
+# ---------------------------------------------------------------------------
+# split_explode (Spark explode(split(col, d))) against the JAX package
+# ---------------------------------------------------------------------------
+
+SPLIT_EDGES = ["a,b,c", "", None, "x,,y", ",", ",lead", "trail,", ",,",
+               "one", "é,日本,", "\udcff,\udcfe", "a" * 17]
+
+
+def _split_tables(names):
+    from test_torch_strings_lib import VALUES
+
+    vals = SPLIT_EDGES + VALUES
+    keys = np.arange(len(vals), dtype=np.int64)
+    valid = np.arange(len(vals)) % 5 != 3
+    j = JTable([JColumn.from_numpy(keys, validity=valid),
+                JColumn.from_strings(vals, pad_width=17)], names)
+    p = Table([Column.from_numpy(keys, valid, device="cpu"),
+               Column.from_strings(vals, pad_width=17, device="cpu")], names)
+    return j, p
+
+
+@pytest.mark.parametrize("delim", [",", "a", "\x00"])
+@pytest.mark.parametrize("names", [None, ("k", "s")], ids=["unnamed", "named"])
+def test_split_explode_matches_jax(delim, names):
+    from spark_rapids_jni_tpu.ops import split_explode as jsplit_explode
+    from spark_rapids_jni_tpu_torch.ops import split_explode
+
+    j, p = _split_tables(names)
+    _same_table(jsplit_explode(j, 1, delim), split_explode(p, 1, delim))
+
+
+def test_split_explode_raises_as_jax():
+    from spark_rapids_jni_tpu.ops import split_explode as jsplit_explode
+    from spark_rapids_jni_tpu_torch.ops import split_explode
+
+    j, p = _split_tables(("k", "s"))
+    for fn, t in ((jsplit_explode, j), (split_explode, p)):
+        with pytest.raises(ValueError, match="single-byte"):
+            fn(t, "s", "--")
+        with pytest.raises(TypeError):
+            fn(t, "k", ",")

@@ -7,9 +7,8 @@ calls, ``classify_text`` over every string of the JAX package's
 ``tests/test_faults.py`` plus CUDA's own error texts, the backoff, the
 deadlines, and the circuit breaker on a fake clock. Fault-injected wire
 plans at 1023/1024/1025 rows give the fault-free bytes in both packages,
-and where the two packages make the same calls (the JAX package with
-``BUCKETS`` off runs one dispatch an op, as the port does) the same
-``injection_stats()`` and retry counters. Tolerance 0 throughout.
+and where the two packages make the same calls (both run a plan by its
+fusion segments) the same ``injection_stats()`` and retry counters. Tolerance 0 throughout.
 """
 
 import dataclasses
@@ -46,9 +45,8 @@ QTY_BY_DATE = [
     {"op": "sort_by", "keys": [{"column": 0}]},
     {"op": "to_rows"},
 ]
-# the part of it whose kernel-tier routes are the same in both packages
-# with the JAX package's BUCKETS off (its hash_groupby and packed_sort
-# need a shape bucket): K1b and K1a
+# the part of it whose kernel-tier routes are the same in both packages:
+# K1b, the fused [filter, cast] segment and K1a
 ROWS_CHAIN = [FROM_ROWS, {"op": "filter", "mask": 4},
               {"op": "cast", "column": 3, "type_id": 4}, {"op": "to_rows"}]
 ROW_LOCAL_CHAIN = [{"op": "filter", "mask": 1},
@@ -525,7 +523,6 @@ def test_default_probe_fires_serve_accept():
 @pytest.mark.parametrize("site", ("dispatch", "serde", "kernel"))
 def test_transient_faults_same_bytes_stats_and_counters(site, n):
     wire = _fact_wire(n, seed=n)
-    jconfig.set_flag("BUCKETS", "off")  # one dispatch an op, as the port
     for name, value in (("KERNELS", "on"), ("METRICS", "1"),
                         ("RETRY_BASE_MS", "1")):
         _both(name, value)
@@ -631,8 +628,10 @@ def test_transient_exhaustion_gives_up_typed():
     config.set_flag("FAULTS", "dispatch:transient:1")
     with pytest.raises(faults.TransientDeviceError, match="injected"):
         _port(ROW_LOCAL_CHAIN, _cols_wire(256))
+    # the fused [filter, cast] segment retries twice, then its replay's
+    # first op twice more and gives up
     assert metrics.counter_values(["retry.attempts", "retry.giveups"]) == {
-        "retry.attempts": 2, "retry.giveups": 1}
+        "retry.attempts": 4, "retry.giveups": 1}
 
 
 def test_permanent_fault_surfaces_typed_in_both():
@@ -667,6 +666,9 @@ def test_consumed_input_is_never_retried(monkeypatch):
         raise RuntimeError("UNAVAILABLE: device lost after launch")
 
     monkeypatch.setattr(rb, "_dispatch_once", launch_then_die)
+    # the chain is one fused segment: its run dies the same way
+    monkeypatch.setattr(plan_mod, "_run_fused",
+                        lambda ops, t: launch_then_die(ops, t, (), "plan"))
     monkeypatch.setattr(plan_mod, "_input_consumed", lambda t: True)
     with pytest.raises(RuntimeError, match="device lost after launch"):
         _port(ROW_LOCAL_CHAIN, _cols_wire(1024))
@@ -679,6 +681,8 @@ def test_kernel_runner_failure_still_raises(monkeypatch):
     neither retried nor replayed on the exact path."""
     config.set_flag("KERNELS", "on")
     config.set_flag("METRICS", "1")
+    # op by op: in a fused segment the groupby meets no tier
+    config.set_flag("BUCKETS", "off")
     config.set_flag("FAULTS", "seed=1,dispatch:transient:0")
     metrics.reset()
     def boom(op, table, rest):
@@ -715,10 +719,12 @@ def test_injected_kernel_fault_falls_back_exactly(monkeypatch):
     assert _port(QTY_BY_DATE, wire) == want
     assert exact == exact_clean
     assert "groupby" not in exact
+    # from_rows and to_rows: the groupby closes the fused [filter, cast,
+    # groupby] segment, where the tier is not consulted
     c = metrics.counter_values(["kernel.fallbacks", "kernel.launches",
                                 "kernel.retries"])
-    assert c == {"kernel.fallbacks": 0, "kernel.launches": 3,
-                 "kernel.retries": 3}
+    assert c == {"kernel.fallbacks": 0, "kernel.launches": 2,
+                 "kernel.retries": 2}
 
 
 # ---------------------------------------------------------------------------

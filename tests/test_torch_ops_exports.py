@@ -19,9 +19,7 @@ from spark_rapids_jni_tpu_torch.ops import datetime as pdtm
 from spark_rapids_jni_tpu_torch.ops import window
 
 #: the JAX exports still to port, each with its ROADMAP Queue 1 item
-WAITING = {
-    "split_explode": "item 6",
-}
+WAITING: dict = {}
 
 
 def test_exports_match_the_jax_package_but_the_waiting_list():

@@ -11,7 +11,8 @@ checkout sees the same rows), runs the named phases of it with their
 own checks (a phase the checkout does not have is skipped), and
 records each profiled window (``profile_plan``): the cell's tag, its
 device ms a run and its unprofiled median wall. Phases that time
-themselves otherwise ((o), (p)) print their own lines.
+themselves otherwise ((m1), (o), (p), (q), (k5)) print their own
+lines.
 
 Prints one line a cell and run, then one JSON line
 ``{"runs": [{"tree": ..., "cells": {tag: {"device_ms", "wall_ms"}}}]}``
@@ -41,6 +42,10 @@ _PHASES = {
     "buckets": lambda cs, rb, k, D: cs.phase_buckets(rb, k, D["d"], D["dd"]),
     "formulations": lambda cs, rb, k, D: cs.phase_formulations(
         k, D["g"], D["d"], D["seed"]),
+    "stream": lambda cs, rb, k, D: cs.phase_stream(rb, k, D["d"], {}),
+    "fusion": lambda cs, rb, k, D: cs.phase_fusion(rb, D["d"], D["dd"]),
+    "string_lib": lambda cs, rb, k, D: cs.phase_string_lib(rb, D["sd"],
+                                                           D["seed"]),
 }
 
 
