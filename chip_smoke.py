@@ -53,9 +53,9 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     numpy, once with SPARK_RAPIDS_TPU_KERNELS=on and once off (equal
     5-tuples; the tier's launch and decline counters printed for each):
     [filter, cast, groupby] is one fused segment, where the tier is not
-    consulted; then once op by op (SPARK_RAPIDS_TPU_BUCKETS=off), where
-    the groupby runs K2a, and a 2^20-row legacy flat UINT8 input op by
-    op.
+    consulted; a 2^20-row legacy flat UINT8 input under the same default
+    ladder (one fused segment, no fallback); then (a)'s batch once op by
+    op (SPARK_RAPIDS_TPU_BUCKETS=off), where the groupby runs K2a.
 (i) the rest of the dispatch plane — four resident plans through
     ``table_upload_wire`` + ``table_plan_resident`` over (a)'s batch:
     (i1) a LEFT SEMI join with the ~20,400 items of one category (K2a +
@@ -2100,6 +2100,19 @@ def phase_wire_plan(kernels, d: dict) -> dict:
             torch.cuda.synchronize()
 
         profile = profile_plan(run, median, "(h)")
+        # a legacy flat UINT8 input under the default ladder: a padded
+        # upload and the fused [filter, cast, groupby] segment
+        n = FLAT_ROWS
+        flat = ([5], [0], [d["rows"][:n].tobytes()], [None], n * 32)
+        flat_plan = [dict(WIRE_PLAN[0], num_rows=n)] + WIRE_PLAN[1:]
+        metrics.reset()
+        kernels.reset_launches()
+        got = rb.table_plan_wire(json.dumps(flat_plan), *flat, device=DEVICE)
+        torch.cuda.synchronize()
+        flat_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        flat_plan_counters = metrics.counter_values(
+            ["plan.fused_segments", "plan.fallbacks", "plan.declined"])
+        check_rows(got, wire_plan_oracle(d, n))
         # op by op: the groupby meets the tier (K2a)
         config.set_flag("BUCKETS", "off")
         kernels.reset_launches()
@@ -2108,17 +2121,9 @@ def phase_wire_plan(kernels, d: dict) -> dict:
         torch.cuda.synchronize()
         per_op_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
         check_rows(out["per_op"], want)
-        n = FLAT_ROWS
-        flat = ([5], [0], [d["rows"][:n].tobytes()], [None], n * 32)
-        flat_plan = [dict(WIRE_PLAN[0], num_rows=n)] + WIRE_PLAN[1:]
-        kernels.reset_launches()
-        got = rb.table_plan_wire(json.dumps(flat_plan), *flat, device=DEVICE)
-        torch.cuda.synchronize()
-        flat_launches = {k: v.launches for k, v in kernels.KERNELS.items()}
-        check_rows(got, wire_plan_oracle(d, n))
-        log(f"(h) op by op (BUCKETS=off): equal 5-tuple, launches "
-            f"{per_op_launches}; legacy flat UINT8 input op by op: {n} rows "
-            f"exact; launches {flat_launches}")
+        log(f"(h) legacy flat UINT8 input: {n} rows exact; launches "
+            f"{flat_launches}; counters {flat_plan_counters}; op by op "
+            f"(BUCKETS=off): equal 5-tuple, launches {per_op_launches}")
     finally:
         config.clear_flag("KERNELS")
         config.clear_flag("METRICS")
@@ -2126,11 +2131,16 @@ def phase_wire_plan(kernels, d: dict) -> dict:
     if not out["on"] == out["off"] == out["per_op"]:
         raise AssertionError("(h) tier on, off and op by op give different "
                              "bytes")
-    missing = ([k for k in WIRE_KERNELS if counters["on"]["kernels"][k] == 0]
-               + [k for k in WIRE_OFF_KERNELS
-                  if per_op_launches[k] == 0 or flat_launches[k] == 0])
+    missing = ([k for k in WIRE_KERNELS
+                if counters["on"]["kernels"][k] == 0 or flat_launches[k] == 0]
+               + [k for k in WIRE_OFF_KERNELS if per_op_launches[k] == 0])
     if missing:
         raise AssertionError(f"(h) never launched {missing}")
+    if (flat_plan_counters["plan.fused_segments"] != 1
+            or flat_plan_counters["plan.fallbacks"]
+            or flat_plan_counters["plan.declined"]):
+        raise AssertionError(f"(h) the flat input's fused segment did not "
+                             f"run fused: {flat_plan_counters}")
     return {"counters": counters, "wall_ms": median, "profile": profile,
             "per_op_launches": per_op_launches,
             "flat_launches": flat_launches}

@@ -148,11 +148,6 @@ def _do_cast(op, t, n, rv):
     return Table(cols, t.names), n
 
 
-def _host(n) -> bool:
-    """May the body read the host (a per-op runner's Python count)?"""
-    return not isinstance(n, torch.Tensor)
-
-
 def _do_filter(op, t, n, rv):
     from .ops.filter import filter_table_capped
 
@@ -171,27 +166,24 @@ def _do_rlike(op, t, n, rv):
 
 
 def _do_distinct(op, t, n, rv):
-    from .ops.compaction import distinct_capped
+    from .ops.compaction import _distinct_capped
 
-    return distinct_capped(t, op.get("keys"), capacity=t.row_count,
-                           row_valid=rv, host_sync=_host(n))
+    return _distinct_capped(t, op.get("keys"), t.row_count, rv, n)
 
 
 def _do_sort(op, t, n, rv):
-    from .ops.sort import SortKey, sort_table
+    from .ops.sort import SortKey, _sort_occupied
 
     ks = [SortKey(k["column"], ascending=k.get("ascending", True))
           for k in op["keys"]]
-    return sort_table(t, ks, row_valid=rv, host_sync=_host(n)), n
+    return _sort_occupied(t, ks, rv, n), n
 
 
 def _do_groupby(op, t, n, rv):
-    from .ops.groupby import GroupbyAgg, groupby_aggregate_capped
+    from .ops.groupby import GroupbyAgg, _groupby_capped
 
     aggs = [GroupbyAgg(a["column"], a["agg"]) for a in op["aggs"]]
-    return groupby_aggregate_capped(t, list(op["by"]), aggs,
-                                    num_segments=t.row_count, row_valid=rv,
-                                    host_sync=_host(n))
+    return _groupby_capped(t, list(op["by"]), aggs, t.row_count, rv, n)
 
 
 def _single(kind: str, body, name: str):

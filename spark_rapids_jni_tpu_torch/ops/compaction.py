@@ -21,17 +21,17 @@ from ..column import Column, Table
 from . import compute
 from .filter import filter_table, filter_table_capped
 from .keys import SIGN64, column_order_keys
-from .sort import lexsort, occupied_prefix
+from .sort import _reads_host, lexsort, occupied_prefix
 
 
 def _first_of_run_mask(table: Table, keys: Optional[Sequence],
                        row_valid: Optional[torch.Tensor] = None,
-                       host_sync: bool = True) -> Column:
+                       count=None) -> Column:
     """BOOL8 mask of the first occurrence of each distinct key row. A
     ``row_valid`` False row (padding) joins no real row's run and is never
     kept; when ``row_valid`` is a prefix (a padded table), only the
-    prefix is sorted (one host read; ``host_sync=False`` sorts every row
-    with the occupancy word instead, for the same mask)."""
+    prefix is sorted (one host read; with a device ``count``, every row
+    is sorted with the occupancy word instead, for the same mask)."""
     cols = ([table.column(k) for k in keys] if keys is not None
             else list(table.columns))
     words: list = []
@@ -44,7 +44,7 @@ def _first_of_run_mask(table: Table, keys: Optional[Sequence],
     n = table.row_count
     rows = n
     if row_valid is not None and n:
-        rows = occupied_prefix(row_valid) if host_sync else None
+        rows = occupied_prefix(row_valid) if _reads_host(count) else None
         if rows is None:
             rows = n
             words.append(row_valid.to(torch.uint8))
@@ -75,14 +75,20 @@ def distinct_capped(
     keys: Optional[Sequence] = None,
     capacity: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
-    host_sync: bool = True,
 ) -> tuple[Table, torch.Tensor]:
     """Distinct with a static output size: (table of ``capacity`` rows,
-    by default the input's, device count). ``row_valid`` excludes rows;
-    ``host_sync=False`` reads nothing on the host, for the same bytes."""
+    by default the input's, device count). ``row_valid`` excludes rows."""
+    return _distinct_capped(table, keys, capacity, row_valid)
+
+
+def _distinct_capped(table: Table, keys, capacity, row_valid,
+                     count=None) -> tuple[Table, torch.Tensor]:
+    """``distinct_capped`` of a padded table whose logical count is
+    ``count``: a device scalar reads nothing on the host, for the same
+    bytes."""
     cap = capacity if capacity is not None else table.row_count
     return filter_table_capped(
-        table, _first_of_run_mask(table, keys, row_valid, host_sync), cap)
+        table, _first_of_run_mask(table, keys, row_valid, count), cap)
 
 
 def distinct_count(obj: Union[Table, Column],

@@ -44,7 +44,7 @@ from ..column import Column, Table
 from . import compute
 from . import keys as keys_mod
 from .gather import take_rows
-from .sort import lexsort, lexsort_occupied
+from .sort import _argsort_occupied, _reads_host, lexsort
 
 _AGG_OPS = {
     "sum", "count", "min", "max", "mean", "variance", "std",
@@ -182,9 +182,35 @@ def _segment_sum(vals: torch.Tensor, starts, ends,
     return compute.flush_subnormal(hi - lo)
 
 
-def _segment_bounds(seg: torch.Tensor, num_segments: int):
+# dropped rows of a scatter spread over this many spare slots, so that
+# they do not all meet at one address (a fused segment's padding is
+# millions of rows of one segment)
+_SPARE_SLOTS = 1024
+
+
+def _spare(keep: torch.Tensor, idx: torch.Tensor, base: int) -> torch.Tensor:
+    """``idx`` where ``keep``, else one of the spare slots from ``base``
+    on, by row."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    return torch.where(keep, idx, base + (rows & (_SPARE_SLOTS - 1)))
+
+
+def _segment_bounds(seg: torch.Tensor, num_segments: int,
+                    boundary: Optional[torch.Tensor] = None):
     """Per-segment [start, end) row ranges of a nondecreasing segment-id
-    vector, by binary search (int32 results, as in the JAX package)."""
+    vector (int32 results, as in the JAX package): by binary search, or,
+    given the rows where a segment starts (``seg`` is then the running
+    count of ``boundary`` less one), by scattering those rows' positions;
+    an id past the last segment gets the empty range [n, n)."""
+    if boundary is not None:
+        n = seg.shape[0]
+        pos = torch.full((num_segments + 1 + _SPARE_SLOTS,), n,
+                         dtype=torch.int32, device=seg.device)
+        slot = _spare(boundary & (seg <= num_segments), seg,
+                      num_segments + 1)
+        pos.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
+                                           device=seg.device))
+        return pos[:num_segments], pos[1:num_segments + 1]
     ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
     starts = torch.searchsorted(seg, ids).to(torch.int32)
     ends = torch.searchsorted(seg, ids, right=True).to(torch.int32)
@@ -196,16 +222,21 @@ def _clip_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool,
-                            rows: Optional[int] = None):
+                            rows: Optional[int] = None,
+                            valid: Optional[torch.Tensor] = None):
     """Per-segment min/max of a row-sorted vector, one value per entry of
     ``ends``. The JAX package runs a segmented associative scan and reads
     each segment's last row; torch has no such scan, so one
     ``scatter_reduce`` over the segment ids gives the same value for every
     non-empty segment (empty ones hold 0; segment ids past the end land in
-    one dropped slot). Unsigned and bool values reduce as int64 carriers
-    in their order, floats as they are (NaN propagates, as jnp.minimum;
-    -0.0 becomes +0.0 when the JAX package scans ``rows`` >= 2 rows, by
-    default ``masked_vals``'s, :func:`_zero_sign`)."""
+    one dropped slot). With ``valid``, whose False rows hold the
+    reduction's identity (the caller's sentinel), each segment starts from
+    its last row and only the valid rows are scattered (the rest spread
+    over spare slots): the same value for every non-empty segment, and an
+    empty one holds a row of another. Unsigned and bool values reduce as
+    int64 carriers in their order, floats as they are (NaN propagates, as
+    jnp.minimum; -0.0 becomes +0.0 when the JAX package scans ``rows`` >= 2
+    rows, by default ``masked_vals``'s, :func:`_zero_sign`)."""
     num_segments = ends.shape[0]
     dtype = masked_vals.dtype
     if dtype == torch.uint64:
@@ -216,9 +247,19 @@ def _sorted_segment_extreme(masked_vals, seg, ends, is_min: bool,
     else:
         work = masked_vals
     idx = seg.clamp(max=num_segments).to(torch.int64)
-    out = torch.zeros(num_segments + 1, dtype=work.dtype, device=work.device)
-    out = out.scatter_reduce(0, idx, work, "amin" if is_min else "amax",
-                             include_self=False)[:num_segments]
+    reduce = "amin" if is_min else "amax"
+    if valid is None:
+        out = torch.zeros(num_segments + 1, dtype=work.dtype,
+                          device=work.device)
+        out = out.scatter_reduce(0, idx, work, reduce,
+                                 include_self=False)[:num_segments]
+    else:
+        n = work.shape[0]
+        last = (work[_clip_rows(ends.to(torch.int64) - 1, n)] if n
+                else work.new_zeros(num_segments))
+        out = torch.cat([last, work.new_zeros(1 + _SPARE_SLOTS)])
+        out = out.scatter_reduce(0, _spare(valid, idx, num_segments + 1),
+                                 work, reduce)[:num_segments]
     if dtype == torch.uint64:
         return (out ^ keys_mod.SIGN64).view(torch.uint64)
     return _zero_sign(out.to(dtype),
@@ -415,7 +456,8 @@ def _reduce(col: Column, op: str, data, valid, seg, starts, ends, segsum,
         info = np.iinfo(compute.NP_OF[vals.dtype])
         sentinel = int(info.max if is_min else info.min)
     masked = torch.where(valid, vals, torch.full_like(vals, sentinel))
-    ext = _sorted_segment_extreme(masked, seg, ends, is_min, scan_rows)
+    ext = _sorted_segment_extreme(masked, seg, ends, is_min, scan_rows,
+                                  valid)
     return compute.from_values(ext, d, has)
 
 
@@ -662,7 +704,6 @@ def groupby_aggregate_capped(
     aggs: Sequence[GroupbyAgg],
     num_segments: int,
     row_valid: Optional[torch.Tensor] = None,
-    host_sync: bool = True,
 ) -> tuple[Table, torch.Tensor]:
     """Groupby with a static output size: (result of ``num_segments``
     rows, device group count). Keys and values past the count are null.
@@ -674,26 +715,32 @@ def groupby_aggregate_capped(
     Every segment id past the last one the rows reach is empty, and its
     output row is the same for each of them (a range past the last row):
     the aggregations run over the segments reached and one empty one,
-    whose row fills the rest (one host sync reads the segment count).
-    ``host_sync=False`` reads nothing on the host: one sort of every row
-    behind the occupancy word, and every one of ``num_segments``
-    aggregated, for the same bytes."""
+    whose row fills the rest (one host sync reads the segment count)."""
+    return _groupby_capped(table, by, aggs, num_segments, row_valid)
+
+
+def _groupby_capped(table: Table, by, aggs, num_segments: int, row_valid,
+                    count=None) -> tuple[Table, torch.Tensor]:
+    """``groupby_aggregate_capped`` of a padded table whose logical count
+    is ``count``. A device scalar reads nothing on the host: one sort of
+    every row behind the occupancy word, and every one of
+    ``num_segments`` aggregated, for the same bytes."""
     for a in aggs:
         _check_value(table.column(a.column), a.op)
     key_cols = [table.column(c) for c in by]
     n = table.row_count
     words = _group_words(key_cols, row_valid)
-    perm = (None if row_valid is None or not host_sync
-            else lexsort_occupied(words[1:], row_valid))
-    perm, seg, _ = _sorted_segments(words, perm)
+    perm = (None if row_valid is None
+            else _argsort_occupied(words[1:], row_valid, count))
+    perm, seg, boundary = _sorted_segments(words, perm)
     if row_valid is not None:
         rv_sorted = row_valid[perm]
         num_groups = torch.where(rv_sorted, seg + 1, 0).max()
     else:
         num_groups = seg[-1] + 1
-    m = (num_segments if n == 0 or not host_sync
+    m = (num_segments if n == 0 or not _reads_host(count)
          else min(num_segments, int(seg[-1]) + 2))
-    starts, ends = _segment_bounds(seg, m)
+    starts, ends = _segment_bounds(seg, m, boundary)
     in_range = torch.arange(m, device=perm.device) < num_groups
     first_rows = perm[_clip_rows(starts.to(torch.int64), n)]
     out_cols = []

@@ -108,22 +108,35 @@ def lexsort_occupied(words: Sequence[torch.Tensor],
     return torch.cat([head, k + lexsort([w[k:] for w in words])])
 
 
+def _reads_host(count) -> bool:
+    """May an occupancy-aware body read the host? Yes for a Python count
+    or none (a per-op runner, a direct call), no for a device scalar (a
+    fused plan segment, which reads its count once, at its end)."""
+    return not isinstance(count, torch.Tensor)
+
+
+def _argsort_occupied(words: Sequence[torch.Tensor],
+                      row_valid: Optional[torch.Tensor],
+                      count=None) -> torch.Tensor:
+    """``lexsort`` of the occupancy word (``row_valid`` False rows last)
+    and ``words``: ``lexsort_occupied`` (one host read) unless ``count``
+    is a device scalar, then one sort of every row behind the one-byte
+    occupancy word (the same permutation, no host read)."""
+    if row_valid is None:
+        return lexsort(words)
+    if _reads_host(count):
+        return lexsort_occupied(words, row_valid)
+    return lexsort([(~row_valid).to(torch.uint8)] + list(words))
+
+
 def argsort_table(
     table: Table,
     sort_keys: Sequence[Union[SortKey, str, int]],
     row_valid: Optional[torch.Tensor] = None,
-    host_sync: bool = True,
 ) -> torch.Tensor:
     """Stable row permutation ordering ``table`` by ``sort_keys``;
-    ``row_valid`` False rows sink to the end (``lexsort_occupied``, or
-    with ``host_sync=False`` one sort of every row behind the one-byte
-    occupancy word: the same permutation, no host read)."""
-    words = _table_key_words(table, sort_keys)
-    if row_valid is None:
-        return lexsort(words)
-    if host_sync:
-        return lexsort_occupied(words, row_valid)
-    return lexsort([(~row_valid).to(torch.uint8)] + words)
+    ``row_valid`` False rows sink to the end."""
+    return _argsort_occupied(_table_key_words(table, sort_keys), row_valid)
 
 
 def sort_table(
@@ -131,11 +144,18 @@ def sort_table(
     sort_keys: Sequence[Union[SortKey, str, int]],
     payload: Optional[Table] = None,
     row_valid: Optional[torch.Tensor] = None,
-    host_sync: bool = True,
 ) -> Table:
     """ORDER BY: ``table`` (or ``payload``) reordered, stable."""
-    perm = argsort_table(table, sort_keys, row_valid, host_sync)
+    perm = argsort_table(table, sort_keys, row_valid)
     return gather_table(payload if payload is not None else table, perm)
+
+
+def _sort_occupied(table: Table, sort_keys, row_valid: torch.Tensor,
+                   count) -> Table:
+    """``sort_table`` of a padded table whose logical count is ``count``
+    (:func:`_argsort_occupied`)."""
+    words = _table_key_words(table, sort_keys)
+    return gather_table(table, _argsort_occupied(words, row_valid, count))
 
 
 def is_sorted(

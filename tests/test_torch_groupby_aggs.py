@@ -183,6 +183,35 @@ def test_capped_aggs_match_jax(n, with_row_valid):
     _same(want, got)
 
 
+@pytest.mark.parametrize("clones", [False, True],
+                         ids=["prefix", "prefix_clones"])
+@pytest.mark.parametrize("n", [1023, 1025])
+def test_capped_device_count_matches_jax(n, clones):
+    """The capped groupby as a fused plan segment runs it: the logical
+    count a device scalar (no host read), every row of the table sorted
+    and every one of its segments aggregated. min/max of every value type
+    (NaN, -0.0, nulls, the padding's sentinel rows), first, last, count
+    and sum, every output row against the JAX package's."""
+    import torch
+
+    from spark_rapids_jni_tpu_torch.ops.groupby import _groupby_capped
+
+    jt = _table(n, 11 * n, True)
+    k = 3 * n // 4
+    if clones:
+        jt = _clone_tail(jt, k)
+    rv = np.arange(n) < k
+    aggs = (_aggs([1, 2, 3, 4, 5, 6, 7], ("min", "max", "first", "last"))
+            + _aggs([1, 3], ("sum", "count")))
+    want, wg = _jax_capped(jt, ["k"], [jops.GroupbyAgg(c, a)
+                                       for c, a in aggs], n, rv)
+    got, gg = _groupby_capped(_port(jt), ["k"], [ops.GroupbyAgg(c, a)
+                                                 for c, a in aggs], n,
+                              torch.from_numpy(rv), torch.tensor(k))
+    assert int(wg) == int(gg)
+    _same(want, got)
+
+
 def test_empty_table_schema_matches_jax():
     jt = _table(0, 0, True)
     aggs = _aggs([3], NEW_AGGS + COLLECT)
