@@ -180,6 +180,30 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     (op by op): equal 5-tuples, each exact against numpy; the ``plan.*``
     counters asserted (no fallback); the host syncs inside each fused
     segment counted (at most one, its count); wall and device time.
+(r) the IO layer — one Spark task's input split of TPC-DS SF100
+    store_sales (2^23 rows, (a)'s distributions, INT32 keys and quantity,
+    ss_item_sk NOT NULL, sorted by the sold date) written with pyarrow to a
+    temporary directory (snappy, dictionary pages, 8 row groups of 2^20)
+    beside item (i_item_sk NOT NULL, i_brand_id, a STRING i_brand): (r1)
+    WHERE d_year = 2000 through ``io.read_parquet`` and
+    ``io.scan_parquet`` with the Arrow and the device decode: the 2 row
+    groups of 8 that the footer's statistics keep, the three tables equal
+    (a validity of None as all valid) and equal to numpy's rows; then
+    [join item, groupby i_brand_id SUM/COUNT/MIN/MAX(ss_quantity),
+    to_rows] through ``plan.run_plan``, exact against numpy; (r2) the
+    whole file one row group a batch through the same plan, device decode
+    at prefetch 0 and 2 and the Arrow decode at prefetch 2, each batch
+    exact against numpy, ``decode_row_group``'s fallback lists (none for
+    the fact file, i_brand for item), the wall a batch (median of 3
+    streams), the host half of the device decode a batch, the device time
+    a batch of the decode and of the plan (profiler), the bytes uploaded
+    still encoded against the decoded columns' and K2a/K2b/K1a's
+    launches; (r3) ORC, CSV, JSON and Arrow IPC at 2^20 of the rows with
+    i_brand and Avro at 2^16 written by the port and read back with the
+    (r1) predicate, each equal to the Parquet read of the same rows byte
+    for byte. Where pyarrow is absent, the phase says so on a line of its
+    own and decodes numpy-encoded PLAIN and dictionary pages on the card
+    against numpy, then round-trips Avro.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -5153,6 +5177,546 @@ def phase_fusion(rb, d: dict, dd: dict) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# (r) the IO layer: a Parquet scan into the query plan
+# ---------------------------------------------------------------------------
+
+IO_ROW_GROUP = 1 << 20  # 8 row groups of the 2^23-row split
+YEAR_2000 = (2_451_545, 2_451_910)  # d_year = 2000 as date_dim surrogate keys
+IO_PRED = [("ss_sold_date_sk", ">=", YEAR_2000[0]),
+           ("ss_sold_date_sk", "<=", YEAR_2000[1])]
+IO_FACT_COLUMNS = ["ss_item_sk", "ss_customer_sk", "ss_sold_date_sk",
+                   "ss_quantity"]
+# (a)'s plan after its filter: the scan's pushdown is the WHERE
+IO_PLAN = PLAN[2:]
+IO_KERNELS = ("build_table", "probe_table", "pack_rows")
+IO_STREAM = (("device decode, prefetch 0", True, 0),
+             ("device decode, prefetch 2", True, 2),
+             ("Arrow decode, prefetch 2", False, 2))
+IO_STREAM_RUNS = 3
+IO_OTHER_ROWS = 1 << 20  # (r3): ORC, CSV, JSON, Arrow IPC
+IO_AVRO_ROWS = 1 << 16  # (r3): the Avro codec decodes a value at a time
+IO_BRAND_PAD = 24  # the longest brand name is 20 bytes
+
+
+def make_io_data(d: dict) -> dict:
+    """(r)'s split: (a)'s columns as TPC-DS types (INT32 keys and
+    quantity), sorted by the sold date as a date-clustered fact table
+    lies on disk, and item's brand strings."""
+    order = np.argsort(d["date_sk"], kind="stable")
+    s = {
+        "item_sk": d["item_sk"][order].astype(np.int32),
+        "customer_sk": d["customer_sk"][order].astype(np.int32),
+        "customer_ok": d["customer_ok"][order],
+        "date_sk": d["date_sk"][order].astype(np.int32),
+        "quantity": d["quantity"][order],
+        "quantity_ok": d["quantity_ok"][order],
+        "i_item_sk": d["i_item_sk"].astype(np.int32),
+        "i_brand_id": d["i_brand_id"],
+    }
+    brands = [a + b + b" #" + str(c + 1).encode() for a in BRAND_SYLLABLES
+              for b in BRAND_SYLLABLES for c in range(10)]
+    s["brands"] = brands
+    s["brand_idx"] = d["i_brand_id"] - 1_001_001
+    return s
+
+
+def io_fact_arrow(s: dict, rows=slice(None), brand: bool = False):
+    """The fact rows ``rows`` as an Arrow table with TPC-DS's schema
+    (ss_item_sk NOT NULL), plus i_brand where ``brand``."""
+    import pyarrow as pa
+
+    cols = {
+        "ss_item_sk": pa.array(s["item_sk"][rows]),
+        "ss_customer_sk": pa.array(s["customer_sk"][rows],
+                                   mask=~s["customer_ok"][rows]),
+        "ss_sold_date_sk": pa.array(s["date_sk"][rows]),
+        "ss_quantity": pa.array(s["quantity"][rows],
+                                mask=~s["quantity_ok"][rows]),
+    }
+    fields = [pa.field(k, pa.int32(), nullable=k != "ss_item_sk")
+              for k in cols]
+    if brand:
+        idx = s["brand_idx"][s["item_sk"][rows]]
+        cols["i_brand"] = pa.array([s["brands"][i] for i in idx], pa.string())
+        fields.append(pa.field("i_brand", pa.string()))
+    return pa.table(list(cols.values()), schema=pa.schema(fields))
+
+
+def write_io_files(s: dict, root: str) -> dict:
+    """store_sales (snappy, pyarrow's default dictionary encoding, 8 row
+    groups of 2^20) and item (i_item_sk NOT NULL, i_brand_id, i_brand)."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    fact = os.path.join(root, "store_sales.parquet")
+    pq.write_table(io_fact_arrow(s), fact, row_group_size=IO_ROW_GROUP,
+                   compression="snappy")
+    item = os.path.join(root, "item.parquet")
+    n = s["i_item_sk"].shape[0]
+    pq.write_table(pa.table(
+        [pa.array(s["i_item_sk"]), pa.array(s["i_brand_id"]),
+         pa.array([s["brands"][i] for i in s["brand_idx"]], pa.string())],
+        schema=pa.schema([pa.field("i_item_sk", pa.int32(), nullable=False),
+                          pa.field("i_brand_id", pa.int32()),
+                          pa.field("i_brand", pa.string())])), item,
+        row_group_size=n, compression="snappy")
+    return {"fact": fact, "item": item}
+
+
+def host_columns(t) -> dict:
+    """Every column of a port table on the host: (data, validity with
+    None as all valid, lengths)."""
+    out = {}
+    for name, c in zip(t.names, t.columns):
+        v = (np.ones(c.row_count, np.bool_) if c.validity is None
+             else c.validity.cpu().numpy())
+        lens = None if c.lengths is None else c.lengths.cpu().numpy()
+        out[name] = (c.data.cpu().numpy(), v, lens)
+    return out
+
+
+def same_host_columns(a: dict, b: dict, what: str) -> None:
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: columns {list(a)} != {list(b)}")
+    for name in a:
+        for x, y, part in zip(a[name], b[name], ("data", "validity",
+                                                 "lengths")):
+            if (x is None) != (y is None) or (
+                    x is not None and (x.shape != y.shape
+                                       or x.tobytes() != y.tobytes())):
+                raise AssertionError(f"{what}: {name} {part} differs")
+
+
+def io_numpy_rows(s: dict, mask: np.ndarray) -> dict:
+    """numpy's rows of the fact columns under ``mask``, nulls as 0."""
+    out = {}
+    for name, key, ok in (("ss_item_sk", "item_sk", None),
+                          ("ss_customer_sk", "customer_sk", "customer_ok"),
+                          ("ss_sold_date_sk", "date_sk", None),
+                          ("ss_quantity", "quantity", "quantity_ok")):
+        valid = (np.ones(int(mask.sum()), np.bool_) if ok is None
+                 else s[ok][mask])
+        out[name] = (np.where(valid, s[key][mask], 0).astype(np.int32),
+                     valid, None)
+    return out
+
+
+def io_check_plan(rb, out, s: dict, mask: np.ndarray) -> int:
+    want = query_oracle({**s, "keep": mask})
+    return check_query_result(rb._table_to_wire(out), want)
+
+
+def io_host_decode(pdev, path: str, pf, rg: int, columns) -> dict:
+    """The host half of the device decode of one row group, alone: page
+    headers, decompression and the RLE run headers. Returns its time and
+    the bytes the device path uploads still encoded."""
+    schema = pf.schema_arrow
+    meta = pf.metadata.row_group(rg)
+    by_name = {meta.column(i).path_in_schema: i for i in range(meta.num_columns)}
+    t0 = time.perf_counter()
+    encoded = 0
+    with open(path, "rb") as f:
+        for name in columns:
+            nullable = schema.field(name).nullable
+            for p in pdev.read_chunk_pages(f, meta.column(by_name[name])):
+                encoded += len(p.payload)
+                if p.kind == pdev._PAGE_DICT:
+                    continue
+                pos, n_dense = 0, p.num_values
+                if nullable:
+                    dl = int.from_bytes(p.payload[:4], "little")
+                    raw = p.payload[4:4 + dl]
+                    runs = pdev.parse_rle_runs(raw, 1, p.num_values)
+                    n_dense = pdev._defined_count(runs, raw, p.num_values)
+                    pos = 4 + dl
+                if p.encoding != pdev._ENC_PLAIN:
+                    bw = p.payload[pos]
+                    if bw:
+                        pdev.parse_rle_runs(p.payload[pos + 1:], bw,
+                                            max(n_dense, 1))
+    return {"host_ms": (time.perf_counter() - t0) * 1e3, "encoded": encoded}
+
+
+def phase_io(kernels, d: dict) -> dict:
+    """(r): the IO layer on the card. A Spark task's input split of TPC-DS
+    SF100 store_sales (2^23 rows, (a)'s distributions, sorted by the sold
+    date) is written to Parquet in a temporary directory with item:
+    (r1) WHERE d_year = 2000 through ``read_parquet`` and ``scan_parquet``
+    with each decode: the row groups kept against the footer's statistics,
+    the three tables equal and equal to numpy's rows, then (a)'s join ->
+    groupby -> to_rows through ``plan.run_plan``, exact against numpy;
+    (r2) the whole file one row group a batch (device decode at prefetch 0
+    and 2, the Arrow decode at prefetch 2), each batch's plan result exact,
+    the fallback lists, walls, host and device times, bytes and launches;
+    (r3) ORC, CSV, JSON and Arrow IPC at 2^20 of the rows with i_brand and
+    Avro at 2^16, each read with the predicate equal to Parquet's."""
+    import shutil
+    import tempfile
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError as e:
+        log(f"(r) pyarrow: absent ({e})")
+        return phase_io_without_pyarrow(d)
+    log(f"(r) pyarrow: {pyarrow.__version__}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        return phase_io_files(kernels, make_io_data(d), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_io_files(kernels, s: dict, root: str) -> dict:
+    import pyarrow.parquet as pq
+
+    from spark_rapids_jni_tpu_torch import io as pio
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+    from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+    from spark_rapids_jni_tpu_torch.io import parquet as pparquet
+    from spark_rapids_jni_tpu_torch.io import parquet_device as pdev
+    from spark_rapids_jni_tpu_torch.io import predicates as ppreds
+    from spark_rapids_jni_tpu_torch.ops.copying import concatenate
+
+    t0 = time.perf_counter()
+    paths = write_io_files(s, root)
+    log(f"(r) wrote the {FACT_ROWS}-row split and item in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {}
+    pf = pq.ParquetFile(paths["fact"])
+    n_groups = pf.metadata.num_row_groups
+    # (r1) pushdown
+    kept = [rg for rg in range(n_groups)
+            if (pf.metadata.row_group(rg).column(2).statistics.max
+                >= YEAR_2000[0])
+            and (pf.metadata.row_group(rg).column(2).statistics.min
+                 <= YEAR_2000[1])]
+    pruned = pparquet._surviving_row_groups(pf, ppreds.from_dnf(IO_PRED))
+    if pruned != kept or len(kept) != 2 or n_groups != 8:
+        raise AssertionError(f"(r1) kept row groups {pruned}, the footer's "
+                             f"{kept} of {n_groups} (2 of 8 expected)")
+    coarse = list(pio.scan_parquet(paths["fact"], filters=IO_PRED,
+                                   exact_filter=False, device=DEVICE))
+    if [t.row_count for t in coarse] != [IO_ROW_GROUP] * 2:
+        raise AssertionError("(r1) the scan decoded other row groups")
+    del coarse
+    mask = (s["date_sk"] >= YEAR_2000[0]) & (s["date_sk"] <= YEAR_2000[1])
+    want_rows = io_numpy_rows(s, mask)
+    item = pio.read_parquet(paths["item"], columns=["i_item_sk", "i_brand_id"],
+                            device=DEVICE)
+    tables = {
+        "read_parquet": pio.read_parquet(paths["fact"], columns=IO_FACT_COLUMNS,
+                                         filters=IO_PRED, device=DEVICE),
+        "scan Arrow decode": concatenate(list(pio.scan_parquet(
+            paths["fact"], columns=IO_FACT_COLUMNS, filters=IO_PRED,
+            device=DEVICE))),
+        "scan device decode": concatenate(list(pio.scan_parquet(
+            paths["fact"], columns=IO_FACT_COLUMNS, filters=IO_PRED,
+            device_decode=True, device=DEVICE))),
+    }
+    for tag, t in tables.items():
+        same_host_columns(host_columns(t), want_rows, f"(r1) {tag}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = plan_mod.run_plan(IO_PLAN, tables["scan device decode"], [item])
+    torch.cuda.synchronize()
+    launches = {k: kernels.KERNELS[k].launches for k in IO_KERNELS}
+    groups = io_check_plan(rb, out, s, mask)
+    log(f"(r1) pushdown: row groups {kept} of {n_groups} kept (the footer's "
+        f"statistics); {int(mask.sum())} rows from read_parquet and both scans "
+        f"equal numpy's; join -> groupby -> to_rows: {groups} groups exact "
+        f"against numpy; launches {launches}")
+    res["r1"] = {"kept": kept, "rows": int(mask.sum()), "groups": groups,
+                 "launches": launches}
+    del tables, out
+    # (r2) the stream; the fallback lists of its device decodes recorded
+    ipf = pq.ParquetFile(paths["item"])
+    item_fb = pdev.decode_row_group(paths["item"], ipf, 0, ipf.schema_arrow.names,
+                                    DEVICE)[1]
+    fb, decode_row_group = {}, pdev.decode_row_group
+
+    def recorded(path, pf_, rg, columns, device):
+        out = decode_row_group(path, pf_, rg, columns, device)
+        fb.setdefault(rg, out[1])
+        return out
+
+    bounds = [(rg * IO_ROW_GROUP, (rg + 1) * IO_ROW_GROUP)
+              for rg in range(n_groups)]
+
+    def stream(dd: bool, prefetch: int) -> list:
+        outs = []
+        for batch in pio.scan_parquet(paths["fact"], columns=IO_FACT_COLUMNS,
+                                      device_decode=dd, prefetch=prefetch,
+                                      device=DEVICE):
+            outs.append(plan_mod.run_plan(IO_PLAN, batch, [item]))
+        torch.cuda.synchronize()
+        return outs
+
+    stream_res = {}
+    for tag, dd, prefetch in IO_STREAM:
+        walls = []
+        for run in range(IO_STREAM_RUNS):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            pdev.decode_row_group = recorded if run == 0 else decode_row_group
+            t0 = time.perf_counter()
+            try:
+                outs = stream(dd, prefetch)
+            finally:
+                pdev.decode_row_group = decode_row_group
+            walls.append((time.perf_counter() - t0) * 1e3 / n_groups)
+            if run:
+                continue
+            # the first stream's launches and results, read after its wall
+            launches = {k: kernels.KERNELS[k].launches for k in IO_KERNELS}
+            if len(outs) != n_groups:
+                raise AssertionError(f"(r2) {tag}: {len(outs)} batches")
+            for (lo, hi), o in zip(bounds, outs):
+                m = np.zeros(FACT_ROWS, np.bool_)
+                m[lo:hi] = True
+                io_check_plan(rb, o, s, m)
+        del outs
+        missing = [k for k in IO_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"(r2) {tag} never launched {missing}")
+        stream_res[tag] = {"wall_ms_per_batch": statistics.median(walls),
+                           "walls": walls, "launches": launches}
+        log(f"(r2) {tag}: {n_groups} batches exact against numpy; wall "
+            f"{statistics.median(walls):.2f} ms a batch (median of "
+            f"{IO_STREAM_RUNS} streams: {[round(w, 2) for w in walls]}); "
+            f"launches a stream {launches}")
+    if sorted(fb) != list(range(n_groups)) or any(fb.values()) or (
+            item_fb != ["i_brand"]):
+        raise AssertionError(f"(r2) fallback lists: fact {fb}, item {item_fb}")
+    log(f"(r2) fallback lists: none for the fact file's {n_groups} row "
+        f"groups, {item_fb} for item")
+    host = [io_host_decode(pdev, paths["fact"], pf, rg, IO_FACT_COLUMNS)
+            for rg in range(n_groups)]
+    host_ms = statistics.median(h["host_ms"] for h in host)
+    encoded = statistics.median(h["encoded"] for h in host)
+    decoded = IO_ROW_GROUP * (4 * len(IO_FACT_COLUMNS) + 3)  # + 3 validity
+    log(f"(r2) host half of the device decode (page headers, decompression, "
+        f"run headers): {host_ms:.2f} ms a batch (median of {n_groups}); "
+        f"uploaded still encoded {encoded} bytes a batch against "
+        f"{decoded} bytes of decoded columns ({decoded / encoded:.2f}x)")
+
+    def decode_one():
+        pparquet._device_decode_batch(paths["fact"], pf, [0], IO_FACT_COLUMNS,
+                                      None, torch.device(DEVICE))
+        torch.cuda.synchronize()
+
+    first = next(iter(pio.scan_parquet(paths["fact"], columns=IO_FACT_COLUMNS,
+                                       device_decode=True, device=DEVICE)))
+
+    def plan_one():
+        plan_mod.run_plan(IO_PLAN, first, [item])
+        torch.cuda.synchronize()
+
+    prof = {}
+    for tag, fn in (("decode", decode_one), ("plan", plan_one)):
+        fn()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof[tag] = profile_plan(fn, statistics.median(walls),
+                                 f"(r2) {tag} of one batch", runs=3)
+    log(f"(r2) device time a batch: decode {prof['decode']['device_ms']:.3f} "
+        f"ms, plan {prof['plan']['device_ms']:.3f} ms (profiler)")
+    res["r2"] = {"stream": stream_res, "host_decode_ms": host_ms,
+                 "encoded_bytes": encoded, "decoded_bytes": decoded,
+                 "device_decode_ms": prof["decode"]["device_ms"],
+                 "device_plan_ms": prof["plan"]["device_ms"],
+                 "decode_profile": prof["decode"],
+                 "plan_profile": prof["plan"]}
+    res["r3"] = phase_io_formats(s, root)
+    return res
+
+
+def phase_io_formats(s: dict, root: str) -> dict:
+    """(r3): the other formats against the Parquet read of the same rows."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_jni_tpu_torch import interop
+    from spark_rapids_jni_tpu_torch import io as pio
+    from spark_rapids_jni_tpu_torch.io import parquet as pparquet
+    from spark_rapids_jni_tpu_torch.io import predicates as ppreds
+    from spark_rapids_jni_tpu_torch.ops.copying import concatenate
+
+    pads = {"i_brand": IO_BRAND_PAD}
+    pins = {k: pa.int32() for k in IO_FACT_COLUMNS}
+    pred = ppreds.from_dnf(IO_PRED)
+    out = {}
+    for n, formats in ((IO_OTHER_ROWS, ("orc", "csv", "json", "ipc")),
+                       (IO_AVRO_ROWS, ("avro",))):
+        atbl = io_fact_arrow(s, slice(None, None, FACT_ROWS // n), brand=True)
+        ref_path = os.path.join(root, f"rows_{n}.parquet")
+        pq.write_table(atbl, ref_path)
+        want = host_columns(pio.read_parquet(ref_path, filters=IO_PRED,
+                                             pad_widths=pads, device=DEVICE))
+        t = interop.table_from_arrow(atbl, device=DEVICE)
+        for fmt in formats:
+            path = os.path.join(root, f"rows_{n}.{fmt}")
+            t0 = time.perf_counter()
+            getattr(pio, {"orc": "write_orc", "csv": "write_csv",
+                          "json": "write_json", "ipc": "write_arrow_ipc",
+                          "avro": "write_avro"}[fmt])(t, path)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reads = {
+                "orc": lambda: {
+                    "read_orc": pio.read_orc(path, filters=IO_PRED,
+                                             pad_widths=pads, device=DEVICE),
+                    "scan_orc": concatenate(list(pio.scan_orc(
+                        path, filters=IO_PRED, pad_widths=pads, prefetch=2,
+                        device=DEVICE)))},
+                "csv": lambda: {
+                    "read_csv": pio.read_csv(path, filters=IO_PRED, dtypes=pins,
+                                             pad_widths=pads, device=DEVICE),
+                    "scan_csv": concatenate(list(pio.scan_csv(
+                        path, filters=IO_PRED, dtypes=pins, pad_widths=pads,
+                        prefetch=2, device=DEVICE)))},
+                "json": lambda: {
+                    "read_json": pio.read_json(path, filters=IO_PRED,
+                                               dtypes=pins, pad_widths=pads,
+                                               device=DEVICE),
+                    "scan_json": concatenate(list(pio.scan_json(
+                        path, filters=IO_PRED, dtypes=pins, pad_widths=pads,
+                        block_rows=1 << 18, prefetch=2, device=DEVICE)))},
+                # the IPC reader takes no predicate: the residual the other
+                # readers run, applied to its table
+                "ipc": lambda: {"read_arrow_ipc": pparquet._apply_exact_filter(
+                    pio.read_arrow_ipc(path, pad_widths=pads, device=DEVICE),
+                    pred, None)},
+                "avro": lambda: {"read_avro": pio.read_avro(
+                    path, filters=IO_PRED, pad_widths=pads, device=DEVICE)},
+            }[fmt]()
+            read_s = time.perf_counter() - t0
+            for tag, got in reads.items():
+                same_host_columns(host_columns(got), want, f"(r3) {tag}")
+            out[fmt] = {"rows": n, "write_s": write_s, "read_s": read_s,
+                        "bytes": os.path.getsize(path)}
+            log(f"(r3) {fmt}: {n} rows written in {write_s:.2f} s "
+                f"({os.path.getsize(path)} bytes), read back with the "
+                f"predicate in {read_s:.2f} s through {sorted(reads)}: equal "
+                f"to the Parquet read byte for byte")
+    return out
+
+
+def encode_hybrid(values: np.ndarray, bw: int) -> bytes:
+    """An RLE/bit-packed hybrid stream of ``values`` (parquet-format
+    Encodings.md): a repeated run where 8 or more values repeat, else
+    bit-packed groups of 8 (the tail zero-filled)."""
+    out, i, n = bytearray(), 0, len(values)
+
+    def varint(v):
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | 0x80 if v else b)
+            if not v:
+                return
+
+    while i < n:
+        j = i
+        while j < n and values[j] == values[i]:
+            j += 1
+        if j - i >= 8:
+            varint((j - i) << 1)
+            out.extend(int(values[i]).to_bytes((bw + 7) // 8, "little"))
+            i = j
+            continue
+        k = min(n, i + 8 * 16)
+        group = np.zeros(-(-(k - i) // 8) * 8, np.int64)
+        group[:k - i] = values[i:k]
+        bits = ((group[:, None] >> np.arange(bw)) & 1).astype(np.uint8)
+        varint(((len(group) // 8) << 1) | 1)
+        out.extend(np.packbits(bits.ravel(), bitorder="little").tobytes())
+        i = k
+    return bytes(out)
+
+
+def phase_io_without_pyarrow(d: dict) -> dict:
+    """(r) where pyarrow is absent: UNCOMPRESSED v1 pages encoded here with
+    numpy (PLAIN values; a PLAIN dictionary with RLE/bit-packed indices;
+    RLE definition levels) through ``_decode_data_page`` against numpy,
+    ``_defined_count`` and ``parse_rle_runs``; then Avro's round trip."""
+    import os
+    import shutil
+    import struct as _struct
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch import Table
+    from spark_rapids_jni_tpu_torch.io import avro as pavro
+    from spark_rapids_jni_tpu_torch.io import parquet_device as pdev
+
+    n = IO_ROW_GROUP
+    dev = torch.device(DEVICE)
+    out = {}
+    for name, key, ok in (("ss_item_sk", "item_sk", None),
+                          ("ss_quantity", "quantity", "quantity_ok")):
+        vals = d[key][:n].astype(np.int32)
+        valid = np.ones(n, np.bool_) if ok is None else d[ok][:n]
+        dense = vals[valid]
+        defs = b""
+        if ok is not None:
+            levels = encode_hybrid(valid.astype(np.int64), 1)
+            defs = _struct.pack("<i", len(levels)) + levels
+            runs = pdev.parse_rle_runs(levels, 1, n)
+            if pdev._defined_count(runs, levels, n) != int(valid.sum()):
+                raise AssertionError(f"(r) {name}: _defined_count")
+        want = np.where(valid, vals, 0)
+        plain = pdev._Page(pdev._PAGE_DATA, n, pdev._ENC_PLAIN, pdev._ENC_RLE,
+                           defs + dense.tobytes())
+        uniq, idx = np.unique(dense, return_inverse=True)
+        bw = max(int(len(uniq) - 1).bit_length(), 1)
+        indices = encode_hybrid(idx.astype(np.int64), bw)
+        if not np.array_equal(pdev._device_expand_runs(
+                pdev.parse_rle_runs(indices, bw, len(idx)),
+                torch.frombuffer(bytearray(indices), dtype=torch.uint8).to(dev),
+                bw, len(idx)).cpu().numpy(), idx):
+            raise AssertionError(f"(r) {name}: RLE/bit-packed indices")
+        dictionary = pdev._device_plain(
+            torch.frombuffer(bytearray(uniq.tobytes()), dtype=torch.uint8).to(dev),
+            1, len(uniq))
+        keyed = pdev._Page(pdev._PAGE_DATA, n, pdev._ENC_RLE_DICT,
+                           pdev._ENC_RLE, defs + bytes([bw]) + indices)
+        for tag, page, dvals in (("PLAIN", plain, None),
+                                 ("dictionary", keyed, dictionary)):
+            got, defined = pdev._decode_data_page(page, 1, ok is not None,
+                                                  dvals, dev)
+            torch.cuda.synchronize()
+            if not (np.array_equal(got.cpu().numpy(), want)
+                    and np.array_equal(defined.cpu().numpy(), valid)):
+                raise AssertionError(f"(r) {name} {tag} page != numpy")
+        out[name] = {"rows": n, "dictionary": len(uniq), "bit_width": bw}
+        log(f"(r) {name}: numpy-encoded PLAIN and dictionary pages ({n} rows, "
+            f"{len(uniq)} dictionary values, bit width {bw}) decode on the "
+            f"card equal to numpy")
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        path = os.path.join(root, "rows.avro")
+        rows = slice(None, IO_AVRO_ROWS)
+        cols = {"ss_item_sk": d["item_sk"][rows].astype(np.int32),
+                "ss_quantity": [int(q) if v else None for q, v in
+                                zip(d["quantity"][rows], d["quantity_ok"][rows])]}
+        t = Table.from_pydict(cols, device=DEVICE)
+        pavro.write_avro(t, path, codec="deflate")
+        back = pavro.read_avro(path, device=DEVICE)
+        same_host_columns(host_columns(back), host_columns(t), "(r) avro")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"(r) avro: {IO_AVRO_ROWS} rows round-trip byte for byte; the "
+        "Arrow-based readers were not run (no pyarrow)")
+    out["avro_rows"] = IO_AVRO_ROWS
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5221,6 +5785,7 @@ def main(argv=None) -> int:
         "buckets": lambda: phase_buckets(rb, kernels, d, dd),
         "formulations": lambda: phase_formulations(kernels, g, d, args.seed),
         "fusion": lambda: phase_fusion(rb, d, dd),
+        "io": lambda: phase_io(kernels, d),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -5311,7 +5876,7 @@ def main(argv=None) -> int:
         "faults": res["faults"], "registry": res["registry"],
         "oplib": res["oplib"], "buckets": res["buckets"],
         "formulations": res["formulations"], "fusion": res["fusion"],
-        **hard}))
+        "io": res["io"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -340,17 +340,23 @@ class Table:
         data: dict,
         dtypes: Optional[dict] = None,
         device: Union[str, torch.device] = "cuda",
+        pad_widths: Optional[dict] = None,
     ) -> "Table":
         """Host constructor from numpy arrays or lists with None for nulls;
-        a list of ``str``/``bytes`` makes a STRING column."""
+        a list of ``str``/``bytes`` (or a column ``dtypes`` names STRING)
+        makes a STRING column, padded to ``pad_widths[name]`` where that
+        is given, as the IO readers pad."""
         dev = resolve_device(device)
         cols, names = [], []
         for name, values in data.items():
             want = (dtypes or {}).get(name)
             arr = np.asarray(values)
             present = [v for v in values if v is not None]
-            if present and all(isinstance(v, (str, bytes)) for v in present):
-                cols.append(Column.from_strings(list(values), device=dev))
+            if (want is not None and want.is_string) or (present and all(
+                    isinstance(v, (str, bytes)) for v in present)):
+                cols.append(Column.from_strings(
+                    list(values), pad_width=(pad_widths or {}).get(name),
+                    device=dev))
             elif arr.dtype == object:
                 mask = np.array([v is not None for v in values])
                 if present and all(isinstance(v, bool) for v in present):

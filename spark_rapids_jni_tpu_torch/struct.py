@@ -5,7 +5,8 @@ A ``StructColumn`` owns one ``Column`` per field and an optional bool
 validity tensor; it is a plain class (no pytree). Flat structs over
 fixed-width, string and decimal children; ordering is lexicographic over
 fields in declaration order (cudf's struct comparator), on the order
-words of ``ops/keys.py``. The Arrow conversions wait for the port's IO.
+words of ``ops/keys.py``. ``struct_from_arrow``/``struct_to_arrow``
+carry it to and from an Arrow StructArray.
 """
 
 from __future__ import annotations
@@ -217,3 +218,35 @@ def unpack(struct: StructColumn) -> Table:
         [struct.field(i) for i in range(struct.num_fields)],
         list(struct.names),
     )
+
+
+def struct_from_arrow(arr, device: Union[str, torch.device] = "cuda"
+                      ) -> StructColumn:
+    """Arrow StructArray -> port StructColumn on ``device`` (flat
+    structs)."""
+    from .interop import _require_pyarrow, column_from_arrow, pa
+
+    _require_pyarrow()
+    dev = resolve_device(device)
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if not pa.types.is_struct(arr.type):
+        raise TypeError(f"expected a struct array, got {arr.type}")
+    validity = np.asarray(arr.is_valid()) if arr.null_count else None
+    names = [f.name for f in arr.type]
+    children = [column_from_arrow(arr.field(i), device=dev)
+                for i in range(len(names))]
+    return StructColumn.from_children(children, names, validity)
+
+
+def struct_to_arrow(sc: StructColumn):
+    """Port StructColumn -> Arrow StructArray."""
+    from .interop import _require_pyarrow, column_to_arrow, pa
+
+    _require_pyarrow()
+    fields = [column_to_arrow(c) for c in sc.children]
+    mask = None
+    if sc.validity is not None:
+        mask = pa.array(~sc.validity.cpu().numpy(), type=pa.bool_())
+    return pa.StructArray.from_arrays(fields, names=list(sc.names),
+                                      mask=mask)

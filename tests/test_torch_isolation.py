@@ -83,7 +83,9 @@ def test_scan_covers_the_package():
             "cast.py", "config.py", "metrics.py", "scan16.py",
             "compaction.py", "copying.py", "join.py", "buckets.py",
             "bucketed.py", "factories.py", "sort_packed.py",
-            "join_packed.py"} <= names
+            "join_packed.py", "interop.py", "predicates.py", "parquet.py",
+            "parquet_device.py", "orc.py", "csv.py", "json.py", "ipc.py",
+            "avro.py"} <= names
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():
