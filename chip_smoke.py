@@ -204,6 +204,23 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     for byte. Where pyarrow is absent, the phase says so on a line of its
     own and decodes numpy-encoded PLAIN and dictionary pages on the card
     against numpy, then round-trips Avro.
+(s) the distributed tier (``spark_rapids_jni_tpu_torch.parallel``) over
+    (a)'s batch as columns and item, on a mesh of every visible GPU or 4
+    logical shards of one card: (s1) distributed_groupby of
+    SUM/COUNT/MIN/MAX(quantity) by ss_item_sk (the skew split off on 4
+    shards; on 8 it engages, with the bytes of SKEW_SPLIT=0), (s2) the
+    shuffle and broadcast inner joins with item, (s3) semi and anti joins
+    with (i1)'s category items, (s4) distinct ss_customer_sk, (s5)
+    distributed_sort by ss_item_sk with 3 payloads, each against the
+    port's single-device op (rows with exact bytes; each hash-exchanged
+    row on shard pmod(murmur3(key), P)); (s6) ``run_plan`` over (h)'s
+    [filter, cast] and a hash partition 200 on a ``MeshRunner``, byte
+    for byte the single-device plan, then under a seeded collective fault
+    that degrades the mesh to 2, and the batch's halves through
+    ``run_plan_mesh_stream`` at PIPELINE 2; (s7)
+    ``graft_entry.dryrun_multichip(4)``.
+    Each operator's wall, device time, bytes through the all-to-all and
+    host syncs are printed; K5 must have launched.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -5717,6 +5734,424 @@ def phase_io_without_pyarrow(d: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (s) the distributed tier: the mesh exchange of one task's batch
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # logical shards on one card (every visible GPU where more)
+SKEW_SHARDS = 8  # (s1)'s second run, where Zipf(1.3)'s top key passes 2x
+MESH_PARTITIONS = 200  # the plan's partition op: spark.sql.shuffle.partitions
+MESH_PLAN = [{"op": "filter", "mask": 4},
+             {"op": "cast", "column": 3, "type_id": 4},
+             {"op": "partition", "kind": "hash", "keys": [0],
+              "num": MESH_PARTITIONS}]
+MESH_FAULTS = "seed=5,collective:transient:1:1"  # one dead rung: 4 -> 2
+MESH_COUNTERS = ("shuffle.exchanges", "shuffle.retries", "mesh.all_to_all",
+                 "mesh.degraded", "shuffle.skew_splits", "plan.mesh_segments",
+                 "plan.mesh_fallbacks")
+
+
+def mesh_pool(n: int) -> list:
+    """(s)'s mesh: every visible GPU, repeated in turn up to ``n`` shards
+    where fewer are visible (one card carries logical shards)."""
+    if torch.device(DEVICE).type != "cuda":
+        return [torch.device(DEVICE)] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(max(n, count))]
+
+
+def mesh_fact(d: dict):
+    """(a)'s batch as columns with a row id: ss_item_sk, ss_customer_sk
+    (nullable), ss_sold_date_sk, ss_quantity (INT32, nullable), keep
+    (BOOL8), row."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+
+    n = d["item_sk"].shape[0]
+    cols = [Column.from_numpy(d["item_sk"], device=DEVICE),
+            Column.from_numpy(d["customer_sk"], d["customer_ok"], device=DEVICE),
+            Column.from_numpy(d["date_sk"], device=DEVICE),
+            Column.from_numpy(d["quantity"], d["quantity_ok"], device=DEVICE),
+            Column.from_numpy(d["keep"], dtype=dt.BOOL8, device=DEVICE),
+            Column.from_numpy(np.arange(n, dtype=np.int64), device=DEVICE)]
+    return Table(cols, ["ss_item_sk", "ss_customer_sk", "ss_sold_date_sk",
+                        "ss_quantity", "keep", "row"])
+
+
+def occupied_rows(parts, occ_or_counts):
+    """The occupied rows of every shard in mesh order (a Sharded
+    occupancy, or one group count a shard), each moved to ``DEVICE``."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.ops.copying import slice_rows
+    from spark_rapids_jni_tpu_torch.ops.filter import filter_table
+    from spark_rapids_jni_tpu_torch.parallel.mesh import map_tensors
+
+    if isinstance(occ_or_counts, torch.Tensor):
+        counts = occ_or_counts.tolist()
+        kept = [slice_rows(p, 0, int(g)) for p, g in zip(parts, counts)]
+    else:
+        kept = [filter_table(p, Column(o, dt.BOOL8, None))
+                for p, o in zip(parts, occ_or_counts)]
+    return [map_tensors(t, lambda x: x.to(DEVICE)) for t in kept]
+
+
+def same_rows(got, want, key: str, what: str) -> None:
+    """Two tables as multisets of rows with exact bytes: both sorted by
+    ``key`` (stable), then every column's validity and its data where
+    valid equal."""
+    from spark_rapids_jni_tpu_torch.ops.sort import SortKey, sort_table
+
+    if got.row_count != want.row_count or got.names != want.names:
+        raise AssertionError(f"{what}: {got.row_count} rows {got.names} != "
+                             f"{want.row_count} rows {want.names}")
+    a = sort_table(got, [SortKey(key)])
+    b = sort_table(want, [SortKey(key)])
+    for name, ca, cb in zip(a.names, a.columns, b.columns):
+        va = (torch.ones(ca.row_count, dtype=torch.bool, device=ca.data.device)
+              if ca.validity is None else ca.validity)
+        vb = (torch.ones(cb.row_count, dtype=torch.bool, device=cb.data.device)
+              if cb.validity is None else cb.validity)
+        if not torch.equal(va, vb) or not torch.equal(ca.data[va], cb.data[vb]):
+            raise AssertionError(f"{what}: column {name} differs")
+
+
+def same_tables(a, b, what: str) -> None:
+    """Two tables with the same names, dtypes and buffers, byte for
+    byte (a None validity equal only to None)."""
+    if a.names != b.names or a.row_count != b.row_count:
+        raise AssertionError(f"{what}: {a.row_count} rows {a.names} != "
+                             f"{b.row_count} rows {b.names}")
+    names = a.names or [f"c{i}" for i in range(a.num_columns)]
+    for name, x, y in zip(names, a.columns, b.columns):
+        for part in ("data", "validity", "lengths"):
+            u, v = getattr(x, part), getattr(y, part)
+            if (u is None) != (v is None) or (u is not None and (
+                    u.dtype != v.dtype or not torch.equal(u, v))):
+                raise AssertionError(f"{what}: column {name} {part} differs")
+
+
+def check_placement(parts, key: str, size: int, what: str) -> None:
+    """Every row of shard d has pmod(murmur3(key), size) == d (numpy's
+    Murmur3, seed 42; a null key hashes to the seed)."""
+    for d, p in enumerate(parts):
+        c = p[key]
+        vals = c.data.cpu().numpy().astype(np.int64)
+        ok = None if c.validity is None else c.validity.cpu().numpy()
+        h = murmur3_long_np(vals, ok, np.full(vals.shape[0], 42, np.uint32))
+        pid = np.mod(h.view(np.int32).astype(np.int64), size)
+        if (pid != d).any():
+            raise AssertionError(f"{what}: {int((pid != d).sum())} rows of "
+                                 f"shard {d} belong elsewhere")
+
+
+def mesh_measure(tag: str, run, runs: int = 3) -> dict:
+    """Wall (CUDA-synchronised, the median of ``runs`` after a warm-up),
+    device time (profiler), bytes through the all-to-all, host syncs and
+    the tier's counters of one call of ``run``."""
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    def once():
+        run()
+        torch.cuda.synchronize()
+
+    once()
+    before = metrics.snapshot()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        once()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    after = metrics.snapshot()
+    moved = (after["bytes"].get("mesh.exchanged_bytes", 0)
+             - before["bytes"].get("mesh.exchanged_bytes", 0)) // runs
+    counters = {k: (after["counters"].get(k, 0)
+                    - before["counters"].get(k, 0)) // runs
+                for k in MESH_COUNTERS}
+    dev_ms = device_window_ms(once, runs=1)
+    syncs = count_syncs(once)
+    wall = statistics.median(walls)
+    out = {"wall_ms": wall, "walls_ms": walls, "device_ms": dev_ms,
+           "exchanged_bytes": moved, "host_syncs": syncs,
+           "counters": counters}
+    log(f"(s) {tag}: wall {wall:.2f} ms (median of "
+        f"{[round(w, 2) for w in walls]}), device "
+        f"{dev_ms:.3f} ms, {moved} bytes through the all-to-all, {syncs} "
+        f"host syncs, counters {counters}")
+    return out
+
+
+def phase_mesh(kernels, d: dict, dd: dict) -> dict:
+    """(s): the distributed tier on one card over (a)'s 2^23-row batch as
+    columns and SF100 item: a mesh of every visible GPU, or 4 logical
+    shards of one. (s1) distributed_groupby SUM/COUNT/MIN/MAX(quantity)
+    by ss_item_sk (Zipf(1.3): on 4 shards the hottest destination is
+    about 1.75x the mean and the skew split stays off; on 8 about 2.8x
+    and it engages, with the bytes of SKEW_SPLIT=0); (s2) the shuffle and
+    broadcast inner joins with item; (s3) semi and anti joins with (i1)'s
+    category items; (s4) distinct ss_customer_sk; (s5) distributed_sort by
+    ss_item_sk with 3 payloads; each against the port's single-device op
+    as a multiset of rows with exact bytes, the hash-exchanged ones also
+    each row on shard pmod(murmur3(key), P). (s6) run_plan over (h)'s
+    [filter, cast] and a hash partition 200 on a MeshRunner, byte for
+    byte the single-device run_plan, then again under a seeded collective
+    fault that degrades the mesh to 2, and ``run_plan_mesh_stream`` of
+    the batch's two halves at PIPELINE 2. (s7) dryrun_multichip(4). K5's
+    launches are counted over (s1)-(s6) (before the stream), the kernels'
+    over (s7) apart. Each operator, and the
+    single-device op it was held against, is timed once more."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch import graft_entry, parallel
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+    from spark_rapids_jni_tpu_torch.column import Column, Table
+    from spark_rapids_jni_tpu_torch.kernels import hashing as kh
+    from spark_rapids_jni_tpu_torch.ops import join as join_mod
+    from spark_rapids_jni_tpu_torch.ops.copying import concatenate
+    from spark_rapids_jni_tpu_torch.ops.groupby import (
+        GroupbyAgg, groupby_aggregate,
+    )
+    from spark_rapids_jni_tpu_torch.ops.sort import SortKey, sort_table
+    from spark_rapids_jni_tpu_torch.utils import buckets, config, metrics
+
+    pool = mesh_pool(MESH_SHARDS)
+    size = len(pool)
+    gpus = len({p for p in pool if p.type == "cuda"})
+    log(f"(s) mesh: {size} shards on {gpus} GPU(s) "
+        f"({[str(p) for p in pool]})")
+    mesh = parallel.make_mesh(size, devices=pool)
+    fact = mesh_fact(d)
+    item = Table([Column.from_numpy(d["i_item_sk"], device=DEVICE),
+                  Column.from_numpy(d["i_brand_id"], device=DEVICE),
+                  Column.from_numpy(d["i_category_id"], device=DEVICE)],
+                 ["ss_item_sk", "i_brand_id", "i_category_id"])
+    cat = dd["items"]
+    pad = -(-cat.shape[0] // SKEW_SHARDS) * SKEW_SHARDS - cat.shape[0]
+    # padded with a key no fact row carries, to a multiple of the shards
+    cat_t = Table([Column.from_numpy(
+        np.concatenate([cat, np.full(pad, -1, np.int64)]), device=DEVICE)],
+        ["ss_item_sk"])
+    aggs = [GroupbyAgg("ss_quantity", a) for a in ("sum", "count", "min",
+                                                    "max")]
+    key = "ss_item_sk"
+    res = {"shards": size, "gpus": gpus}
+    config.set_flag("METRICS", "1")
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = {
+            "groupby": parallel.distributed_groupby(fact, [key], aggs, mesh),
+            "inner_join": parallel.distributed_inner_join(fact, item, [key],
+                                                          mesh),
+            "broadcast_join": parallel.broadcast_inner_join(fact, item, [key],
+                                                            mesh),
+            "semi_join": parallel.distributed_semi_join(fact, cat_t, [key],
+                                                        mesh),
+            "anti_join": parallel.distributed_anti_join(fact, cat_t, [key],
+                                                        mesh),
+            "distinct": parallel.distributed_distinct(
+                fact, ["ss_customer_sk"], mesh),
+            "sort": parallel.distributed_sort(
+                Table(fact.columns[:4], fact.names[:4]), [key], mesh),
+        }
+        runner = parallel.MeshRunner(size, devices=pool)
+        plan_out = plan_mod.run_plan(MESH_PLAN, fact, mesh_runner=runner)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        res["drive_s"] = time.perf_counter() - t0
+        log(f"(s) main path: {res['drive_s']:.1f} s, launches {launches}")
+        if launches[kh.MURMUR3.name] == 0:
+            raise AssertionError("(s) never launched K5 (murmur3_table_fused)")
+        res["launches"] = launches
+
+        # (s1) groupby
+        agg, ng, ov = outs["groupby"]
+        if int(ov.max()) > 0:
+            raise AssertionError("(s1) groupby overflowed")
+        parts = occupied_rows(agg, ng)
+        check_placement(parts, key, size, "(s1) groupby")
+        same_rows(concatenate(parts), groupby_aggregate(fact, [key], aggs),
+                  key, "(s1) groupby")
+        res["groupby_groups"] = int(ng.sum())
+        skew = parallel.plan_skew(parallel.partition_counts(
+            parallel.shard_table(fact, mesh), [key], mesh))
+        res["groupby_skew"] = skew.to_doc()
+        if skew.engaged:
+            raise AssertionError(f"(s1) the split engaged on {size} shards: "
+                                 f"{skew.to_doc()}")
+        pool8 = mesh_pool(SKEW_SHARDS)
+        mesh8 = parallel.make_mesh(len(pool8), devices=pool8)
+        splits = metrics.snapshot()["counters"].get("shuffle.skew_splits", 0)
+        agg8, ng8, ov8 = parallel.distributed_groupby(fact, [key], aggs, mesh8)
+        split_n = (metrics.snapshot()["counters"].get("shuffle.skew_splits", 0)
+                   - splits)
+        gauges = {k: v["value"] for k, v in metrics.snapshot()["gauges"].items()
+                  if k.startswith("shuffle.skew")}
+        config.set_flag("SKEW_SPLIT", "0")
+        agg0, ng0, _ = parallel.distributed_groupby(fact, [key], aggs, mesh8)
+        config.clear_flag("SKEW_SPLIT")
+        if split_n < 1:
+            raise AssertionError("(s1) the split did not engage on 8 shards")
+        if not torch.equal(ng8, ng0):
+            raise AssertionError("(s1) split group counts differ")
+        for a, b in zip(occupied_rows(agg8, ng8), occupied_rows(agg0, ng0)):
+            same_tables(a, b, "(s1) split against SKEW_SPLIT=0")
+        res["skew8"] = {"splits": split_n, "gauges": gauges}
+        log(f"(s1) groupby: {res['groupby_groups']} groups exact on "
+            f"{size} shards (split off: {skew.to_doc()}); on "
+            f"{len(pool8)} shards the split engaged ({split_n} hot "
+            f"destinations), the bytes of SKEW_SPLIT=0; gauges {gauges}")
+
+        # (s2) joins with item
+        want = join_mod.inner_join(fact, item, [key])
+        out, cnt, lov, rov = outs["inner_join"]
+        parts = occupied_rows(out, cnt)
+        check_placement(parts, key, size, "(s2) inner join")
+        same_rows(concatenate(parts), want, "row", "(s2) inner join")
+        bout, bcnt = outs["broadcast_join"]
+        same_rows(concatenate(occupied_rows(bout, bcnt)), want, "row",
+                  "(s2) broadcast join")
+        res["join_rows"] = want.row_count
+
+        # (s3) semi / anti with the category items
+        for name, fn in (("semi_join", join_mod.semi_join),
+                         ("anti_join", join_mod.anti_join)):
+            ls, occ, _, _ = outs[name]
+            parts = occupied_rows(ls, occ)
+            check_placement(parts, key, size, f"(s3) {name}")
+            want_t = fn(fact, cat_t, [key])
+            same_rows(concatenate(parts), want_t, "row", f"(s3) {name}")
+            res[name + "_rows"] = want_t.row_count
+
+        # (s4) distinct customers
+        dk, dcnt, _ = outs["distinct"]
+        parts = occupied_rows(dk, dcnt)
+        check_placement(parts, "ss_customer_sk", size, "(s4) distinct")
+        same_rows(concatenate(parts),
+                  groupby_aggregate(fact, ["ss_customer_sk"], []),
+                  "ss_customer_sk", "(s4) distinct")
+        res["distinct_rows"] = int(dcnt.sum())
+
+        # (s5) sort: the occupied rows in mesh order are the stable sort
+        sout, socc, _ = outs["sort"]
+        got = concatenate(occupied_rows(sout, socc))
+        want_s = sort_table(Table(fact.columns[:4], fact.names[:4]),
+                            [SortKey(key)])
+        k = got[key].data
+        if not bool((k[1:] >= k[:-1]).all()):
+            raise AssertionError("(s5) distributed sort out of order")
+        same_tables(got, want_s, "(s5) sort")
+
+        # (s6) the plan on the mesh, then under a fault that degrades it
+        want_p = buckets.unpad_table(plan_mod.run_plan(MESH_PLAN, fact))
+        same_tables(plan_out, want_p, "(s6) mesh plan")
+        config.set_flag("RETRY_MAX", "0")
+        config.set_flag("FAULTS", MESH_FAULTS)
+        degraded = metrics.snapshot()["counters"].get("mesh.degraded", 0)
+        runner2 = parallel.MeshRunner(size, devices=pool)
+        got_p = plan_mod.run_plan(MESH_PLAN, fact, mesh_runner=runner2)
+        config.clear_flag("FAULTS")
+        config.clear_flag("RETRY_MAX")
+        same_tables(got_p, want_p, "(s6) degraded mesh plan")
+        doc = runner2.to_doc()
+        if (metrics.snapshot()["counters"].get("mesh.degraded", 0) - degraded
+                < 1 or doc["devices"] != max(size // 2, 1)):
+            raise AssertionError(f"(s6) the mesh did not degrade: {doc}")
+        res["plan"] = {"rows": want_p.row_count, "degraded": doc}
+        # the stream of two halves, the next half's pack and counts pass
+        # staged on a pipeline worker while this one's exchange runs
+        half = fact.row_count // 2
+        halves = [Table([Column(c.data[a:b], c.dtype,
+                                None if c.validity is None
+                                else c.validity[a:b]) for c in fact.columns],
+                        fact.names) for a, b in ((0, half),
+                                                 (half, fact.row_count))]
+        config.set_flag("PIPELINE", "2")
+        streamed = parallel.run_plan_mesh_stream(MESH_PLAN, halves, runner)
+        config.clear_flag("PIPELINE")
+        for i, (got_h, h) in enumerate(zip(streamed, halves)):
+            same_tables(got_h, buckets.unpad_table(
+                plan_mod.run_plan(MESH_PLAN, h)), f"(s6) stream batch {i}")
+        log(f"(s) every operator exact against the single-device ops: "
+            f"{res['join_rows']} join rows, {res['semi_join_rows']} semi and "
+            f"{res['anti_join_rows']} anti rows, {res['distinct_rows']} "
+            f"distinct customers, {got.row_count} sorted rows, the plan's "
+            f"{want_p.row_count} rows on {size} shards and after {doc}")
+
+        # measurements: one call of each operator
+        res["measure"] = {
+            "groupby": mesh_measure("groupby", lambda: parallel.distributed_groupby(
+                fact, [key], aggs, mesh)),
+            "groupby_split8": mesh_measure(
+                "groupby on 8 (split)", lambda: parallel.distributed_groupby(
+                    fact, [key], aggs, mesh8)),
+            "inner_join": mesh_measure(
+                "inner join", lambda: parallel.distributed_inner_join(
+                    fact, item, [key], mesh)),
+            "broadcast_join": mesh_measure(
+                "broadcast join", lambda: parallel.broadcast_inner_join(
+                    fact, item, [key], mesh)),
+            "semi_join": mesh_measure(
+                "semi join", lambda: parallel.distributed_semi_join(
+                    fact, cat_t, [key], mesh)),
+            "distinct": mesh_measure(
+                "distinct", lambda: parallel.distributed_distinct(
+                    fact, ["ss_customer_sk"], mesh)),
+            "sort": mesh_measure("sort", lambda: parallel.distributed_sort(
+                Table(fact.columns[:4], fact.names[:4]), [key], mesh)),
+            "plan": mesh_measure("plan", lambda: plan_mod.run_plan(
+                MESH_PLAN, fact, mesh_runner=runner)),
+            "plan_single": mesh_measure("plan, one device", lambda: (
+                plan_mod.run_plan(MESH_PLAN, fact))),
+        }
+        # the single-device ops the mesh's results were held against
+        one = Table(fact.columns[:4], fact.names[:4])
+        for name, fn in (
+                ("groupby", lambda: groupby_aggregate(fact, [key], aggs)),
+                ("inner_join", lambda: join_mod.inner_join(fact, item, [key])),
+                ("semi_join", lambda: join_mod.semi_join(fact, cat_t, [key])),
+                ("distinct", lambda: groupby_aggregate(
+                    fact, ["ss_customer_sk"], [])),
+                ("sort", lambda: sort_table(one, [SortKey(key)]))):
+            res["measure"][name + "_single"] = mesh_measure(
+                f"{name}, one device", fn)
+    finally:
+        for name in ("METRICS", "FAULTS", "RETRY_MAX", "SKEW_SPLIT",
+                     "PIPELINE"):
+            config.clear_flag(name)
+
+    # (s7) the dry run
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(MESH_SHARDS, device=DEVICE)
+    torch.cuda.synchronize()
+    res["dryrun_s"] = time.perf_counter() - t0
+    res["dryrun_launches"] = {k: v.launches
+                              for k, v in kernels.KERNELS.items()}
+    log(f"(s7) dryrun_multichip({MESH_SHARDS}): {res['dryrun_s']:.1f} s, "
+        f"launches {res['dryrun_launches']}")
+    res["k5_shard_rows"] = fact.row_count // size
+    return res
+
+
+def mesh_kernel_records(d: dict, qs: dict) -> list:
+    """K5 at (s)'s shape: one shard's ss_item_sk keys, as every hash
+    exchange of (s) hashes them, with (s)'s launches."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.kernels import hashing as kh
+
+    n = qs["k5_shard_rows"]
+    keys = [Column(torch.from_numpy(d["item_sk"][:n]).to(DEVICE), dt.INT64)]
+    return [kernel_record(
+        kh.MURMUR3, "mesh", f"{n} rows x 1 INT64 key (one of {qs['shards']} "
+        "shards)", qs["launches"][kh.MURMUR3.name],
+        lambda: [kh.murmur3_columns(keys)], lambda: [kh.murmur3_plain(keys)],
+        n * (8 + 4), n * (2 * 11 + 10),
+        note=f"(s): {qs['shards']} shards on {qs['gpus']} GPU(s)")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5786,6 +6221,7 @@ def main(argv=None) -> int:
         "formulations": lambda: phase_formulations(kernels, g, d, args.seed),
         "fusion": lambda: phase_fusion(rb, d, dd),
         "io": lambda: phase_io(kernels, d),
+        "mesh": lambda: phase_mesh(kernels, d, dd),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -5853,6 +6289,12 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("oplib kernels")
+    if "mesh" in res:
+        try:
+            recs += mesh_kernel_records(d, res["mesh"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("mesh kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -5876,7 +6318,7 @@ def main(argv=None) -> int:
         "faults": res["faults"], "registry": res["registry"],
         "oplib": res["oplib"], "buckets": res["buckets"],
         "formulations": res["formulations"], "fusion": res["fusion"],
-        "io": res["io"], **hard}))
+        "io": res["io"], "mesh": res["mesh"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,13 @@ fused segment that still fails is replayed op by op
 ``plan.fused_segments``, ``plan.fused_ops``, ``plan.exact_ops``,
 ``plan.fallbacks``, ``plan.declined``, ``plan.chunked_segments``,
 ``plan.oom_spill_retries``; spans ``plan`` and ``plan.segment``.
+
+A ``mesh_runner`` (``parallel.MeshRunner``) offers the plan to the mesh
+path first (``parallel/planmesh.py``), which runs the same fused segment
+body (:func:`_run_segment_traced`) on every shard: ``plan.mesh_segments``
+when it ran, ``plan.mesh_declined`` when the plan has no mesh path, and
+``plan.mesh_fallbacks`` when the runner's ladder reached its floor and
+the single-device path below ran instead.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ from .utils import buckets, faults, hbm, log, metrics, spill
 # global and never split.
 _ROW_LOCAL = frozenset({"cast", "filter", "rlike"})
 
+
+# mesh exchange boundaries: planmesh splits a plan at these ops into a
+# scan-side chain -> counts-sized all-to-all -> merge-side chain; on the
+# single-device path they run through the per-op dispatch
+_EXCHANGE_OPS = frozenset({"partition"})
 
 # single-table ops a fused segment carries anywhere in its run
 _SIMPLE_FUSABLE = frozenset(
@@ -141,6 +153,17 @@ _FUSED = {"cast": bucketed._do_cast, "filter": bucketed._do_filter,
           "groupby": bucketed._do_groupby}
 
 
+def _run_segment_traced(seg_ops: Sequence[dict], t: Table,
+                        n: torch.Tensor) -> Tuple[Table, torch.Tensor]:
+    """The body of one fused segment: ``(table, device count)`` threaded
+    through every op at the table's one physical length, with no host
+    read (the mesh path runs it on every shard)."""
+    for op in seg_ops:
+        rv = buckets.tail_valid(t.row_count, n)
+        t, n = _FUSED[op["op"]](op, t, n, rv)
+    return t, n
+
+
 def _run_fused(seg_ops: Sequence[dict], table: Table) -> Table:
     """One fused segment: the input at its bucket (``bucketed._Decline``
     without one), the count a device scalar through every op body, and
@@ -151,9 +174,7 @@ def _run_fused(seg_ops: Sequence[dict], table: Table) -> Table:
     # a fill, not a copy from the host: no synchronisation
     n = torch.full((), int(pt.logical_row_count), dtype=torch.int64,
                    device=dev)
-    for op in seg_ops:
-        rv = buckets.tail_valid(t.row_count, n)
-        t, n = _FUSED[op["op"]](op, t, n, rv)
+    t, n = _run_segment_traced(seg_ops, t, n)
     # the segment's one host read: the count that sizes the result
     return bucketed._finish(t, int(n))
 
@@ -368,9 +389,36 @@ def _run_segment(kind: str, seg_ops: list, table: Table, orig_rest: tuple,
     return table
 
 
+def _run_mesh(ops: Sequence[dict], table: Table, rest: Sequence[Table],
+              mesh_runner) -> Optional[Table]:
+    """The plan on ``mesh_runner``'s mesh; None when the plan has no mesh
+    path or the ladder reached its floor (the single-device path runs
+    then: the mesh path never consumes ``table``)."""
+    from .parallel import planmesh
+
+    with metrics.span("plan.mesh"):
+        try:
+            out = planmesh.run_plan_mesh(ops, table, mesh_runner, rest)
+        except planmesh.MeshUnsupported:
+            # not a failure: this plan has no mesh path
+            metrics.counter_add("plan.mesh_declined")
+            return None
+        except faults.Degraded as e:
+            # collective failures persisted down to the runner's floor:
+            # the single-device path is the degradation target
+            metrics.counter_add("plan.mesh_fallbacks")
+            faults.note_error_class(e, "plan.mesh")
+            log.log("WARN", "plan", "mesh_degraded_to_exact",
+                    error=f"{type(e).__name__}: {str(e)[:200]}")
+            return None
+    metrics.counter_add("plan.mesh_segments")
+    return out
+
+
 def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
              donate_input: bool = False,
-             protected: Optional[set] = None) -> Table:
+             protected: Optional[set] = None,
+             mesh_runner=None) -> Table:
     """Execute a plan over ``table``; ``rest`` supplies the extra tables
     of multi-table ops. Returns the final (possibly padded) table.
 
@@ -382,12 +430,19 @@ def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
     identities) does not hold, counted by ``hbm.note_donation``. A later
     segment's input that shares a storage with the plan's input, a
     ``rest`` table or ``protected`` (an aliasing op passed it on) is not
-    the plan's own, and releases nothing."""
+    the plan's own, and releases nothing.
+
+    ``mesh_runner`` offers the plan to the mesh path first
+    (:func:`_run_mesh`)."""
     if not isinstance(ops, (list, tuple)):
         raise TypeError("plan must be a JSON list of op objects")
     for op in ops:
         if not isinstance(op, dict) or "op" not in op:
             raise ValueError(f"plan entries must be op objects, got {op!r}")
+    if ops and mesh_runner is not None:
+        out = _run_mesh(ops, table, rest, mesh_runner)
+        if out is not None:
+            return out
     orig_rest, queue = tuple(rest), list(rest)
     segs = (segment_plan(ops) if buckets.enabled()
             else [("exact", [op]) for op in ops])

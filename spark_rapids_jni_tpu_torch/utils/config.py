@@ -21,6 +21,10 @@ taking precedence. Ported flags:
 * ``GROUPBY_FORMULATION`` — the eager groupby's route above
   ``ops.groupby.CHUNKED_MIN_ROWS``: ``single`` (the default), ``packed``
   or ``chunked``; any other value raises :class:`ValueError`.
+* ``SKEW_SPLIT``, ``SKEW_SPLIT_FACTOR`` — the mesh shuffle's adaptive
+  skew split (``parallel/shuffle.py``, ``parallel/distributed.py``);
+  ``MESH_PROBE_S`` — the mesh heartbeat's deadline
+  (``parallel/mesh.py``).
 
 Defaults and parsers are the JAX package's; an invalid value raises
 :class:`ValueError` naming the flag when it is read.
@@ -194,6 +198,22 @@ _FLAGS = {
         Flag("BREAKER_PROBE_S", 1.0, _parse_positive_float("BREAKER_PROBE_S"),
              "circuit breaker: seconds an open breaker waits before one "
              "half-open probe"),
+        Flag("SKEW_SPLIT_FACTOR", 2.0,
+             _parse_positive_float("SKEW_SPLIT_FACTOR"),
+             "adaptive shuffle-skew threshold: after the counts pass, a "
+             "destination whose planned received rows pass this factor x "
+             "the mean gets its hot keys salted across sub-partitions "
+             "(partial aggregate before the exchange, merge after); "
+             "SKEW_SPLIT=0 turns the machinery off"),
+        Flag("SKEW_SPLIT", True, _as_bool,
+             "master switch of the adaptive skew split on the mesh "
+             "shuffle path; off = capacity always from the raw "
+             "per-destination counts"),
+        Flag("MESH_PROBE_S", 5.0, _parse_positive_float("MESH_PROBE_S"),
+             "deadline in seconds of one MeshHealth heartbeat "
+             "(parallel/mesh.py): a mesh that has not answered by then is "
+             "unhealthy and the degradation ladder drops to fewer "
+             "devices"),
     ]
 }
 

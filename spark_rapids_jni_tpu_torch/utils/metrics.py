@@ -5,13 +5,16 @@ Everything ticks only while the ``METRICS`` flag is on; the gate is
 cached against the flag plane's generation, so a disabled site costs an
 int compare and a disabled :func:`span` returns a shared no-op object.
 :func:`snapshot` has the JAX package's keys (``counters``, ``bytes``,
-``timers``, ``gauges``, ``histograms``, ``span_self``). Trace ranges,
-the flight recorder, Prometheus export and dumps are not ported.
+``timers``, ``gauges``, ``histograms``, ``span_self``). :func:`traced`
+opens a ``torch.profiler.record_function`` range beside its span. Trace
+ranges, the flight recorder, Prometheus export and dumps are not
+ported.
 """
 
 from __future__ import annotations
 
 import bisect
+import functools
 import threading
 import time
 from typing import Dict, Optional, Sequence
@@ -188,6 +191,24 @@ def span(name: str, **attrs):
     if not enabled():
         return NULL_SPAN
     return _Span(name)
+
+
+def traced(name: str):
+    """Decorator form of :func:`span` (the JAX package's
+    ``metrics.traced``): the function body under ``span(name)`` and a
+    ``torch.profiler.record_function`` range of the same name."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            from torch.profiler import record_function
+
+            with span(name), record_function(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 def snapshot() -> dict:

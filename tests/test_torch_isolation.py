@@ -20,6 +20,7 @@ import torch
 import inspect
 
 from spark_rapids_jni_tpu_torch import Column, Table, graft_entry, kernels, rows
+from spark_rapids_jni_tpu_torch import parallel
 from spark_rapids_jni_tpu_torch import dtype as dt
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
 from spark_rapids_jni_tpu_torch.kernels import bitonic_sort as bs
@@ -85,7 +86,13 @@ def test_scan_covers_the_package():
             "bucketed.py", "factories.py", "sort_packed.py",
             "join_packed.py", "interop.py", "predicates.py", "parquet.py",
             "parquet_device.py", "orc.py", "csv.py", "json.py", "ipc.py",
-            "avro.py"} <= names
+            "avro.py", "mesh.py", "shuffle.py", "tolerant.py",
+            "distributed.py", "planmesh.py"} <= names
+    parallel_dir = ROOT / "spark_rapids_jni_tpu_torch" / "parallel"
+    assert {p for p in PORT_FILES if p.parent == parallel_dir} == {
+        parallel_dir / f for f in ("__init__.py", "mesh.py", "shuffle.py",
+                                   "tolerant.py", "distributed.py",
+                                   "planmesh.py")}
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():
@@ -158,6 +165,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         graft_entry.entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         graft_entry._example_tables()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.make_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.MeshRunner(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        graft_entry.dryrun_multichip(4)
     # the CPU is used only when asked for
     tid = rb.table_upload_wire(*_fact_wire(), device="cpu")
     assert rb.table_num_rows(tid) == 4
@@ -167,7 +182,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("fn", [rb.table_plan_wire, rb.table_op_wire,
-                                graft_entry.entry, graft_entry._example_tables],
+                                graft_entry.entry, graft_entry._example_tables,
+                                graft_entry.dryrun_multichip],
                          ids=lambda f: f.__name__)
 def test_new_entries_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -418,3 +434,35 @@ def test_scan16_one_pass_at_every_edge_on_card():
         bad = [i for i, c in enumerate(calls)
                if not torch.equal(c.view(torch.int64), want)]
         assert not bad, f"{n} elements: calls {bad} differ"
+
+
+@pytest.mark.cuda
+def test_ragged_and_dense_compact_agree_on_card():
+    """The two forms of the ragged exchange give the same bytes on a
+    mesh of 4 shards of one card (the default form there is ragged),
+    and K5 places the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from spark_rapids_jni_tpu_torch.parallel import shuffle as psh
+
+    n = 1 << 16
+    rng = np.random.default_rng(3)
+    words = [f"w{i:03d}".encode() for i in range(300)]
+    t = Table([Column.from_numpy(rng.zipf(1.3, n) % 5000, rng.random(n) > 0.05),
+               Column.from_numpy(rng.standard_normal(n)),
+               Column.from_strings([words[i] for i in rng.integers(0, 300, n)])],
+              ["k", "f", "s"])
+    mesh = parallel.make_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    assert psh._ragged_impl(None, mesh) == "ragged"
+    before = kh.MURMUR3.launches
+    got = {impl: parallel.shuffle_table_compact(t, ["k"], mesh, impl=impl)
+           for impl in ("ragged", "dense_compact")}
+    assert kh.MURMUR3.launches > before
+    (a, ao, av), (b, bo, bv) = got["ragged"], got["dense_compact"]
+    assert torch.equal(ao.concat(), bo.concat()) and torch.equal(av, bv)
+    for ca, cb in zip(a.concat().columns, b.concat().columns):
+        for x, y in ((ca.data, cb.data), (ca.validity, cb.validity),
+                     (ca.lengths, cb.lengths)):
+            assert (x is None) == (y is None)
+            assert x is None or torch.equal(x, y)
+    assert int(ao.concat().sum()) == n

@@ -11,8 +11,8 @@ checkout sees the same rows), runs the named phases of it with their
 own checks (a phase the checkout does not have is skipped), and
 records each profiled window (``profile_plan``): the cell's tag, its
 device ms a run and its unprofiled median wall. Phases that time
-themselves otherwise ((m1), (o), (p), (q), (k5), (r)) print their own
-lines.
+themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s)) print their
+own lines.
 
 Prints one line a cell and run, then one JSON line
 ``{"runs": [{"tree": ..., "cells": {tag: {"device_ms", "wall_ms"}}}]}``
@@ -47,6 +47,7 @@ _PHASES = {
     "string_lib": lambda cs, rb, k, D: cs.phase_string_lib(rb, D["sd"],
                                                            D["seed"]),
     "io": lambda cs, rb, k, D: cs.phase_io(k, D["d"]),
+    "mesh": lambda cs, rb, k, D: cs.phase_mesh(k, D["d"], D["dd"]),
 }
 
 
