@@ -98,7 +98,10 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     ``ops.split_explode``) over a 2,000,000-row multi-byte UTF-8 column
     made from ``--seed`` beside customer's names, each call byte
     for byte against the port's own CPU run, with its device time and
-    launches from the profiler.
+    launches from the profiler. That CPU run is a child process of this
+    script (``--k5-cpu-reference``, every core but one) that runs while
+    (k5)'s calls run on the card; (k5) then compares its buffers as
+    before.
 (l) DECIMAL128 — one Spark task's batch of TPC-H lineitem (2^23 rows,
     the specification's value ranges, the money columns DECIMAL64 at
     scale -2 with ~2 % nulls) through ``table_upload_wire`` +
@@ -219,6 +222,26 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     that degrades the mesh to 2, and the batch's halves through
     ``run_plan_mesh_stream`` at PIPELINE 2; (s7)
     ``graft_entry.dryrun_multichip(4)``.
+(t) the observability tier — (h)'s plan over (a)'s 2^23-row batch with
+    TRACE, FLIGHT, PROFILE, PLANSTATS, LOCKCHECK and REFCOUNT_DEBUG all
+    on, against the same call with all of them off: equal bytes, equal
+    ``kernel.*`` and ``plan.*`` counters and launches, one host sync in
+    the fused segment; the profile session's segments equal
+    ``plancheck.predict_segments`` and each segment's execute + compile +
+    serde + stall equals its wall; five calls leave a stats file whose
+    drift report has no segmentation finding; ``capture_trace`` of one
+    call leaves a Chrome trace whose ``plan`` range holds CUDA kernels;
+    ``metrics.snapshot()`` names every span; the flight ring holds the
+    ``plan``/``plan.segment`` pairs under the one ``tracing.activate``
+    trace id. Then (m1)'s stream at depth 2 over 4 batches with LOCKCHECK
+    and FLIGHT on (equal bytes, no lock cycle or inversion; the locks
+    held across ``device_dispatch`` printed), the leak report (empty; a
+    kept table shows with its span stack), and a child process
+    (``--telemetry-dump-child``) whose ``FLIGHT_DUMP``, ``PROFILE_DUMP``
+    and ``METRICS_DUMP`` parse with their ``resident_leaks``,
+    ``lockcheck`` and ``profile_sessions`` sections. Printed, not gated:
+    (h)'s wall and device time off against on, median of 5 alternating
+    pairs, beside the card's name and power limit.
     Each operator's wall, device time, bytes through the all-to-all and
     host syncs are printed; K5 must have launched.
 (c) kernels — each kernel against its plain version on the card, at the
@@ -256,6 +279,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -894,6 +918,21 @@ def plan_runner(rb, plan: str, ids):
     return run
 
 
+def device_events(prof) -> list:
+    """The kernel, memcpy and memset entries of a ``torch.profiler``
+    capture's ``key_averages()``. A ``record_function`` range (under
+    ``TRACE``) also becomes a user annotation on the device's timeline
+    that spans the kernels launched inside it; those entries are left
+    out, so no device time is counted twice."""
+    from torch.autograd import DeviceType
+
+    avg = prof.key_averages()
+    cpu = {e.key for e in avg if e.device_type == DeviceType.CPU}
+    return [e for e in avg if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in cpu]
+
+
 def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     """A steady window of ``runs`` calls of ``run`` (one run that ends in a
     synchronise) under ``torch.profiler``, each timed as the unprofiled
@@ -904,7 +943,6 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
     summed, so overlapping kernels would count twice; each run is on one
     stream. Beside the top 12 kernels, every hand-written kernel gets a
     line by name (0 where the run did not launch it)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -914,8 +952,7 @@ def profile_plan(run, wall_ms: float, tag: str, runs: int = 5) -> dict:
             run()
             walls.append((time.perf_counter() - t0) * 1e3)
     # device-side events only: a CPU op's entry repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = [e for e in device_events(prof) if e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / runs
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     top = [{"name": e.key[:80], "calls_per_run": e.count / runs,
@@ -1865,7 +1902,6 @@ def device_launches(fn, calls: int = 20, tries: int = 4) -> dict:
     window on the card came back without its device events: the window
     waits 20 ms before its calls, and one that recorded none is taken
     again, up to ``tries`` times ({} if none did)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1877,8 +1913,8 @@ def device_launches(fn, calls: int = 20, tries: int = 4) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ops = {e.key[:60]: e.count / calls for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count}
+        ops = {e.key[:60]: e.count / calls for e in device_events(prof)
+               if e.count}
         if ops:
             return ops
     return {}
@@ -2878,7 +2914,6 @@ def op_profile(fn, tag: str, nbytes: int, runs: int = 3) -> dict:
     """Launches and device time a call of one plain op, from
     ``torch.profiler`` (the DFA scan and the Murmur3 string chain run
     small ops a pad column), beside the bound of ``nbytes`` moved once."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2887,8 +2922,7 @@ def op_profile(fn, tag: str, nbytes: int, runs: int = 3) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = [e for e in device_events(prof) if e.self_device_time_total > 0]
     out = {"launches": sum(e.count for e in events) / runs,
            "device_ms": sum(e.self_device_time_total for e in events)
            / 1e3 / runs, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -3212,6 +3246,127 @@ def make_k5_wire(seed: int, n: int):
     return string_wire(vocab, idx, ok), starts, lens
 
 
+# (k5)'s CPU reference child: every core but the one the parent's
+# launches run on
+K5_REF_THREADS = max((os.cpu_count() or 2) - 1, 1)
+
+
+def k5_wire(sd: dict, seed: int):
+    """(k5)'s input wire table: customer's c_last_name and c_first_name,
+    the UTF-8 column (``make_k5_wire``) and the substring starts and
+    lengths."""
+    n = CUSTOMER_ROWS
+    (u_data, u_valid), starts, lens = make_k5_wire(seed, n)
+    return ([23, 23, 23, 3, 3], [0] * 5,
+            [sd["customer_wire"][2][3], sd["customer_wire"][2][2], u_data,
+             starts.tobytes(), lens.tobytes()],
+            [sd["customer_wire"][3][3], sd["customer_wire"][3][2], u_valid,
+             None, None], n)
+
+
+def k5_cases() -> dict:
+    """(k5)'s calls, each a function of the input table: every function
+    of ``string_lib`` over the UTF-8 column, ``concat_ws``,
+    ``substring_column``, the width-changing ``replace``; and
+    ``split_explode`` (a table)."""
+    from spark_rapids_jni_tpu_torch.column import Table
+    from spark_rapids_jni_tpu_torch.ops import lists, strings
+
+    last, first, utf8 = 0, 1, 2
+    cases = {name: (lambda t, f=fn: Table([f(t.columns[utf8])]))
+             for name, fn in string_lib().items()}
+    cases.update({
+        "concat_ws": lambda t: Table([strings.concat_ws(
+            " ", t.columns[first], t.columns[last], t.columns[utf8])]),
+        "substring_column": lambda t: Table([strings.substring_column(
+            t.columns[utf8], t.columns[3], t.columns[4])]),
+        "replace width-changing utf8": lambda t: Table([strings.replace(
+            t.columns[utf8], ",", ", ")]),
+        "split_explode": lambda t: lists.split_explode(
+            Table([t.columns[3], t.columns[utf8]], ["k", "s"]), "s", ","),
+    })
+    return cases
+
+
+def k5_cpu_reference(in_path: str, out_path: str) -> int:
+    """The body of (k5)'s CPU reference child (``--k5-cpu-reference IN
+    OUT``): every call of :func:`k5_cases` on the CPU over the pickled
+    input wire table, its host buffers (``interop.table_to_buffers``)
+    pickled to ``out_path``. Needs no GPU."""
+    import pickle
+
+    from spark_rapids_jni_tpu_torch import interop
+    from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+
+    torch.set_num_threads(K5_REF_THREADS)
+    with open(in_path, "rb") as f:
+        wire = pickle.load(f)
+    t0 = time.perf_counter()
+    table = rb._table_from_wire(*wire, torch.device("cpu"))
+    out = {what: interop.table_to_buffers(fn(table))
+           for what, fn in k5_cases().items()}
+    out["_cpu_s"] = time.perf_counter() - t0
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+class K5Reference:
+    """(k5)'s CPU run as a child process, started with (k5) so that it
+    runs beside (k5)'s calls on the card: it writes the input wire table
+    to ``build/k5_reference/``, runs this script with
+    ``--k5-cpu-reference`` there (``K5_REF_THREADS`` torch threads, its
+    output in ``child.log``), and :meth:`result` waits for its buffers.
+    :meth:`stop` ends it and removes the files."""
+
+    def __init__(self, sd: dict, seed: int):
+        import pickle
+
+        self.dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "build", "k5_reference")
+        os.makedirs(self.dir, exist_ok=True)
+        self.inp = os.path.join(self.dir, "in.pkl")
+        self.out = os.path.join(self.dir, "out.pkl")
+        for path in (self.inp, self.out):
+            if os.path.exists(path):
+                os.remove(path)
+        with open(self.inp, "wb") as f:
+            pickle.dump(k5_wire(sd, seed), f, protocol=pickle.HIGHEST_PROTOCOL)
+        self.log = open(os.path.join(self.dir, "child.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--k5-cpu-reference", self.inp, self.out],
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self, timeout: float = 900.0) -> dict:
+        import pickle
+
+        rc = self.proc.wait(timeout=timeout)
+        waited = time.perf_counter() - self.t0
+        if rc != 0:
+            self.log.flush()
+            with open(os.path.join(self.dir, "child.log")) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"(k5) CPU reference child exited {rc}:\n{tail}")
+        with open(self.out, "rb") as f:
+            ref = pickle.load(f)
+        log(f"(k5) CPU reference child: {ref['_cpu_s']:.1f} s of CPU run "
+            f"({K5_REF_THREADS} torch threads), done {waited:.1f} s after "
+            "its start")
+        return ref
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        for path in (self.inp, self.out):
+            if os.path.exists(path):
+                os.remove(path)
+
+
 def phase_string_lib(rb, sd: dict, seed: int) -> dict:
     """(k5): every function of the string library (``string_lib``, then
     ``concat_ws`` of the customer table's c_first_name and c_last_name
@@ -3219,55 +3374,34 @@ def phase_string_lib(rb, sd: dict, seed: int) -> dict:
     ``substring_column``, the width-changing ``replace`` and
     ``split_explode``) on the card over the UTF-8 column, byte for byte
     against the port's own CPU run of the same function on the same
-    input; each function's device time and launches from the
+    input, which a :class:`K5Reference` child computes while the calls
+    run on the card; each function's device time and launches from the
     profiler."""
     from spark_rapids_jni_tpu_torch import interop
-    from spark_rapids_jni_tpu_torch.column import Table
-    from spark_rapids_jni_tpu_torch.ops import lists, strings
 
     n = CUSTOMER_ROWS
-    (u_data, u_valid), starts, lens = make_k5_wire(seed, n)
-    wire = ([23, 23, 23, 3, 3], [0] * 5,
-            [sd["customer_wire"][2][3], sd["customer_wire"][2][2], u_data,
-             starts.tobytes(), lens.tobytes()],
-            [sd["customer_wire"][3][3], sd["customer_wire"][3][2], u_valid,
-             None, None], n)
-    tables = {dev: rb._table_from_wire(*wire, torch.device(dev))
-              for dev in (DEVICE, "cpu")}
-    last, first, utf8 = 0, 1, 2
-    cases = {name: (lambda t, f=fn: f(t.columns[utf8]))
-             for name, fn in string_lib().items()}
-    cases.update({
-        "concat_ws": lambda t: strings.concat_ws(
-            " ", t.columns[first], t.columns[last], t.columns[utf8]),
-        "substring_column": lambda t: strings.substring_column(
-            t.columns[utf8], t.columns[3], t.columns[4]),
-        "replace width-changing utf8": lambda t: strings.replace(
-            t.columns[utf8], ",", ", "),
-    })
-    out = {}
-    for what, fn in cases.items():
-        got = fn(tables[DEVICE])
-        same_column(got, fn(tables["cpu"]), f"(k5) {what}")
-        col = tables[DEVICE].columns[utf8]
-        nbytes = col.data.numel() + 5 * n
-        out[what] = op_profile(lambda f=fn: f(tables[DEVICE]),
-                               f"(k5) {what}", nbytes)
-    explode = {dev: lists.split_explode(
-        Table([t.columns[3], t.columns[utf8]], ["k", "s"]), "s", ",")
-        for dev, t in tables.items()}
-    same_buffers(interop.table_to_buffers(explode[DEVICE]),
-                 interop.table_to_buffers(explode["cpu"]),
-                 "(k5) split_explode")
-    out["split_explode"] = op_profile(
-        lambda: lists.split_explode(Table([tables[DEVICE].columns[3],
-                                           tables[DEVICE].columns[utf8]],
-                                          ["k", "s"]), "s", ","),
-        "(k5) split_explode", tables[DEVICE].columns[utf8].data.numel())
-    out["split_explode"]["rows_out"] = explode[DEVICE].row_count
-    log(f"(k5) string library at {n} rows: {len(cases) + 1} calls equal to "
+    reference = K5Reference(sd, seed)
+    try:
+        table = rb._table_from_wire(*k5_wire(sd, seed), torch.device(DEVICE))
+        out, got = {}, {}
+        for what, fn in k5_cases().items():
+            res = fn(table)
+            got[what] = interop.table_to_buffers(res)
+            nbytes = (table.columns[2].data.numel() if what == "split_explode"
+                      else table.columns[2].data.numel() + 5 * n)
+            out[what] = op_profile(lambda f=fn: f(table), f"(k5) {what}",
+                                   nbytes)
+            if what == "split_explode":
+                out[what]["rows_out"] = res.row_count
+            del res
+        want = reference.result()
+    finally:
+        reference.stop()
+    for what, bufs in got.items():
+        same_buffers(bufs, want[what], f"(k5) {what}")
+    log(f"(k5) string library at {n} rows: {len(got)} calls equal to "
         f"the CPU run's bytes; split_explode gives "
-        f"{explode[DEVICE].row_count} rows")
+        f"{out['split_explode']['rows_out']} rows")
     return out
 
 
@@ -4803,16 +4937,16 @@ def bucket_chain_oracle(d: dict, dd: dict, n: int) -> np.ndarray:
 
 def device_window_ms(run, runs: int = 2) -> float:
     """Device time a call of ``run`` (which ends in a synchronise), summed
-    over every kernel ``torch.profiler`` saw, after one warm-up call."""
-    from torch.autograd import DeviceType
+    over every kernel and copy ``torch.profiler`` saw
+    (:func:`device_events`), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             run()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / runs
+    return sum(e.self_device_time_total
+               for e in device_events(prof)) / 1e3 / runs
 
 
 def phase_buckets(rb, kernels, d: dict, dd: dict) -> dict:
@@ -6152,14 +6286,359 @@ def mesh_kernel_records(d: dict, qs: dict) -> list:
         note=f"(s): {qs['shards']} shards on {qs['gpus']} GPU(s)")]
 
 
+# ---------------------------------------------------------------------------
+# (t) the observability tier: every plane on, against every plane off
+# ---------------------------------------------------------------------------
+
+TELEMETRY_FLAGS = ("TRACE", "FLIGHT", "PROFILE", "PLANSTATS", "LOCKCHECK",
+                   "REFCOUNT_DEBUG")
+TELEMETRY_COUNTERS = (
+    "kernel.launches", "kernel.declines", "plan.calls", "plan.segments",
+    "plan.fused_segments", "plan.fused_ops", "plan.exact_ops",
+    "plan.fallbacks", "plan.declined", "plan.chunked_segments",
+    "plan.oom_spill_retries")
+TELEMETRY_PAIRS = 5  # alternating off/on calls of (h) for the wall and device
+TELEMETRY_STATS_CALLS = 5  # calls whose stats records the drift report reads
+TELEMETRY_STREAM = 4  # (m1)'s batches the lockcheck stream takes, at depth 2
+TELEMETRY_CHILD_ROWS = 1 << 16  # the dump child's batch: a prefix of (a)'s
+
+
+def telemetry_dump_child(in_path: str) -> int:
+    """The body of (t)'s dump child (``--telemetry-dump-child IN``): with
+    ``FLIGHT_DUMP``, ``PROFILE_DUMP`` and ``METRICS_DUMP`` (and
+    ``LOCKCHECK``) in its environment it runs (h)'s plan over the pickled
+    wire batch on the card and keeps one resident table, so that the
+    dumps written at its exit carry a profile session, a lock report and
+    a leak."""
+    import pickle
+
+    from spark_rapids_jni_tpu_torch import runtime_bridge as rb
+    from spark_rapids_jni_tpu_torch.utils import metrics
+
+    with open(in_path, "rb") as f:
+        wire = pickle.load(f)
+    rb.table_plan_wire(json.dumps(WIRE_PLAN), *wire, device=DEVICE)
+    with metrics.span("t.child_keep"):
+        rb.table_upload_wire(*wire, device=DEVICE)  # left for the report
+    torch.cuda.synchronize()
+    return 0
+
+
+def _telemetry(on: bool, stats_dir: str) -> None:
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    for flag in TELEMETRY_FLAGS:
+        if on:
+            config.set_flag(flag, "on")
+        else:
+            config.clear_flag(flag)
+    if on:
+        config.set_flag("PLANSTATS_DIR", stats_dir)
+    else:
+        config.clear_flag("PLANSTATS_DIR")
+
+
+def chrome_kernels_in(trace: dict, name: str) -> tuple:
+    """(ranges named ``name``, CUDA kernel events whose start lies in one
+    of them) of a ``torch.profiler`` Chrome trace: the host range and its
+    annotation on the device's timeline both count as a window."""
+    wins = [(e["ts"], e["ts"] + e.get("dur", 0))
+            for e in trace.get("traceEvents", [])
+            if e.get("name") == name and e.get("ph") == "X"]
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    inside = [e for e in kernels if any(a <= e["ts"] <= b for a, b in wins)]
+    return len(wins), len(inside)
+
+
+def phase_telemetry(rb, kernels, d: dict, ctx: dict) -> dict:
+    """(t): (h)'s plan through ``table_plan_wire`` over (a)'s 2^23-row
+    batch with TRACE, FLIGHT, PROFILE, PLANSTATS, LOCKCHECK and
+    REFCOUNT_DEBUG all on, against the same call with all of them off.
+    Gates: equal bytes, equal ``kernel.*``/``plan.*`` counters and
+    launches, one host sync in the fused segment, the profile session's
+    segments equal to ``plancheck.predict_segments`` with splits summing
+    to each wall, a stats file after five calls with no segmentation
+    drift, a Chrome trace whose ``plan`` range holds kernels, every span
+    in ``metrics.snapshot()``, the flight ring's ``plan``/``plan.segment``
+    pairs under one trace id, (m1)'s stream at depth 2 over 4 batches
+    with LOCKCHECK and FLIGHT on (equal bytes, no cycle or inversion), an
+    empty leak report and a kept table in it, and a child's dumps at
+    exit. Printed: (h)'s wall and device time off and on, median of 5
+    alternating pairs."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch import plan as plan_mod
+    from spark_rapids_jni_tpu_torch import plancheck
+    from spark_rapids_jni_tpu_torch.utils import (
+        config, flight, lockcheck, metrics, planstats, profiler, tracing,
+    )
+
+    plan = json.dumps(WIRE_PLAN)
+    wire = d["fact_wire"]
+    tmp = tempfile.mkdtemp(prefix="srt-telemetry-")
+    stats_dir = os.path.join(tmp, "stats")
+    # the dump child runs beside the gates below and is waited for
+    # before the timed pairs
+    small = prefix_wire(d, min(TELEMETRY_CHILD_ROWS, d["rows"].shape[0]))
+    paths = {k: os.path.join(tmp, f"{k}.json")
+             for k in ("flight", "profile", "metrics")}
+    inp = os.path.join(tmp, "child_in.pkl")
+    with open(inp, "wb") as f:
+        pickle.dump(small, f)
+    env = dict(os.environ, SPARK_RAPIDS_TPU_FLIGHT_DUMP=paths["flight"],
+               SPARK_RAPIDS_TPU_PROFILE_DUMP=paths["profile"],
+               SPARK_RAPIDS_TPU_METRICS_DUMP=paths["metrics"],
+               SPARK_RAPIDS_TPU_LOCKCHECK="1")
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--telemetry-dump-child",
+         inp], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+    def call():
+        res = rb.table_plan_wire(plan, *wire, device=DEVICE)
+        torch.cuda.synchronize()
+        return res
+
+    real, syncs = plan_mod._run_fused, []
+
+    def counted(seg_ops, table):
+        box = {}
+        syncs.append(sync_sites(
+            lambda: box.setdefault("out", real(seg_ops, table))))
+        return box["out"]
+
+    def measured(on: bool):
+        _telemetry(on, stats_dir)
+        metrics.reset()
+        kernels.reset_launches()
+        syncs.clear()
+        plan_mod._run_fused = counted
+        try:
+            res = call()
+        finally:
+            plan_mod._run_fused = real
+        return (res, metrics.counter_values(list(TELEMETRY_COUNTERS)),
+                {k: v.launches for k, v in kernels.KERNELS.items()},
+                list(syncs))
+
+    res = {}
+    try:
+        config.set_flag("METRICS", True)
+        for mod in (flight, profiler, planstats, lockcheck):
+            mod.reset()
+        off = measured(False)
+        trace = tracing.new_context()
+        with tracing.activate(trace):
+            on = measured(True)
+        if tuple(on[0]) != tuple(off[0]):
+            raise AssertionError("(t) telemetry on changed the output bytes")
+        if on[1] != off[1] or on[2] != off[2]:
+            raise AssertionError(f"(t) counters or launches differ: on "
+                                 f"{on[1]} {on[2]}, off {off[1]} {off[2]}")
+        if [len(x) for x in on[3]] != [1] or [len(x) for x in off[3]] != [1]:
+            raise AssertionError(f"(t) fused segment host syncs: on {on[3]}, "
+                                 f"off {off[3]}")
+        missing = [k for k in WIRE_KERNELS if on[2][k] == 0]
+        if missing:
+            raise AssertionError(f"(t) never launched {missing}")
+        # the profile session against the static prediction
+        sess = profiler.sessions()[-1]
+        segs = [(s["index"], s["kind"], s["ops"]) for s in sess["segments"]]
+        want = [(i, kind, [WIRE_PLAN[j]["op"] for j in idx]) for i, (kind, idx)
+                in enumerate(plancheck.predict_segments(WIRE_PLAN))]
+        if segs != want:
+            raise AssertionError(f"(t) profile segments {segs} != {want}")
+        for sg in sess["segments"]:
+            parts = (sg["execute_s"] + sg["compile_s"] + sg["serde_s"]
+                     + sg["stall_s"])
+            if abs(parts - sg["wall_s"]) > 1e-9 * max(1.0, sg["wall_s"]):
+                raise AssertionError(f"(t) segment {sg['index']}'s splits "
+                                     f"{parts} != its wall {sg['wall_s']}")
+        # the flight ring: the plan's span pairs under one trace id
+        evs = tracing.assign_trace_ids(flight.tail_records())
+        pairs = {nm: [e["ph"] for e in evs if e["name"] == nm]
+                 for nm in ("plan", "plan/plan.segment")}
+        ids = {e.get("trace_id") for e in evs
+               if e["name"] in pairs and e["ph"] in "BE"}
+        if (pairs["plan"] != ["B", "E"]
+                or pairs["plan/plan.segment"] != ["B", "E"] * len(segs)
+                or ids != {trace.trace_id}):
+            raise AssertionError(f"(t) flight span pairs {pairs}, trace ids "
+                                 f"{ids} (want {trace.trace_id})")
+        # every span of the plan in the metrics snapshot (compile.jit is
+        # the trace layer's own span, not a metrics one)
+        spans = {e["name"].rsplit("/", 1)[-1] for e in evs
+                 if e["ph"] == "B"} - {"compile.jit"}
+        absent = sorted(spans - set(metrics.snapshot()["timers"]))
+        if absent or not {"plan", "plan.segment"} <= spans:
+            raise AssertionError(f"(t) spans missing from the snapshot: "
+                                 f"{absent} (of {sorted(spans)})")
+        # five calls' stats records and their drift report
+        for _ in range(TELEMETRY_STATS_CALLS - 1):
+            call()
+        report = planstats.drift_report(path=stats_dir)
+        findings = [f for g in report["groups"] for f in g["findings"]]
+        if report["records"] != TELEMETRY_STATS_CALLS or any(
+                f["type"] == "segmentation" for f in findings):
+            raise AssertionError(f"(t) stats: {report['records']} records, "
+                                 f"findings {findings}")
+        # a Chrome trace of one call: its plan range holds kernels
+        cap = os.path.join(tmp, "trace")
+        with tracing.capture_trace(cap):
+            call()
+        files = [os.path.join(cap, f) for f in os.listdir(cap)]
+        if len(files) != 1:
+            raise AssertionError(f"(t) capture_trace left {files}")
+        with open(files[0]) as f:
+            chrome = json.load(f)
+        windows, inside = chrome_kernels_in(chrome, "plan")
+        if not windows or not inside:
+            raise AssertionError(f"(t) Chrome trace: {windows} plan ranges, "
+                                 f"{inside} kernels inside")
+        log(f"(t) all telemetry on: equal bytes, counters {on[1]}, fused "
+            f"segment syncs {on[3]}; segments {segs}; "
+            f"{len(evs)} flight events, one trace id; "
+            f"{report['records']} stats records, findings "
+            f"{sorted({f['type'] for f in findings})}; Chrome trace "
+            f"{os.path.getsize(files[0])} bytes, {inside} kernels in "
+            f"{windows} plan ranges")
+        res.update(counters=on[1], segment_syncs=on[3], segments=segs,
+                   flight_events=len(evs), stats_records=report["records"],
+                   drift_findings=sorted({f["type"] for f in findings}),
+                   trace_kernels_in_plan=inside)
+        # (m1)'s stream under LOCKCHECK and FLIGHT
+        _telemetry(False, stats_dir)
+        batches = ctx.get("batches") or [stream_batch(d, k) for k in
+                                          range(TELEMETRY_STREAM)]
+        ref = ctx.get("ref") or [tuple(rb.table_plan_wire(
+            plan, *b, device=DEVICE)) for b in batches[:TELEMETRY_STREAM]]
+        for flag, value in (("LOCKCHECK", "on"), ("FLIGHT", "on"),
+                            ("PIPELINE", "2")):
+            config.set_flag(flag, value)
+        lockcheck.reset()
+        got = rb.table_stream_wire(plan, batches[:TELEMETRY_STREAM],
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        config.clear_flag("PIPELINE")
+        if [tuple(g) for g in got] != ref[:TELEMETRY_STREAM]:
+            raise AssertionError("(t) the stream under LOCKCHECK differs")
+        lock = lockcheck.report()
+        if lock["cycles"] or lock["order_violations"]:
+            raise AssertionError(f"(t) lockcheck: cycles {lock['cycles']}, "
+                                 f"inversions {lock['order_violations']}")
+        held = [v for v in lock["held_across_blocking"]
+                if v["kind"] == "device_dispatch"]
+        log(f"(t) stream of {TELEMETRY_STREAM} at depth 2 with LOCKCHECK and "
+            f"FLIGHT: equal bytes; {lock['acquisitions']} acquisitions, "
+            f"{len(lock['edges'])} order edges, no cycle or inversion; "
+            f"{len(held)} lock set(s) held across device_dispatch "
+            f"{sorted({tuple(v['held']) for v in held})}")
+        res.update(lock_acquisitions=lock["acquisitions"],
+                   lock_edges=len(lock["edges"]),
+                   held_across_dispatch=len(held))
+        config.clear_flag("LOCKCHECK")
+        config.clear_flag("FLIGHT")
+        # the leak report: empty, then one kept table with its span stack
+        if rb.leak_report():
+            raise AssertionError(f"(t) leaks: {rb.leak_report()}")
+        config.set_flag("REFCOUNT_DEBUG", "on")
+        with metrics.span("t.keep"):
+            kept = rb.table_upload_wire(*small, device=DEVICE)
+        leaks = rb.leak_report()
+        rb.table_free(kept)
+        if ([(r["table_id"], r["allocated_under"]) for r in leaks]
+                != [(kept, ["t.keep"])] or rb.leak_report()):
+            raise AssertionError(f"(t) kept table's report: {leaks}")
+        config.clear_flag("REFCOUNT_DEBUG")
+        # the child's dumps at its exit
+        _, child_err = child.communicate(timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"(t) dump child exited {child.returncode}: "
+                                 f"{child_err[-2000:]}")
+        dumps = {}
+        for k, path in paths.items():
+            with open(path) as f:
+                dumps[k] = json.load(f)
+        sections = dumps["flight"].get("sections", {})
+        sess_docs = profiler.extract_sessions(dumps["profile"])
+        if (len(sections.get("resident_leaks") or []) != 1
+                or not (sections.get("lockcheck") or {}).get("acquisitions")
+                or len(sections.get("profile_sessions") or []) != 1
+                or len(sess_docs) != 1
+                or dumps["metrics"]["counters"].get("plan.calls") != 1):
+            raise AssertionError(f"(t) child dumps: sections "
+                                 f"{sorted(sections)}, sessions "
+                                 f"{len(sess_docs)}, metrics counters "
+                                 f"{dumps['metrics'].get('counters')}")
+        log(f"(t) dump child: done {time.perf_counter() - t_child:.1f} s "
+            f"after its start; flight dump "
+            f"sections {sorted(sections)}, leak "
+            f"{sections['resident_leaks'][0]['allocated_under']}, profile "
+            f"session {sess_docs[0]['label']}, metrics plan.calls 1; "
+            f"stderr tail: {child_err.strip().splitlines()[-1:]}")
+        # (h)'s wall and device time, off against on, alternating
+        walls = {"off": [], "on": []}
+        device = {"off": [], "on": []}
+        for _ in range(TELEMETRY_PAIRS):
+            for mode in ("off", "on"):
+                _telemetry(mode == "on", stats_dir)
+                t0 = time.perf_counter()
+                call()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+                device[mode].append(device_window_ms(call, runs=1))
+        med = {m: (statistics.median(walls[m]), statistics.median(device[m]))
+               for m in walls}
+        smi = nvidia_smi_line()
+        log(f"(t) (h) wall / device ms, median of {TELEMETRY_PAIRS} "
+            f"alternating pairs: off {med['off'][0]:.2f} / "
+            f"{med['off'][1]:.3f}, on {med['on'][0]:.2f} / "
+            f"{med['on'][1]:.3f} (walls off "
+            f"{[round(x, 2) for x in walls['off']]}, on "
+            f"{[round(x, 2) for x in walls['on']]}); {smi}")
+        res.update(wall_ms=walls, device_ms=device,
+                   median={m: {"wall_ms": v[0], "device_ms": v[1]}
+                           for m, v in med.items()}, card=smi)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        plan_mod._run_fused = real
+        _telemetry(False, stats_dir)
+        for flag in ("METRICS", "PIPELINE", "LOCKCHECK", "FLIGHT",
+                     "REFCOUNT_DEBUG"):
+            config.clear_flag(flag)
+        for mod in (flight, profiler, planstats, lockcheck):
+            mod.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the script's own child processes ((k5)'s CPU reference, (t)'s dumps)
+    ap.add_argument("--k5-cpu-reference", nargs=2, metavar=("IN", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry-dump-child", metavar="IN",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.k5_cpu_reference:
+        return k5_cpu_reference(*args.k5_cpu_reference)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.telemetry_dump_child:
+        return telemetry_dump_child(args.telemetry_dump_child)
+    return run_all(args)
+
+
+def run_all(args) -> int:
+    """Every phase, then the kernel records and the result lines."""
     from spark_rapids_jni_tpu_torch import kernels
     from spark_rapids_jni_tpu_torch import runtime_bridge as rb
     from spark_rapids_jni_tpu_torch.kernels import (
@@ -6222,6 +6701,7 @@ def main(argv=None) -> int:
         "fusion": lambda: phase_fusion(rb, d, dd),
         "io": lambda: phase_io(kernels, d),
         "mesh": lambda: phase_mesh(kernels, d, dd),
+        "telemetry": lambda: phase_telemetry(rb, kernels, d, mctx),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -6318,7 +6798,8 @@ def main(argv=None) -> int:
         "faults": res["faults"], "registry": res["registry"],
         "oplib": res["oplib"], "buckets": res["buckets"],
         "formulations": res["formulations"], "fusion": res["fusion"],
-        "io": res["io"], "mesh": res["mesh"], **hard}))
+        "io": res["io"], "mesh": res["mesh"],
+        "telemetry": res["telemetry"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

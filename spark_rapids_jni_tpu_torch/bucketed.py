@@ -36,7 +36,7 @@ import torch
 
 from . import dtype as dt
 from .column import Column, Table
-from .utils import buckets, log, metrics
+from .utils import buckets, log, metrics, profiler
 
 
 class _Decline(Exception):
@@ -69,6 +69,7 @@ def dispatch_bucketed(op: dict, table: Table, rest: Sequence[Table],
             return None
         except Exception as e:  # the exact path raises the op's own error
             metrics.counter_add("bucket.fallback_errors")
+            profiler.note_fallback("bucketed")
             _warn_once(name, "bucketed_runner_failed", e)
             return None
     metrics.counter_add("bucket.dispatched")

@@ -172,13 +172,30 @@ def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
     (the default) returns the exact-shape result; ``unpad=False`` keeps
     the padded one for another plan. ``donate_input=True`` declares
     ``table`` consumed (its storage may be released after the first
-    op)."""
+    op). Under ``PROFILE`` a profile session (``plan_python``) scopes
+    the run, keyed by the table's schema and seeded with
+    ``plancheck.analyze``'s prediction, as the wire entries do."""
     from . import plan as plan_mod
-    from .utils import buckets
+    from .utils import buckets, profiler
 
-    out = plan_mod.run_plan(list(ops), table, tuple(rest),
-                            donate_input=donate_input)
-    return buckets.unpad_table(out) if unpad else out
+    ops = list(ops)
+    schema = None
+    report = None
+    if profiler.enabled():
+        # stats keying only: plan.run_plan stays the loud validator
+        from . import plancheck
+
+        try:
+            schema = plancheck.schema_of_table(table)
+            report = plancheck.analyze(
+                ops, schema=schema, rows=int(table.logical_row_count))
+        except Exception:  # keying is best-effort; run_plan validates
+            schema = report = None
+    with profiler.maybe_session(ops, label="plan_python", schema=schema,
+                                static=report):
+        out = plan_mod.run_plan(ops, table, tuple(rest),
+                                donate_input=donate_input)
+        return buckets.unpad_table(out) if unpad else out
 
 
 # ---------------------------------------------------------------------------

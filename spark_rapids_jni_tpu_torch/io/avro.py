@@ -20,7 +20,7 @@ import zlib
 from typing import Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from .. import dtype as dt
 from ..column import Table, resolve_device
@@ -170,7 +170,7 @@ def read_avro(
 
     dev = resolve_device(device)
     predicate = preds.from_dnf(filters) if filters is not None else None
-    with record_function("io.avro.parse"), open(path, "rb") as f:
+    with trace_range("io.avro.parse"), open(path, "rb") as f:
         meta, sync, buf = _read_header(f)
         plan = _parse_schema(meta)
         codec = meta.get(b"avro.codec", b"null").decode()
@@ -209,7 +209,7 @@ def read_avro(
     out = Table.from_pydict({k: values[k] for k in read_cols},
                             dtypes=dtypes, pad_widths=pad_widths, device=dev)
     if predicate is not None:
-        with record_function("io.avro.filter"):
+        with trace_range("io.avro.filter"):
             out = _apply_exact_filter(out, predicate, want)
     return out
 

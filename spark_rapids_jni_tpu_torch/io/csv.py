@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from ..column import Table, resolve_device
 from . import predicates as preds
@@ -61,7 +61,7 @@ def read_csv(
         want = read_cols = None
     convert_opts = pa_csv.ConvertOptions(
         column_types=dict(dtypes or {}), include_columns=read_cols)
-    with record_function("io.csv.parse"):
+    with trace_range("io.csv.parse"):
         atbl = pa_csv.read_csv(path, read_options=read_opts,
                                parse_options=parse_opts,
                                convert_options=convert_opts)
@@ -69,10 +69,10 @@ def read_csv(
         want, read_cols = preds.projection_columns(predicate, None,
                                                    atbl.column_names)
         atbl = atbl.select(read_cols)
-    with record_function("io.csv.upload"):
+    with trace_range("io.csv.upload"):
         out = table_from_arrow(atbl, pad_widths=pad_widths, device=dev)
     if predicate is not None:
-        with record_function("io.csv.filter"):
+        with trace_range("io.csv.filter"):
             out = _apply_exact_filter(out, predicate, want)
     return out
 
@@ -83,7 +83,7 @@ def write_csv(table: Table, path, delimiter: str = ",",
     _require()
     from ..interop import table_to_arrow
 
-    with record_function("io.csv.write"):
+    with trace_range("io.csv.write"):
         pa_csv.write_csv(
             table_to_arrow(table), path,
             write_options=pa_csv.WriteOptions(include_header=header,
@@ -141,7 +141,7 @@ def _scan_csv_serial(path, columns, filters, delimiter, header, block_size,
                          parse_options=parse_opts,
                          convert_options=convert_opts) as reader:
         while True:
-            with record_function("io.csv.parse"):
+            with trace_range("io.csv.parse"):
                 try:
                     batch = reader.read_next_batch()
                 except StopIteration:
@@ -150,10 +150,10 @@ def _scan_csv_serial(path, columns, filters, delimiter, header, block_size,
             if want is None:
                 want, read_cols = preds.projection_columns(
                     predicate, None, atbl.column_names)
-            with record_function("io.csv.upload"):
+            with trace_range("io.csv.upload"):
                 out = table_from_arrow(atbl.select(read_cols),
                                        pad_widths=pad_widths, device=dev)
             if predicate is not None:
-                with record_function("io.csv.filter"):
+                with trace_range("io.csv.filter"):
                     out = _apply_exact_filter(out, predicate, want)
             yield out

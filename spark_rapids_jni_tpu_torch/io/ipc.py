@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from ..column import Table, resolve_device
 
@@ -34,12 +34,12 @@ def read_arrow_ipc(
     from ..interop import table_from_arrow
 
     dev = resolve_device(device)
-    with record_function("io.ipc.read"):
+    with trace_range("io.ipc.read"):
         with pa_ipc.open_file(path) as reader:
             atbl = reader.read_all()
     if columns is not None:
         atbl = atbl.select(list(columns))
-    with record_function("io.ipc.upload"):
+    with trace_range("io.ipc.upload"):
         return table_from_arrow(atbl, pad_widths=pad_widths, device=dev)
 
 
@@ -47,7 +47,7 @@ def write_arrow_ipc(table: Table, path) -> None:
     _require()
     from ..interop import table_to_arrow
 
-    with record_function("io.ipc.write"):
+    with trace_range("io.ipc.write"):
         atbl = table_to_arrow(table)
         with pa_ipc.new_file(path, atbl.schema) as writer:
             writer.write_table(atbl)

@@ -11,7 +11,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from ..column import Table, resolve_device
 from . import predicates as preds
@@ -53,15 +53,15 @@ def read_json(
 
     dev = resolve_device(device)
     predicate = preds.from_dnf(filters) if filters is not None else None
-    with record_function("io.json.parse"):
+    with trace_range("io.json.parse"):
         atbl = pa_json.read_json(path, parse_options=_parse_options(dtypes))
     want, read_cols = preds.projection_columns(predicate, columns,
                                                atbl.column_names)
     atbl = atbl.select(read_cols)
-    with record_function("io.json.upload"):
+    with trace_range("io.json.upload"):
         out = table_from_arrow(atbl, pad_widths=pad_widths, device=dev)
     if predicate is not None:
-        with record_function("io.json.filter"):
+        with trace_range("io.json.filter"):
             out = _apply_exact_filter(out, predicate, want)
     return out
 
@@ -76,7 +76,7 @@ def _clean(v):
 
 def write_json(table: Table, path) -> None:
     """Table -> JSON-lines file; non-finite floats become null."""
-    with record_function("io.json.write"):
+    with trace_range("io.json.write"):
         names = (list(table.names) if table.names is not None
                  else [f"c{i}" for i in range(len(table.columns))])
         rows = zip(*(c.to_pylist() for c in table.columns))
@@ -133,7 +133,7 @@ def _scan_json_serial(path, columns, filters, block_rows, dtypes,
     with open(path, "rb") as f:
         eof = False
         while not eof:
-            with record_function("io.json.parse"):
+            with trace_range("io.json.parse"):
                 lines = []
                 for _ in range(block_rows):
                     line = f.readline()
@@ -171,10 +171,10 @@ def _scan_json_serial(path, columns, filters, block_rows, dtypes,
                                 names=list(atbl.column_names) + missing)
             if seen_schema is None:
                 seen_schema = atbl.schema
-            with record_function("io.json.upload"):
+            with trace_range("io.json.upload"):
                 out = table_from_arrow(atbl.select(read_cols),
                                        pad_widths=pad_widths, device=dev)
             if predicate is not None:
-                with record_function("io.json.filter"):
+                with trace_range("io.json.filter"):
                     out = _apply_exact_filter(out, predicate, want)
             yield out

@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Iterator, Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from ..column import Table, resolve_device
 from . import predicates as preds
@@ -61,12 +61,12 @@ def _scan_orc_serial(path, columns, filters, pad_widths, exact_filter,
     want, read_cols = preds.projection_columns(predicate, columns,
                                                f.schema.names)
     for i in range(f.nstripes):
-        with record_function("io.orc.decode"):
+        with trace_range("io.orc.decode"):
             atbl = pa.Table.from_batches([f.read_stripe(i, columns=read_cols)])
-        with record_function("io.orc.upload"):
+        with trace_range("io.orc.upload"):
             out = table_from_arrow(atbl, pad_widths=pad_widths, device=dev)
         if predicate is not None and exact_filter:
-            with record_function("io.orc.filter"):
+            with trace_range("io.orc.filter"):
                 out = _apply_exact_filter(out, predicate, want)
         yield out
 
@@ -89,12 +89,12 @@ def read_orc(
     f = pa_orc.ORCFile(path)
     want, read_cols = preds.projection_columns(predicate, columns,
                                                f.schema.names)
-    with record_function("io.orc.decode"):
+    with trace_range("io.orc.decode"):
         atbl = f.read(columns=read_cols)
-    with record_function("io.orc.upload"):
+    with trace_range("io.orc.upload"):
         out = table_from_arrow(atbl, pad_widths=pad_widths, device=dev)
     if predicate is not None and exact_filter:
-        with record_function("io.orc.filter"):
+        with trace_range("io.orc.filter"):
             out = _apply_exact_filter(out, predicate, want)
     return out
 
@@ -104,6 +104,6 @@ def write_orc(table: Table, path, compression: str = "zstd") -> None:
     _require()
     from ..interop import table_to_arrow
 
-    with record_function("io.orc.write"):
+    with trace_range("io.orc.write"):
         pa_orc.write_table(table_to_arrow(table), path,
                            compression=compression)

@@ -14,8 +14,8 @@ Three things are pushed down before any byte reaches the device:
 ``scan_parquet`` streams row-group batches; ``read_parquet`` is the
 eager single-table form. ``device_decode=True`` decodes fixed-width
 PLAIN/dictionary pages on the device (``io/parquet_device.py``). The
-stages run under ``torch.profiler.record_function`` with the JAX
-package's trace names (``io.parquet.decode``, ``io.parquet.upload``,
+stages run under ``tracing.trace_range`` (under ``TRACE``) with the
+JAX package's trace names (``io.parquet.decode``, ``io.parquet.upload``,
 ``io.parquet.device_decode``, ``io.parquet.filter``,
 ``io.parquet.write``).
 """
@@ -27,7 +27,7 @@ import os
 from typing import Iterator, Optional, Sequence, Union
 
 import torch
-from torch.profiler import record_function
+from ..utils.tracing import trace_range
 
 from ..column import Table, resolve_device, table_tensors
 from . import predicates as preds
@@ -286,17 +286,17 @@ def _scan_parquet_serial(path, columns, filters, pad_widths,
         for i in range(0, len(surviving), step):
             batch = surviving[i:i + step]
             if device_decode and isinstance(p, str):
-                with record_function("io.parquet.device_decode"):
+                with trace_range("io.parquet.device_decode"):
                     out = _device_decode_batch(p, pf, batch, read_cols,
                                                pad_widths, dev)
             else:
-                with record_function("io.parquet.decode"):
+                with trace_range("io.parquet.decode"):
                     atbl = pf.read_row_groups(batch, columns=read_cols)
-                with record_function("io.parquet.upload"):
+                with trace_range("io.parquet.upload"):
                     out = table_from_arrow(atbl, pad_widths=pad_widths,
                                            device=dev)
             if predicate is not None and exact_filter:
-                with record_function("io.parquet.filter"):
+                with trace_range("io.parquet.filter"):
                     out = _apply_exact_filter(out, predicate, want)
             yield out
 
@@ -321,14 +321,14 @@ def read_parquet(
         pf = pq.ParquetFile(p)
         _, read_cols = preds.projection_columns(
             predicate, columns, pf.schema_arrow.names)
-        with record_function("io.parquet.decode"):
+        with trace_range("io.parquet.decode"):
             tables.append(pf.read_row_groups(_surviving_row_groups(
                 pf, predicate), columns=read_cols))
     merged = tables[0] if len(tables) == 1 else pa.concat_tables(tables)
-    with record_function("io.parquet.upload"):
+    with trace_range("io.parquet.upload"):
         out = table_from_arrow(merged, pad_widths=pad_widths, device=dev)
     if predicate is not None and exact_filter:
-        with record_function("io.parquet.filter"):
+        with trace_range("io.parquet.filter"):
             want = list(columns) if columns is not None else out.names
             out = _apply_exact_filter(out, predicate, want)
     return out
@@ -340,6 +340,6 @@ def write_parquet(table: Table, path, compression: str = "snappy",
     _require()
     from ..interop import table_to_arrow
 
-    with record_function("io.parquet.write"):
+    with trace_range("io.parquet.write"):
         pq.write_table(table_to_arrow(table), path, compression=compression,
                        row_group_size=row_group_size)

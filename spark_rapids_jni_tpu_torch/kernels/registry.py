@@ -48,7 +48,7 @@ import torch
 
 from .. import dtype as dt
 from ..column import Column, Table
-from ..utils import buckets, config, faults, metrics
+from ..utils import buckets, config, faults, metrics, profiler
 
 #: Registered kernel entries.
 KERNEL_NAMES = frozenset(
@@ -584,25 +584,30 @@ def dispatch_kernel(
     None when the gate is closed, no kernel applies or the runner
     declined: the caller then runs the exact path. A fault that an armed
     ``FAULTS`` plan injects at the ``kernel`` site retries the same
-    runner (``kernel.retries``); a failure of the runner itself raises.
-    Neither is replayed on the exact path."""
+    runner (``kernel.retries``, and a fallback on the profiler's segment,
+    where the JAX package replays the op); a failure of the runner
+    itself raises. Neither is replayed on the exact path. Each runner
+    runs under a ``kernel.<name>`` span."""
     if not _gate_open(table, rest):
         return None
     for spec in _BY_OP.get(name, ()):
         if spec.applicable(op, table, rest) is not None:
             metrics.counter_add("kernel.declines")
             continue
-        try:
-            # the ``kernel`` fault site: an injected fault fires before
-            # the launch, so the retry is the same runner's first launch
-            faults.inject("kernel")
-        except faults.FaultError:
-            metrics.counter_add("kernel.retries")
-        try:
-            out = spec.runner(op, table, rest)
-        except KernelDecline:
-            metrics.counter_add("kernel.declines")
-            continue
+        with metrics.span("kernel." + spec.name):
+            try:
+                # the ``kernel`` fault site: an injected fault fires
+                # before the launch, so the retry is the same runner's
+                # first launch
+                faults.inject("kernel")
+            except faults.FaultError:
+                metrics.counter_add("kernel.retries")
+                profiler.note_fallback("kernel")
+            try:
+                out = spec.runner(op, table, rest)
+            except KernelDecline:
+                metrics.counter_add("kernel.declines")
+                continue
         metrics.counter_add("kernel.launches")
         return out
     return None

@@ -40,7 +40,7 @@ from ..ops.join import (
     membership_mask,
 )
 from ..ops.partition import partition_ids_hash
-from ..utils import faults, log, metrics
+from ..utils import faults, log, metrics, planstats
 from .mesh import (
     SHUFFLE_AXIS, Mesh, Sharded, on_mesh, per_shard, replicate_table,
     shard_table,
@@ -283,6 +283,20 @@ def _groupby_skew_split(
         metrics.gauge_set("shuffle.skew_recv_after", post_max)
         metrics.gauge_set("shuffle.skew_post_ratio_x100",
                           int(post_ratio * 100))
+    planstats.note_skew({
+        "site": "distributed.groupby",
+        "action": "split",
+        "factor": float(skew.factor),
+        "k": int(skew.k),
+        "hot_destinations": [int(d) for d in skew.hot],
+        "max_recv": int(skew.max_recv),
+        "mean_recv": float(skew.mean_recv),
+        "ratio": float(skew.ratio),
+        "post_max_recv": post_max,
+        "post_mean_recv": post_mean,
+        "post_ratio": post_ratio,
+        "devices": num,
+    })
 
     # ---- pass 2: exchange the salted partials, merge on each device
     def pass2():

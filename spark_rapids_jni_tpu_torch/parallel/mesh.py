@@ -25,10 +25,9 @@ import threading
 from typing import Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..column import Column, Table, table_tensors
-from ..utils import config, faults, log, metrics
+from ..utils import config, faults, flight, log, metrics, tracing
 
 SHUFFLE_AXIS = "shuffle"
 
@@ -236,7 +235,7 @@ def all_to_all(blocks: Sequence[Sequence], mesh: Mesh) -> list:
     Column or tensor, the same structure throughout); receiver d gets
     every sender's block d concatenated in sender order, on its
     device."""
-    with record_function("mesh.all_to_all"):
+    with tracing.trace_range("mesh.all_to_all"):
         out = []
         for d, dev in enumerate(mesh.devices):
             out.append(zip_tensors(
@@ -261,7 +260,7 @@ def _nbytes(value) -> int:
 
 def psum(values: Sequence[torch.Tensor], mesh: Mesh) -> list:
     """The sum over the mesh of one tensor a slot, on every slot."""
-    with record_function("mesh.psum"):
+    with tracing.trace_range("mesh.psum"):
         total = values[0].to(mesh.devices[0])
         for v in values[1:]:
             total = total + _move(v, mesh.devices[0])
@@ -270,7 +269,7 @@ def psum(values: Sequence[torch.Tensor], mesh: Mesh) -> list:
 
 def all_gather(values: Sequence[torch.Tensor], mesh: Mesh) -> list:
     """Every slot's tensor concatenated in mesh order, on every slot."""
-    with record_function("mesh.all_gather"):
+    with tracing.trace_range("mesh.all_gather"):
         return [torch.cat([_move(v, dev) for v in values])
                 for dev in mesh.devices]
 
@@ -312,12 +311,16 @@ class MeshHealth:
         if t.is_alive():
             # a wedged collective: the deadline is the verdict
             metrics.counter_add("mesh.probe_timeouts")
+            if flight.enabled():
+                flight.record("I", "mesh.probe_timeout", size)
             log.log("WARN", "faults", "mesh_probe_timeout",
                     devices=size, deadline_s=self.deadline_s)
             return False
         ok = bool(verdict.get("ok"))
         if not ok:
             metrics.counter_add("mesh.probe_failures")
+            if flight.enabled():
+                flight.record("I", "mesh.probe_failure", size)
             err = verdict.get("error")
             log.log("WARN", "faults", "mesh_probe_failure", devices=size,
                     error=(f"{type(err).__name__}: {str(err)[:200]}"

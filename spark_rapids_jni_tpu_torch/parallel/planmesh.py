@@ -44,7 +44,7 @@ import torch
 
 from ..column import Table
 from ..ops.gather import gather_table
-from ..utils import metrics
+from ..utils import config, metrics
 from .mesh import Sharded, map_tensors, on_mesh, per_shard, shard_table
 from .tolerant import MeshRunner, run_collective
 
@@ -161,6 +161,27 @@ def _pids(part: dict, table: Table):
     return range_ids
 
 
+def _observe_skew(recv: np.ndarray, size: int) -> None:
+    """Note a planned receive skew across destinations past
+    ``SKEW_SPLIT_FACTOR`` x the mean to the plan-statistics store (an
+    observation: a pure redistribution has no aggregation that would
+    make salting lossless)."""
+    from ..utils import planstats
+
+    mean = float(recv.mean()) if recv.size else 0.0
+    factor = float(config.get_flag("SKEW_SPLIT_FACTOR"))
+    if mean > 0 and float(recv.max()) > factor * mean:
+        planstats.note_skew({
+            "site": "plan.partition",
+            "action": "observed",
+            "max_recv": int(recv.max()),
+            "mean_recv": mean,
+            "ratio": float(recv.max()) / mean,
+            "factor": factor,
+            "devices": size,
+        })
+
+
 def _counts_pass(pre, pids_of, num: int, mesh, pt, cnt):
     """Scan-side chain + per-(src, dst-device) send counts: the sizing
     pass, a shuffle-site replay boundary."""
@@ -209,7 +230,9 @@ def _partition_stage(pre, part, post, table: Table, n: int, axis: str,
             pt, cnt = _pack_sharded(table, mesh, axis, n)
             counts = _counts_pass(pre, pids_of, num, mesh, pt, cnt)
         cap = total_recv_capacity(counts)
-        pair_cap = _round_capacity(int(counts.max()))
+        counts_h = counts.to(torch.int64).cpu()  # one read of the plan
+        pair_cap = _round_capacity(int(counts_h.max()))
+        _observe_skew(counts_h.sum(0).numpy(), size)
 
         def scan_side(s, t, c):
             t2, n2 = plan_mod._run_segment_traced(pre, t, c)

@@ -38,7 +38,7 @@ import torch
 from ..column import Table
 from ..ops.gather import gather_table
 from ..ops.partition import partition_ids_hash
-from ..utils import config, faults, metrics
+from ..utils import config, faults, flight, metrics, profiler
 from .mesh import (
     SHUFFLE_AXIS, Mesh, Sharded, all_to_all, map_tensors, on_mesh,
     per_shard, shard_table,
@@ -439,6 +439,9 @@ def shuffle_table_compact(
     replay boundary; ``donate_input=True`` makes it at-most-once."""
     metrics.counter_add("shuffle.exchanges")
     metrics.counter_add("shuffle.rows_exchanged", table.row_count)
+    profiler.note_shuffle(table.row_count)
+    if flight.enabled():
+        flight.record("I", "shuffle.exchange", table.row_count)
     validate_on_overflow(on_overflow)
     impl = _ragged_impl(impl, mesh)
     sharded = shard_table(table, mesh, axis)
@@ -474,6 +477,9 @@ def shuffle_table(
     at-most-once."""
     metrics.counter_add("shuffle.exchanges")
     metrics.counter_add("shuffle.rows_exchanged", table.row_count)
+    profiler.note_shuffle(table.row_count)
+    if flight.enabled():
+        flight.record("I", "shuffle.exchange", table.row_count)
     validate_on_overflow(on_overflow)
     num = int(mesh.shape[axis])
     sharded = shard_table(table, mesh, axis)

@@ -16,17 +16,18 @@
   floor the typed ``faults.Degraded`` surfaces: ``plan.run_plan`` then
   runs the single-device exact path.
 
-Each launch runs under ``torch.profiler.record_function`` with the JAX
-package's span name (``run_collective``'s label, ``mesh.stage``).
+Each launch is a trace-tagged span pair on the flight ring
+(``tracing.span_begin``/``span_end``: ``run_collective``'s label,
+``mesh.stage``; a retry or a replay stays in the same trace) and, under
+``TRACE``, a ``tracing.trace_range`` of the same name. Give-ups,
+replays, degradations and the floor are flight instants.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-from torch.profiler import record_function
-
-from ..utils import faults, lockcheck, log, metrics
+from ..utils import faults, flight, lockcheck, log, metrics, tracing
 from .mesh import SHUFFLE_AXIS, MeshHealth, device_pool, make_mesh
 
 
@@ -45,8 +46,17 @@ def run_collective(
     unchanged (``shuffle.giveups`` still counts it). Only transient
     failures retry; out-of-memory, permanent, cancel and deadline
     classes surface unchanged."""
-    with record_function(label):
-        return _run_collective(label, launch, site, donated, max_retries)
+    tok = tracing.span_begin(label)
+    err: Optional[str] = None
+    try:
+        with tracing.trace_range(label):
+            return _run_collective(label, launch, site, donated,
+                                   max_retries)
+    except BaseException as e:
+        err = type(e).__name__
+        raise
+    finally:
+        tracing.span_end(tok, error=err)
 
 
 def _run_collective(label, launch, site, donated, max_retries):
@@ -66,11 +76,16 @@ def _run_collective(label, launch, site, donated, max_retries):
             if donated:
                 # at-most-once: this branch precedes every retry
                 metrics.counter_add("shuffle.giveups")
+                if flight.enabled():
+                    flight.record("I", "shuffle.giveup", f"{label}:donated")
                 raise
             limit = (faults.retry_max() if max_retries is None
                      else int(max_retries))
             if attempt >= limit:
                 metrics.counter_add("shuffle.giveups")
+                if flight.enabled():
+                    flight.record("I", "shuffle.giveup",
+                                  f"{label}:{attempt}")
                 if isinstance(e, faults.FaultError):
                     raise
                 raise cls(
@@ -117,11 +132,21 @@ class MeshRunner:
 
     def run_stage(self, label: str, stage: Callable[[object], object]):
         """Run ``stage(mesh)`` with retry and degradation-replay, the
-        whole ladder inside one ``mesh.stage`` range."""
+        whole ladder (replays and degradations included) inside one
+        trace-tagged ``mesh.stage`` span, so a replay keeps the
+        original request's trace."""
         with self._lock:
             self.stages += 1
-        with record_function("mesh.stage"):
-            return self._run_stage(label, stage)
+        tok = tracing.span_begin("mesh.stage")
+        err: Optional[str] = None
+        try:
+            with tracing.trace_range("mesh.stage"):
+                return self._run_stage(label, stage)
+        except BaseException as e:
+            err = type(e).__name__
+            raise
+        finally:
+            tracing.span_end(tok, error=err)
 
     def _run_stage(self, label: str, stage: Callable[[object], object]):
         while True:
@@ -139,6 +164,8 @@ class MeshRunner:
                 self._degrade(label, mesh, e)
                 with self._lock:
                     self.replays += 1
+                if flight.enabled():
+                    flight.record("I", "mesh.replay", label)
 
     def _degrade(self, label: str, failed_mesh, cause) -> None:
         """Remesh to the surviving device count (or raise Degraded)."""
@@ -161,11 +188,15 @@ class MeshRunner:
                 self.degradations += 1
             metrics.counter_add("mesh.degraded")
             metrics.gauge_set("mesh.devices", n)
+            if flight.enabled():
+                flight.record("I", "mesh.degraded", f"{label}:{n}")
             log.log("WARN", "faults", "mesh_degraded", stage=label,
                     devices=n, was=int(failed_mesh.shape[self.axis]),
                     cause=f"{type(cause).__name__}: {str(cause)[:200]}")
             return
         metrics.counter_add("mesh.exhausted")
+        if flight.enabled():
+            flight.record("I", "mesh.exhausted", label)
         raise faults.Degraded(
             f"mesh stage {label!r}: collective failures persist down "
             f"to the {self.min_devices}-device floor; degrade to the "

@@ -46,7 +46,9 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from .utils import config, faults, lockcheck, log, metrics
+from .utils import (
+    config, faults, flight, lockcheck, log, metrics, profiler, tracing,
+)
 
 DEFAULT_DEPTH = 2
 MAX_DEPTH = 64
@@ -149,7 +151,7 @@ class Pending:
     """
 
     __slots__ = (
-        "label", "_work", "_event", "_value", "_error",
+        "label", "ctx", "_work", "_event", "_value", "_error",
         "_replayed", "_replayable", "_orphaned", "_lock",
     )
 
@@ -158,6 +160,11 @@ class Pending:
         replayable: bool = True,
     ):
         self.label = label
+        # trace context captured at construction (= enqueue time):
+        # contextvars do not flow into the pool threads by themselves,
+        # so the worker re-activates the submitter's context around the
+        # stage, and a replay never mints a new trace
+        self.ctx = tracing.current()
         self._work = work
         self._event = threading.Event()
         self._value = None
@@ -178,7 +185,8 @@ class Pending:
         t0 = time.perf_counter()
         _WORKER_TLS.stall_s = 0.0
         try:
-            with metrics.span("pipeline." + self.label):
+            with tracing.activate(self.ctx), \
+                    metrics.span("pipeline." + self.label):
                 self._value = self._work()
         except BaseException as e:
             self._error = e
@@ -313,13 +321,17 @@ class Pending:
             self._replayed = True
             err = self._error
             metrics.counter_add("pipeline.replays")
+            if flight.enabled():
+                flight.record("I", "pipeline.replay", self.label)
             log.log(
                 "WARN", "pipeline", "worker_failed_replaying_sync",
                 stage=self.label,
                 error=f"{type(err).__name__}: {str(err)[:200]}",
             )
             try:
-                with metrics.span("pipeline.replay." + self.label):
+                # the replay stays in the ORIGINAL request's trace
+                with tracing.activate(self.ctx), \
+                        metrics.span("pipeline.replay." + self.label):
                     self._value = self._work()
                 self._error = None
             except BaseException as e:
@@ -352,14 +364,17 @@ def materialize_inputs(values: Sequence) -> list:
 
 def _log_dropped_failure(label: str, error: BaseException) -> None:
     """A freed (fire-and-forget) pending failed after its handle was
-    gone: a WARN line, the only trace left."""
+    gone: a WARN line and a flight instant, the only trace left."""
     log.log(
         "WARN", "pipeline", "freed_pending_failed", stage=label,
         error=f"{type(error).__name__}: {str(error)[:200]}",
     )
+    if flight.enabled():
+        flight.record("I", "pipeline.freed_failed", label)
 
 
 def _note_stall(seconds: float) -> None:
+    profiler.note_stall(seconds)
     if getattr(_WORKER_TLS, "on", False):
         # a worker blocked on an input: subtracted from that job's
         # overlap_ms so the wait isn't double-counted as overlap

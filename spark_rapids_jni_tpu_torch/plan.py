@@ -21,7 +21,14 @@ fused segment that still fails is replayed op by op
 (``plan.declined``). Counters: ``plan.calls``, ``plan.segments``,
 ``plan.fused_segments``, ``plan.fused_ops``, ``plan.exact_ops``,
 ``plan.fallbacks``, ``plan.declined``, ``plan.chunked_segments``,
-``plan.oom_spill_retries``; spans ``plan`` and ``plan.segment``.
+``plan.oom_spill_retries``; spans ``plan`` and ``plan.segment``; flight
+instants ``plan.oom_chunked``, ``plan.oom_spill_retry``,
+``plan.fallback`` and ``plan.mesh_fallback``. Under a profile session
+(``utils/profiler.py``) every segment is bracketed by
+``profiler.segment_begin``/``segment_end``: its rows in, its rows out
+and output bytes (``int(table.logical_row_count)``, a host int, and the
+buffers' sizes: no device read), and whether it fell back. With no
+session open ``segment_begin`` returns None and nothing is read.
 
 A ``mesh_runner`` (``parallel.MeshRunner``) offers the plan to the mesh
 path first (``parallel/planmesh.py``), which runs the same fused segment
@@ -40,7 +47,7 @@ import torch
 from . import bucketed
 from . import dtype as dt
 from .column import Column, Table, table_tensors
-from .utils import buckets, faults, hbm, log, metrics, spill
+from .utils import buckets, faults, flight, hbm, log, metrics, profiler, spill
 
 # ops whose output over a row range depends only on the rows in that
 # range: an out-of-memory failure may run them in two halves and
@@ -197,6 +204,9 @@ def _run_chunked(seg_ops: Sequence[dict], table: Table,
     halves = [buckets.unpad_table(run(slice_rows(t, lo, hi)))
               for lo, hi in ((0, n // 2), (n // 2, n))]
     metrics.counter_add("plan.chunked_segments")
+    if flight.enabled():
+        flight.record("I", "plan.oom_chunked",
+                      ",".join(str(o.get("op", "?")) for o in seg_ops))
     return concatenate(halves)
 
 
@@ -230,9 +240,12 @@ def _run_fused_tolerant(seg_ops: Sequence[dict], table: Table) -> Table:
             cls = faults.classify(e)
             if cls is faults.ResourceExhausted and not spill_tried:
                 spill_tried = True
-                if spill.request_headroom(2 * hbm.table_bytes(table),
-                                          reason="oom"):
+                freed = spill.request_headroom(2 * hbm.table_bytes(table),
+                                               reason="oom")
+                if freed:
                     metrics.counter_add("plan.oom_spill_retries")
+                    if flight.enabled():
+                        flight.record("I", "plan.oom_spill_retry", freed)
                     continue
             if cls is faults.ResourceExhausted and all(
                     o.get("op") in _ROW_LOCAL for o in seg_ops):
@@ -255,6 +268,8 @@ def _replay(seg_ops: Sequence[dict], table: Table, e: Exception) -> Table:
 
     metrics.counter_add("plan.fallbacks")
     names = ",".join(str(o.get("op", "?")) for o in seg_ops)
+    if flight.enabled():
+        flight.record("I", "plan.fallback", names)
     if names not in _WARNED_SIGS:
         _WARNED_SIGS.add(names)
         log.log("WARN", "plan", "fused_segment_failed", ops=names,
@@ -366,7 +381,9 @@ def _release_consumed(inp: Table, out: Table, keep: set) -> int:
 
 
 def _run_segment(kind: str, seg_ops: list, table: Table, orig_rest: tuple,
-                 queue: list) -> Table:
+                 queue: list) -> Tuple[Table, bool]:
+    """One segment -> (its output, whether a fused run fell back to the
+    per-op replay)."""
     if kind == "fused":
         try:
             out = _run_fused_tolerant(seg_ops, table)
@@ -377,16 +394,16 @@ def _run_segment(kind: str, seg_ops: list, table: Table, orig_rest: tuple,
         except Exception as e:
             if _input_consumed(table):
                 raise
-            return _replay(seg_ops, table, e)
+            return _replay(seg_ops, table, e), True
         else:
             metrics.counter_add("plan.fused_segments")
             metrics.counter_add("plan.fused_ops", len(seg_ops))
-            return out
+            return out, False
     for op in seg_ops:
         table = _run_op_tolerant(op, table,
                                  _take_rest(op, orig_rest, queue))
         metrics.counter_add("plan.exact_ops")
-    return table
+    return table, False
 
 
 def _run_mesh(ops: Sequence[dict], table: Table, rest: Sequence[Table],
@@ -396,23 +413,42 @@ def _run_mesh(ops: Sequence[dict], table: Table, rest: Sequence[Table],
     then: the mesh path never consumes ``table``)."""
     from .parallel import planmesh
 
-    with metrics.span("plan.mesh"):
-        try:
-            out = planmesh.run_plan_mesh(ops, table, mesh_runner, rest)
-        except planmesh.MeshUnsupported:
-            # not a failure: this plan has no mesh path
-            metrics.counter_add("plan.mesh_declined")
-            return None
-        except faults.Degraded as e:
-            # collective failures persisted down to the runner's floor:
-            # the single-device path is the degradation target
-            metrics.counter_add("plan.mesh_fallbacks")
-            faults.note_error_class(e, "plan.mesh")
-            log.log("WARN", "plan", "mesh_degraded_to_exact",
-                    error=f"{type(e).__name__}: {str(e)[:200]}")
-            return None
-    metrics.counter_add("plan.mesh_segments")
-    return out
+    # the mesh path runs the whole plan as ONE sharded stage: one
+    # whole-plan "mesh" segment for the profiler
+    pseg = profiler.segment_begin(0, "mesh", ops,
+                                  rows_in=int(table.logical_row_count))
+    try:
+        with metrics.span("plan.mesh"):
+            try:
+                out = planmesh.run_plan_mesh(ops, table, mesh_runner, rest)
+            except planmesh.MeshUnsupported:
+                # not a failure: this plan has no mesh path
+                metrics.counter_add("plan.mesh_declined")
+                profiler.segment_end(pseg)
+                pseg = None
+                return None
+            except faults.Degraded as e:
+                # collective failures persisted down to the runner's
+                # floor: the single-device path is the degradation target
+                metrics.counter_add("plan.mesh_fallbacks")
+                faults.note_error_class(e, "plan.mesh")
+                if flight.enabled():
+                    flight.record("I", "plan.mesh_fallback", str(e)[:160])
+                log.log("WARN", "plan", "mesh_degraded_to_exact",
+                        error=f"{type(e).__name__}: {str(e)[:200]}")
+                profiler.segment_end(pseg, fallback=True)
+                pseg = None
+                return None
+        metrics.counter_add("plan.mesh_segments")
+        profiler.segment_end(pseg, rows_out=int(out.logical_row_count),
+                             out_bytes=hbm.table_bytes(out))
+        pseg = None
+        return out
+    finally:
+        # an unexpected exception: close the segment so the thread-local
+        # binding never leaks past this plan
+        if pseg is not None:
+            profiler.segment_end(pseg)
 
 
 def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
@@ -457,10 +493,26 @@ def run_plan(ops: Sequence[dict], table: Table, rest: Sequence[Table] = (),
                      else guard.isdisjoint(_storages([table])))
             with metrics.span("plan.segment", index=i, kind=kind,
                               ops=len(seg_ops)):
-                out = _run_segment(kind, seg_ops, table, orig_rest, queue)
-            if owned:
-                donated = _release_consumed(table, out, keep)
-                if donated:
-                    hbm.note_donation(donated)
+                pseg = profiler.segment_begin(
+                    i, kind, seg_ops, rows_in=int(table.logical_row_count))
+                out, fell_back = table, False
+                try:
+                    out, fell_back = _run_segment(kind, seg_ops, table,
+                                                  orig_rest, queue)
+                    if owned:
+                        # the segment's own donation (its profile entry)
+                        donated = _release_consumed(table, out, keep)
+                        if donated:
+                            hbm.note_donation(donated)
+                finally:
+                    if pseg is not None:
+                        try:
+                            ro = int(out.logical_row_count)
+                            ob = int(hbm.table_bytes(out))
+                        except Exception:  # a consumed, failed input
+                            ro, ob = 0, 0
+                        profiler.segment_end(pseg, rows_out=ro,
+                                             out_bytes=ob,
+                                             fallback=fell_back)
             table = out
     return table

@@ -11,20 +11,33 @@ what is certain to raise is refused, and a walk whose schema is unknown
 checks structure only.
 
 The rules are those of every op the JAX package dispatches.
-:func:`predict_segments` gives a plan's fusion segments by op index.
-Fusion tiers, kernel tags and the HBM estimate (with its per-type width
-estimates) are not ported.
+:func:`analyze` also tags each op with its support tier (``fusable``,
+``per-op``, ``exact-only``, ``unsupported``, with a reason: the
+``GpuOverrides`` tag) and with the kernel of the PORT's kernel tier
+(``kernels/registry.py``) that it is statically eligible for, predicts
+the fusion segments (:func:`predict_segments`, the runner's own rule)
+and bounds each segment's device-memory working set
+(``est_hbm_bytes``, the plan's ``est_hbm_peak_bytes``) from the row
+bounds and nominal row widths. :func:`render_report` is the report's
+human form (``tools/explain.py --static``), the JAX package's text.
+
+The kernel tag predicts the port's tier, which differs from the JAX
+one: it needs no bucket and has no VMEM bounds, so a sort or a build
+over 2^16 rows keeps its tag; what it declines statically besides the
+JAX package's reasons is an empty input and a row bound past its int32
+slot and row ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import dtype as dt
 
 __all__ = ["ColType", "PlanCheckError", "schema_from_wire",
-           "schema_of_table", "analyze", "check_plan"]
+           "schema_of_table", "predict_segments", "analyze", "check_plan",
+           "render_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +85,14 @@ class ColType:
             return f"{self.id.name}(scale={self.scale})"
         return self.id.name
 
+    def to_json(self) -> dict:
+        return {
+            "type_id": int(self.id),
+            "scale": int(self.scale),
+            "child": int(self.child) if self.child is not None else None,
+            "pretty": self.pretty(),
+        }
+
 
 def schema_from_wire(type_ids: Sequence[int],
                      scales: Sequence[int]) -> List[ColType]:
@@ -114,6 +135,31 @@ class _Reject(Exception):
     def __init__(self, reason: str):
         self.reason = reason
         super().__init__(reason)
+
+
+# nominal per-row byte widths of the variable-width layouts, for the
+# footprint ESTIMATE only (never a support decision): a string is a
+# padded byte matrix plus a length, a list a child run plus a length
+_STRING_EST_BYTES = 20
+_LIST_EST_ELEMS = 8
+
+
+def _col_width(col: ColType) -> int:
+    w = dt._WIDTHS.get(col.id)
+    if w is not None:
+        return w
+    if col.is_string:
+        return _STRING_EST_BYTES
+    if col.is_list:
+        cw = dt._WIDTHS.get(col.child, 8) if col.child is not None else 8
+        return cw * _LIST_EST_ELEMS + 4
+    return 8
+
+
+def _row_width(schema: Optional[List[ColType]]) -> Optional[int]:
+    if schema is None:
+        return None
+    return sum(_col_width(c) for c in schema)
 
 
 def _col_index(op: dict, key: str, schema, *, what: str) -> int:
@@ -574,51 +620,355 @@ _RULES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# support tiers (the GpuOverrides tag)
+# ---------------------------------------------------------------------------
+
+#: ops the per-op bucketed runners cover (``bucketed._RUNNERS``)
+_BUCKETED_OPS = frozenset(
+    {"cast", "filter", "sort_by", "groupby", "distinct", "rlike", "join"})
+_BUCKETED_JOIN_HOWS = frozenset({"inner", "left", "semi", "anti"})
+
+_EXACT_REASONS = {
+    "concat": "multi-table op: exact path only",
+    "join": "multi-table op: exact path only",
+    "cross_join": "multi-table op with n*m row expansion: exact only",
+    "explode": "data-dependent output rows: exact path only",
+    "repeat": "row-multiplying op: exact path only",
+    "sample": "data-dependent gather: exact path only",
+    "partition": "exchange boundary: exact path reorders in place; "
+                 "the mesh path (planmesh) runs a counts-sized "
+                 "all-to-all here and fuses the chains either side",
+    "to_rows": "row-format transpose: exact path only",
+    "from_rows": "row-format transpose: exact path only",
+}
+
+
+def _tier(op: dict) -> Tuple[str, str]:
+    """(tier, reason) of a well-formed op."""
+    from .plan import op_fusable
+
+    name = op.get("op")
+    if op_fusable(op):
+        if name == "groupby":
+            return ("fusable",
+                    "rides a fused segment tail-only: the groupby closes "
+                    "its run (plan.segment_plan)")
+        if name == "slice":
+            return ("fusable",
+                    "non-negative static bounds ride inside a fused segment")
+        return "fusable", "single-table row-local op: rides fused segments"
+    if name in _BUCKETED_OPS:
+        if name == "join":
+            how = op.get("how", "inner")
+            if how in _BUCKETED_JOIN_HOWS:
+                return ("per-op",
+                        f"join how={how!r} has a bucketed per-op runner")
+            return ("exact-only",
+                    f"join how={how!r} needs the exact path (outer-side "
+                    "row expansion defeats bucket padding)")
+        if name == "groupby":
+            return ("exact-only",
+                    "collect_list/collect_set needs a data-dependent list "
+                    "capacity pre-pass only the exact path owns")
+    if name == "slice":
+        return ("exact-only",
+                "non-static slice bounds fall back to the exact path")
+    if name in _RULES:
+        return "exact-only", _EXACT_REASONS.get(
+            name, "no fused or bucketed runner: exact path only")
+    return "unsupported", f"unknown table op {name!r}"
+
+
+# ---------------------------------------------------------------------------
+# kernel tier (kernels/registry.py): static eligibility tags
+#
+# The static halves of the port's registry predicates; the keys of
+# _KERNEL_RULES equal kernels.registry.KERNEL_NAMES. The tag is additive
+# to the support tier: a tagged op may still decline on facts the plan
+# does not carry (a nullable key, the gate, duplicate build keys).
+# ---------------------------------------------------------------------------
+
+_KERNEL_JOIN_HOWS = frozenset({"inner", "semi", "anti"})
+_KERNEL_AGG_OPS = frozenset({"sum", "count", "min", "max"})
+# the registry's int32 row and slot bounds (kernels/registry.py)
+_JOIN_BUILD_MAX_ROWS = 1 << 29
+_JOIN_PROBE_MAX_ROWS = 1 << 30
+_GROUPBY_MAX_ROWS = 1 << 30
+_SORT_MAX_ROWS = 1 << 30
+
+
+def _kernel_key_reason(ct: Optional[ColType]) -> Optional[str]:
+    """Why this column can never be a one-word kernel key (None: maybe;
+    a nullable key is a runtime fact)."""
+    if ct is None:
+        return None
+    if ct.is_string:
+        return "string key (multi-word order key)"
+    if ct.id == dt.TypeId.DECIMAL128:
+        return "DECIMAL128 key (two-word order key)"
+    if ct.id in (dt.TypeId.LIST, dt.TypeId.STRUCT):
+        return f"{ct.id.name} key"
+    return None
+
+
+def _kernel_col(ref, schema, names) -> Tuple[Optional[ColType], bool]:
+    """(coltype, resolvable) of a key ref, without raising; an unknown
+    schema answers (None, True)."""
+    try:
+        idx = _key_ref(ref, schema, names, what="kernel key")
+    except _Reject:
+        return None, False
+    if idx is None or schema is None:
+        return None, True
+    return schema[idx], True
+
+
+def _peek_rest(op: dict, st) -> Optional[List[Tuple]]:
+    """The (schema, rows) pairs ``take_rest`` WOULD hand this op, without
+    consuming them."""
+    idxs = op.get("rest")
+    if idxs is not None:
+        try:
+            return [st.orig_rest[int(i)] for i in idxs]
+        except (IndexError, TypeError, ValueError):
+            return None
+    return [st.queue[0]] if st.queue else []
+
+
+def _rows_reason(rows, bound: int, what: str) -> Optional[str]:
+    if rows is None:
+        return None
+    if int(rows) == 0:
+        return f"empty {what}"
+    if int(rows) > bound:
+        return f"{what} {int(rows)} rows over the int32 bound"
+    return None
+
+
+def _k_packed_sort(op: dict, st) -> Optional[str]:
+    ks = op.get("keys")
+    if not isinstance(ks, list) or len(ks) != 1 \
+            or not isinstance(ks[0], dict):
+        return "multi-key sort (one packed word per network)"
+    ct, ok = _kernel_col(ks[0].get("column"), st.schema, st.names)
+    if not ok:
+        return "unresolvable sort key column"
+    return _kernel_key_reason(ct) or _rows_reason(
+        st.rows, _SORT_MAX_ROWS, "input")
+
+
+def _k_hash_join(op: dict, st) -> Optional[str]:
+    how = op.get("how", "inner")
+    if how not in _KERNEL_JOIN_HOWS:
+        return f"join how={how!r} (left/outer build on exact machinery)"
+    on = op.get("on")
+    if not isinstance(on, list) or len(on) != 1:
+        return "multi-column join key"
+    rest = _peek_rest(op, st)
+    if not rest:
+        return "missing build-side table"
+    lct, lok = _kernel_col(on[0], st.schema, st.names)
+    rct, rok = _kernel_col(on[0], rest[0][0], None)
+    if not (lok and rok):
+        return "unresolvable join key column"
+    for side, ct in (("probe", lct), ("build", rct)):
+        r = _kernel_key_reason(ct)
+        if r is not None:
+            return f"{side} side: {r}"
+    return (_rows_reason(st.rows, _JOIN_PROBE_MAX_ROWS, "probe side")
+            or _rows_reason(rest[0][1], _JOIN_BUILD_MAX_ROWS, "build side"))
+
+
+def _k_hash_groupby(op: dict, st) -> Optional[str]:
+    by = op.get("by")
+    if not isinstance(by, list) or len(by) != 1:
+        return "multi-column group key"
+    aggs = op.get("aggs")
+    if not isinstance(aggs, list) or not aggs:
+        return "no aggregations"
+    for a in aggs:
+        if not isinstance(a, dict):
+            return "malformed aggregation spec"
+        if a.get("agg") not in _KERNEL_AGG_OPS:
+            return f"non-decomposable agg {a.get('agg')!r}"
+    ct, ok = _kernel_col(by[0], st.schema, st.names)
+    if not ok:
+        return "unresolvable group key column"
+    r = _kernel_key_reason(ct)
+    if r is not None:
+        return r
+    for a in aggs:
+        vct, vok = _kernel_col(a.get("column"), st.schema, st.names)
+        if not vok:
+            return "unresolvable aggregation column"
+        if vct is not None and (vct.is_string or vct.is_decimal
+                                or vct.is_floating or vct.is_list):
+            return (f"{vct.id.name} aggregation value (order-sensitive or "
+                    "multi-word)")
+    return _rows_reason(st.rows, _GROUPBY_MAX_ROWS, "input")
+
+
+def _k_row_pack(op: dict, st) -> Optional[str]:
+    if st.schema is not None:
+        for ct in st.schema:
+            if not ct.is_fixed_width:
+                return f"{ct.id.name} column has no fixed-width row slot"
+    return None
+
+
+def _k_row_unpack(op: dict, st) -> Optional[str]:
+    if st.schema is not None and st.schema:
+        if not st.schema[0].is_list:
+            return "legacy flat row buffer (host decode path)"
+    for tid in op.get("type_ids") or ():
+        try:
+            if dt.TypeId(int(tid)) not in dt._WIDTHS:
+                return "non-fixed-width target schema"
+        except (TypeError, ValueError):
+            return "non-fixed-width target schema"
+    return None
+
+
+#: kernel name -> (covered op, static eligibility rule); the op coverage
+#: mirrors the registry's ``KernelSpec.ops``
+_KERNEL_RULES = {
+    "packed_sort": ("sort_by", _k_packed_sort),
+    "hash_build_probe": ("join", _k_hash_join),
+    "hash_groupby": ("groupby", _k_hash_groupby),
+    "row_pack": ("to_rows", _k_row_pack),
+    "row_unpack": ("from_rows", _k_row_unpack),
+}
+
+_KERNELS_BY_OP: Dict[str, List[str]] = {}
+for _kname, (_opname, _) in _KERNEL_RULES.items():
+    _KERNELS_BY_OP.setdefault(_opname, []).append(_kname)
+for _v in _KERNELS_BY_OP.values():
+    _v.sort()
+
+
+def _kernel_tag(op: dict, st) -> Optional[str]:
+    """The kernel-tier tag of one op against its INPUT state: the kernel
+    name when the op is statically eligible, else None. Never raises: a
+    malformed spec answers None and the op rule reports the refusal."""
+    for kname in _KERNELS_BY_OP.get(op.get("op"), ()):
+        _, krule = _KERNEL_RULES[kname]
+        try:
+            if krule(op, st) is None:
+                return kname
+        except Exception:  # advisory: a surprise degrades to untagged
+            return None
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the analyzer
+# ---------------------------------------------------------------------------
+
+
 def analyze(ops, schema: Optional[Sequence[ColType]] = None,
             rows: Optional[int] = None,
             rest: Sequence[Tuple[Optional[Sequence[ColType]],
                                  Optional[int]]] = (),
             names: Optional[Sequence[str]] = None) -> dict:
-    """Walk a plan and return its report: per op the inferred output
-    schema and row bound, or the reason it cannot run (``ok`` False from
-    the first refusal on; the walk stops there)."""
-    report: dict = {"ok": True, "rows_in": rows, "ops": []}
+    """Walk a plan and return its tagged report (never raises for plan
+    content: a malformed op becomes an ``unsupported`` entry with ``ok``
+    False, and the walk goes on with its schema unknown). Per op: the
+    support tier and reason, the kernel tag, the inferred output schema
+    (a list of :class:`ColType`) and row bound; then the predicted
+    segments with their ``est_hbm_bytes`` and the plan's
+    ``est_hbm_peak_bytes``. ``schema=None`` degrades to structural
+    validation; ``rest`` carries the extra input tables as ``(schema,
+    rows)`` pairs, taken as ``plan._take_rest`` takes them."""
+    report: dict = {"ok": True, "rows_in": rows, "ops": [],
+                    "kernel_ops": [], "segments": [],
+                    "est_hbm_peak_bytes": None}
     if not isinstance(ops, list):
         report["ok"] = False
         report["ops"].append({
-            "index": 0, "op": None, "out_schema": None, "rows_bound": None,
+            "index": 0, "op": None, "tier": "unsupported",
             "reason": "plan must be a JSON list of op objects, got "
-                      + type(ops).__name__})
+                      + type(ops).__name__,
+            "out_schema": None, "rows_bound": None})
         return report
     st = _State(list(schema) if schema is not None else None, names, rows,
                 rest)
+    op_rows: List[Optional[int]] = []
+    op_widths: List[Tuple[Optional[int], Optional[int]]] = []
     for i, op in enumerate(ops):
-        entry = {"index": i, "op": None, "reason": None, "out_schema": None,
-                 "rows_bound": None}
+        entry = {"index": i, "op": None, "tier": None, "reason": None,
+                 "kernel": None, "out_schema": None, "rows_bound": None}
         report["ops"].append(entry)
         if not isinstance(op, dict) or "op" not in op:
+            entry["tier"] = "unsupported"
             entry["reason"] = f"plan entries must be op objects, got {op!r}"
             report["ok"] = False
-            break
+            op_rows.append(None)
+            op_widths.append((None, None))
+            st.schema, st.names, st.rows = None, None, None
+            continue
         name = entry["op"] = op.get("op")
+        entry["tier"], entry["reason"] = _tier(op)
+        # against the INPUT state, before the rule advances past this op
+        entry["kernel"] = _kernel_tag(op, st)
         rule = _RULES.get(name)
         if rule is None:
-            entry["reason"] = f"unknown table op {name!r}"
             report["ok"] = False
-            break
+            op_rows.append(None)
+            op_widths.append((None, None))
+            st.schema, st.names, st.rows = None, None, None
+            continue
+        width_in = _row_width(st.schema)
         try:
             out_schema, out_names, out_rows = rule(op, st)
         except _Reject as e:
+            entry["tier"] = "unsupported"
             entry["reason"] = e.reason
+            entry["kernel"] = None
             report["ok"] = False
-            break
+            op_rows.append(None)
+            op_widths.append((width_in, None))
+            st.schema, st.names, st.rows = None, None, None
+            continue
         entry["out_schema"] = out_schema
         entry["rows_bound"] = out_rows
+        op_rows.append(out_rows)
+        op_widths.append((width_in, _row_width(out_schema)))
         st.schema, st.names, st.rows = out_schema, out_names, out_rows
-    last = report["ops"][-1] if report["ops"] else None
-    report["out_schema"] = (last["out_schema"] if last is not None
-                            else (list(schema) if schema is not None else None))
-    report["rows_out_bound"] = last["rows_bound"] if last is not None else rows
+    report["kernel_ops"] = [e["index"] for e in report["ops"]
+                            if e.get("kernel")]
+    report["out_schema"] = (report["ops"][-1]["out_schema"] if report["ops"]
+                            else (list(schema) if schema is not None
+                                  else None))
+    report["rows_out_bound"] = op_rows[-1] if op_rows else rows
+    # per-op working set ~ rows_in*width_in + rows_out*width_out; a
+    # segment's bound is the max over its ops, the plan's peak the max
+    # over segments; None propagates (an unknown schema or row bound)
+    peak: Optional[int] = None
+    rows_before = [rows] + op_rows[:-1] if ops else []
+    for kind, idxs in predict_segments(ops):
+        seg_bytes: Optional[int] = 0
+        seg_rows: Optional[int] = None
+        for i in idxs:
+            win, wout = op_widths[i]
+            rin, rout = rows_before[i], op_rows[i]
+            seg_rows = rout
+            if None in (win, rin):
+                op_bytes = None
+            else:
+                op_bytes = rin * win
+                if wout is not None and rout is not None:
+                    op_bytes += rout * wout
+            if op_bytes is None:
+                seg_bytes = None
+            elif seg_bytes is not None:
+                seg_bytes = max(seg_bytes, op_bytes)
+        report["segments"].append({"kind": kind, "ops": list(idxs),
+                                   "rows_bound": seg_rows,
+                                   "est_hbm_bytes": seg_bytes})
+        if seg_bytes is not None:
+            peak = seg_bytes if peak is None else max(peak, seg_bytes)
+    report["est_hbm_peak_bytes"] = peak
     return report
 
 
@@ -631,8 +981,11 @@ def check_plan(ops, schema: Optional[Sequence[ColType]] = None,
     that cannot run; returns the report of a clean plan."""
     report = analyze(ops, schema=schema, rows=rows, rest=rest, names=names)
     if not report["ok"]:
-        bad = report["ops"][-1]
-        raise PlanCheckError(bad["index"], bad["op"], bad["reason"], report)
+        for entry in report["ops"]:
+            if entry["tier"] == "unsupported":
+                raise PlanCheckError(entry["index"], entry["op"],
+                                     entry["reason"], report)
+        raise PlanCheckError(0, None, "plan failed static analysis", report)
     return report
 
 
@@ -642,3 +995,52 @@ def predict_segments(ops: Sequence[dict]) -> List[Tuple[str, List[int]]]:
     from .plan import segment_indices
 
     return segment_indices(ops)
+
+
+# ---------------------------------------------------------------------------
+# rendering (tools/explain.py --static)
+# ---------------------------------------------------------------------------
+
+_TIER_GLYPH = {"fusable": "*", "per-op": "+", "exact-only": "=",
+               "unsupported": "!"}
+
+
+def _pretty(c) -> str:
+    return c["pretty"] if isinstance(c, dict) else c.pretty()
+
+
+def render_report(report: dict) -> str:
+    """Human-readable tagged plan, GpuOverrides-style: one line per op
+    with its tier glyph, inferred output schema and reason, then the
+    predicted segments and the static footprint bound (the JAX
+    package's text for the same report)."""
+    lines: List[str] = []
+    lines.append(f"plancheck: {'clean' if report.get('ok', False) else 'REJECTED'}")
+    rows_in = report.get("rows_in")
+    if rows_in is not None:
+        lines.append(f"rows in: {rows_in}")
+    for e in report.get("ops", []):
+        glyph = _TIER_GLYPH.get(e.get("tier"), "?")
+        schema = e.get("out_schema")
+        sch = "?" if schema is None else (
+            "[" + ", ".join(_pretty(c) for c in schema) + "]")
+        rb = e.get("rows_bound")
+        rows_s = f" rows<={rb}" if rb is not None else ""
+        kern = e.get("kernel")
+        kern_s = f" ~kernel:{kern}" if kern else ""
+        lines.append(f"  {glyph} op[{e['index']}] {e.get('op')!s:<10} "
+                     f"{e.get('tier') or '?':<11} -> {sch}{rows_s}{kern_s}")
+        lines.append(f"      {e.get('reason')}")
+    segs = report.get("segments", [])
+    if segs:
+        parts = []
+        for sg in segs:
+            idxs = ",".join(str(i) for i in sg["ops"])
+            b = sg.get("est_hbm_bytes")
+            b_s = f" ~{b}B" if b is not None else ""
+            parts.append(f"{sg['kind']}[{idxs}]{b_s}")
+        lines.append("segments: " + " | ".join(parts))
+    peak = report.get("est_hbm_peak_bytes")
+    lines.append("est HBM peak: " + (f"{peak} bytes" if peak is not None
+                                     else "unbounded/unknown"))
+    return "\n".join(lines)

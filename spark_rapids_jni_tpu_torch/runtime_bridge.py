@@ -40,6 +40,17 @@ pinned staging buffer, and carries its real count as
 bucketed runner, then to the exact path on unpadded inputs; results
 stay padded on the device, and the wire encode slices the padding away.
 Row counters count logical rows.
+
+The observability tier runs under them as in the JAX package: the plan
+entries open a profile session under ``PROFILE`` (``utils/profiler.py``,
+with the plan check's report as its prediction), the wire decode and
+encode note their serde time and bytes to it and record ``wire.in`` /
+``wire.out`` flight instants, every registry change records a
+``resident.live`` counter sample, and a resident table's allocation site
+(the open span stack, the profile session) is kept under
+``REFCOUNT_DEBUG`` or any telemetry plane, for :func:`leak_report` (the
+``resident_leaks`` flight-dump section, and a WARN at exit).
+
 Where the JAX entries raise on an input Spark can send (a join with a
 0-row side, a ``concat`` of unnamed tables), the port returns Spark's
 result.
@@ -47,9 +58,12 @@ result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import itertools
 import json
+import sys
+import time as _time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -61,7 +75,10 @@ from .column import (
     Column, Table, download, host_storage_view, host_to_storage,
     resolve_device, table_tensors, upload,
 )
-from .utils import buckets, faults, hbm, lockcheck, log, metrics, spill
+from .utils import (
+    buckets, config, faults, flight, hbm, lockcheck, log, metrics, profiler,
+    spill,
+)
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -173,11 +190,19 @@ def _table_from_wire(type_ids, scales, datas, valids, num_rows: int,
 
     def attempt():
         faults.inject("serde")
+        prof = profiler.session_active()
+        nbytes = (sum(len(d) for d in datas if d is not None)
+                  if (prof or flight.enabled()) else 0)
+        if flight.enabled():
+            flight.record("I", "wire.in", nbytes)
+        t0 = _time.perf_counter() if prof else 0.0
         with metrics.span("wire.deserialize"):
             tbl = Table([
                 _column_from_wire(t, s, d, v, num_rows, device, pad_to)
                 for t, s, d, v in zip(type_ids, scales, datas, valids)
             ], logical_rows=None if pad_to is None else num_rows)
+        if prof:
+            profiler.note_serde("in", _time.perf_counter() - t0, nbytes)
         if pad_to is not None:
             buckets.note_padded(tbl)
         return tbl
@@ -198,6 +223,8 @@ def _table_to_wire(t: Table):
 
     def attempt():
         faults.inject("serde")
+        prof = profiler.session_active()
+        t0 = _time.perf_counter() if prof else 0.0
         with metrics.span("wire.serialize"):
             flat = []
             for c in t.columns:
@@ -210,7 +237,14 @@ def _table_to_wire(t: Table):
                 out_s.append(s)
                 out_d.append(d)
                 out_v.append(v)
-            return out_t, out_s, out_d, out_v, int(t.logical_row_count)
+        if prof or flight.enabled():
+            nbytes = sum(len(d) for d in out_d if d is not None)
+            if flight.enabled():
+                flight.record("I", "wire.out", nbytes)
+            if prof:
+                profiler.note_serde("out", _time.perf_counter() - t0,
+                                    nbytes)
+        return out_t, out_s, out_d, out_v, int(t.logical_row_count)
 
     return faults.run_with_retry(attempt, "wire.out")
 
@@ -258,6 +292,9 @@ def _dispatch_once(op: dict, table: Table, rest: Sequence[Table],
     The op's row counters count logical rows."""
     from .kernels import registry as kernel_registry
 
+    # a tracked lock held across a device launch serializes every other
+    # dispatcher behind the card: the lockcheck shim reports it
+    lockcheck.note_blocking("device_dispatch")
     with metrics.span("dispatch." + name):
         out = kernel_registry.dispatch_kernel(op, table, rest, name)
         if out is None and buckets.enabled():
@@ -402,6 +439,10 @@ def _partition(op: dict, table: Table) -> Table:
 # ---------------------------------------------------------------------------
 
 _RESIDENT: dict = {}
+# table id -> allocation provenance (span stack, rows, profile session,
+# age anchor): what the leak report prints for every handle still live.
+# Kept only while REFCOUNT_DEBUG or a telemetry plane is on.
+_RESIDENT_META: dict = {}
 _RESIDENT_LOCK = lockcheck.make_rlock("registry.resident")
 _NEXT_TABLE_ID = itertools.count(1)
 # id -> in-flight pipelined ops reading that id (pruned as they settle):
@@ -411,6 +452,17 @@ _RESIDENT_READERS: dict = {}
 # reclaim frees storage and waits for them; eviction skips the id
 _RESIDENT_ACTIVE_READS: dict = {}
 _RESIDENT_READS_CV = lockcheck.make_condition(_RESIDENT_LOCK)
+
+
+def _provenance_on() -> bool:
+    return (metrics.enabled() or flight.enabled()
+            or bool(config.get_flag("REFCOUNT_DEBUG")))
+
+
+def _note_live(live: int) -> None:
+    metrics.gauge_set("resident.live", live)
+    if flight.enabled():
+        flight.record("C", "resident.live", live)
 
 
 def _unknown_id_error(table_id, live: int) -> KeyError:
@@ -460,15 +512,34 @@ def _resident_get(table_id: int) -> Table:
 
 def _resident_put(t) -> int:
     """Register a Table (or a ``pipeline.Pending`` computing one) and
-    return its id; a pending entry counts as live."""
+    return its id; a pending entry counts as live. Under
+    ``REFCOUNT_DEBUG`` or a telemetry plane its allocation site (the
+    open span stack, the profile session) is kept for the leak
+    report."""
     tid = next(_NEXT_TABLE_ID)
+    is_pending = isinstance(t, pipeline.Pending)
+    meta = None
+    if _provenance_on():
+        meta = {
+            "rows": None if is_pending else int(t.logical_row_count),
+            "columns": None if is_pending else len(t.columns),
+            "allocated_under": list(metrics.span_stack()),
+            "age_anchor_ns": _time.perf_counter_ns(),
+        }
+        if is_pending:
+            meta["pending"] = t.label
+        sid = profiler.current_session_id()
+        if sid is not None:
+            meta["session"] = sid
     with _RESIDENT_LOCK:
         _RESIDENT[tid] = t
+        if meta is not None:
+            _RESIDENT_META[tid] = meta
         live = len(_RESIDENT)
     log.log("DEBUG", "handles", "resident_put", table_id=tid, live=live)
     metrics.counter_add("resident.put")
-    metrics.gauge_set("resident.live", live)
-    if not isinstance(t, pipeline.Pending):
+    _note_live(live)
+    if not is_pending:
         # spill tracking, and the proactive pressure point
         spill.note_put(tid, t)
     return tid
@@ -540,6 +611,7 @@ def _capture_inputs(table_ids: Sequence[int], donate: bool, reader=None,
         barrier = []
         if donate:
             _RESIDENT.pop(ids[0])
+            _RESIDENT_META.pop(ids[0], None)
             spill.note_free(ids[0])
             barrier = [p for p in _RESIDENT_READERS.pop(ids[0], ())
                        if not p.done()]
@@ -560,15 +632,15 @@ def _capture_inputs(table_ids: Sequence[int], donate: bool, reader=None,
         log.log("DEBUG", "handles", "resident_take", table_id=ids[0],
                 live=live)
         metrics.counter_add("resident.free")
-        metrics.gauge_set("resident.live", live)
+        _note_live(live)
     return objs, barrier
 
 
-def _static_check(ops, table_ids: Sequence[int]) -> None:
+def _static_check(ops, table_ids: Sequence[int]) -> tuple:
     """The plan check of a resident entry, before any capture, pin,
-    donation or enqueue. Schemas come from the registry by a peek: an
-    input still computing degrades the walk to its structural rules
-    instead of blocking."""
+    donation or enqueue -> ``(report, head schema)``. Schemas come from
+    the registry by a peek: an input still computing degrades the walk
+    to its structural rules instead of blocking."""
     from . import plancheck
 
     def settled(tid):
@@ -581,11 +653,12 @@ def _static_check(ops, table_ids: Sequence[int]) -> None:
         t = settled(tid)
         rest.append((plancheck.schema_of_table(t), t.logical_row_count)
                     if t is not None else (None, None))
-    plancheck.check_plan(
-        ops,
-        schema=None if head is None else plancheck.schema_of_table(head),
+    schema = None if head is None else plancheck.schema_of_table(head)
+    report = plancheck.check_plan(
+        ops, schema=schema,
         rows=None if head is None else head.logical_row_count,
         rest=rest, names=None if head is None else head.names)
+    return report, schema
 
 
 def _on_device(tables):
@@ -621,12 +694,20 @@ def _resident_entry(ops, table_ids: Sequence[int], donate: bool,
     the pipeline (the id returns at once) when it is on. Donated work is
     at-most-once once its own run starts (its input may be consumed),
     so a worker failure of it surfaces as-is; an input's failure stays
-    replayable (``pipeline.DependencyFailed``)."""
-    _static_check(ops, table_ids)
+    replayable (``pipeline.DependencyFailed``). A plan's profile session
+    (``plan_resident``) opens inside the work, so it scopes the run
+    itself, on a pipeline worker when enqueued."""
+    report, head_schema = _static_check(ops, table_ids)
     cell: dict = {}
 
     def work():
-        return _run_resident(ops, cell["inputs"], donate, cell["barrier"])
+        if label != "plan":
+            return _run_resident(ops, cell["inputs"], donate,
+                                 cell["barrier"])
+        with profiler.maybe_session(ops, label="plan_resident",
+                                    schema=head_schema, static=report):
+            return _run_resident(ops, cell["inputs"], donate,
+                                 cell["barrier"])
 
     if pipeline.enabled():
         pending = pipeline.Pending(work, label, replayable=not donate)
@@ -677,11 +758,13 @@ def table_op_resident(
     return _resident_entry([op], table_ids, donate, "op." + name)
 
 
-def _check_wire_plan(ops, type_ids, scales, num_rows: int) -> None:
+def _check_wire_plan(ops, type_ids, scales, num_rows: int) -> tuple:
+    """The plan check on a wire schema -> ``(report, schema)``."""
     from . import plancheck
 
-    plancheck.check_plan(ops, schema=plancheck.schema_from_wire(
-        type_ids, scales), rows=int(num_rows))
+    schema = plancheck.schema_from_wire(type_ids, scales)
+    return plancheck.check_plan(ops, schema=schema,
+                                rows=int(num_rows)), schema
 
 
 def table_op_wire(
@@ -740,16 +823,23 @@ def table_plan_wire(
     checked on the wire schema before the upload, runs over the uploaded
     table (``plan.run_plan``, which consumes it: nothing else holds a
     wire table) and comes back as the wire 5-tuple. A plan has one input
-    table, so a ``join`` in it is refused."""
+    table, so a ``join`` in it is refused. Under ``PROFILE`` a
+    ``plan_wire`` profile session scopes the decode, the plan and the
+    encode."""
     from . import plan as plan_mod
 
     ops = json.loads(plan_json)
     if not isinstance(ops, list):
         raise TypeError("table_plan_wire: plan must be a JSON list of ops")
-    _check_wire_plan(ops, type_ids, scales, num_rows)
-    tbl = _table_from_wire(type_ids, scales, datas, valids, int(num_rows),
-                           resolve_device(device), _plan_pad_to(ops, num_rows))
-    return _table_to_wire(plan_mod.run_plan(ops, tbl, donate_input=True))
+    report, schema = _check_wire_plan(ops, type_ids, scales, num_rows)
+    pad_to = _plan_pad_to(ops, num_rows)
+    dev = resolve_device(device)
+    with profiler.maybe_session(ops, label="plan_wire", schema=schema,
+                                bucket=pad_to, static=report):
+        tbl = _table_from_wire(type_ids, scales, datas, valids,
+                               int(num_rows), dev, pad_to)
+        return _table_to_wire(plan_mod.run_plan(ops, tbl,
+                                                donate_input=True))
 
 
 def table_stream_wire(plan_json: str, batches: Sequence,
@@ -774,10 +864,14 @@ def table_stream_wire(plan_json: str, batches: Sequence,
         raise TypeError("table_stream_wire: plan must be a JSON list of ops")
     batches = list(batches)
     dev = resolve_device(device)
+    schema = bucket = None
     if not batches:
-        plancheck.check_plan(ops)
-    for b in batches:
-        _check_wire_plan(ops, b[0], b[1], b[4])
+        report = plancheck.check_plan(ops)
+    for i, b in enumerate(batches):
+        got = _check_wire_plan(ops, b[0], b[1], b[4])
+        if i == 0:
+            report, schema = got
+            bucket = _plan_pad_to(ops, int(b[4]))
 
     def decode(batch):
         type_ids, scales, datas, valids, num_rows = batch
@@ -799,8 +893,12 @@ def table_stream_wire(plan_json: str, batches: Sequence,
             pipeline.hand_over(ready, table_tensors(out), dev)
             return _table_to_wire(out)
 
-    with metrics.span("stream"):
-        return pipeline.run_stream(batches, decode, compute, encode)
+    with profiler.maybe_session(ops, label="stream", batches=len(batches),
+                                schema=schema, bucket=bucket,
+                                static=report):
+        with metrics.span("stream", batches=len(batches),
+                          depth=pipeline.depth()):
+            return pipeline.run_stream(batches, decode, compute, encode)
 
 
 def table_download_wire(table_id: int):
@@ -850,6 +948,7 @@ def table_free(table_id: int) -> None:
     KeyError on an unknown or already-freed id."""
     with _RESIDENT_LOCK:
         t = _RESIDENT.pop(int(table_id), None)
+        _RESIDENT_META.pop(int(table_id), None)
         readers = _RESIDENT_READERS.pop(int(table_id), ())
         live = len(_RESIDENT)
     if t is None:
@@ -863,10 +962,12 @@ def table_free(table_id: int) -> None:
             if t.failed_nowait():
                 log.log("WARN", "handles", "freed_failed_pending",
                         table_id=int(table_id), stage=t.label)
+                if flight.enabled():
+                    flight.record("I", "pipeline.freed_failed", t.label)
     log.log("DEBUG", "handles", "table_free", table_id=int(table_id),
             live=live)
     metrics.counter_add("resident.free")
-    metrics.gauge_set("resident.live", live)
+    _note_live(live)
 
 
 def table_reclaim(table_id: int) -> int:
@@ -885,6 +986,7 @@ def table_reclaim(table_id: int) -> int:
     tid = int(table_id)
     with _RESIDENT_LOCK:
         t = _RESIDENT.pop(tid, None)
+        _RESIDENT_META.pop(tid, None)
         readers = _RESIDENT_READERS.pop(tid, ())
         live = len(_RESIDENT)
     if t is None:
@@ -892,7 +994,7 @@ def table_reclaim(table_id: int) -> int:
     for p in readers:
         p.settle_terminally()
     metrics.counter_add("resident.free")
-    metrics.gauge_set("resident.live", live)
+    _note_live(live)
     if isinstance(t, spill.SpilledTable):
         nbytes = spill.note_free(tid, t)
         metrics.bytes_add("resident.reclaimed_bytes", nbytes)
@@ -932,6 +1034,82 @@ def resident_table_count() -> int:
     """Live resident tables (pending and spilled ones included)."""
     with _RESIDENT_LOCK:
         return len(_RESIDENT)
+
+
+def platform(device: Union[str, torch.device] = "cuda") -> str:
+    """The platform an entry point runs on: ``"gpu"`` for a CUDA device
+    (raising without one, as every entry does), ``"cpu"`` when the
+    caller asks for the CPU."""
+    return "gpu" if resolve_device(device).type == "cuda" else "cpu"
+
+
+def leak_report() -> list:
+    """Tables still resident, each with the span stack that allocated it
+    (the RMM leak report's role for device table handles): pending,
+    spilled and resident tables alike. JSON-able; the ``resident_leaks``
+    flight-dump section, and printed at exit when non-empty and a
+    telemetry plane is on. A pending entry is never resolved here."""
+    with _RESIDENT_LOCK:
+        items = [(tid, _RESIDENT[tid], dict(_RESIDENT_META.get(tid) or {}))
+                 for tid in sorted(_RESIDENT)]
+    now = _time.perf_counter_ns()
+    out = []
+    for tid, t, meta in items:
+        pending = isinstance(t, pipeline.Pending)
+        if pending:
+            settled = t.value_nowait()
+            if settled is not None:
+                t, pending = settled, False
+        spilled = isinstance(t, spill.SpilledTable)
+        if spilled:
+            logical = int(t.rows)
+        else:
+            logical = None if pending else int(t.logical_row_count)
+        rec = {
+            "table_id": tid,
+            "rows": logical,
+            "logical_rows": logical,
+            "columns": t.num_columns if spilled
+            else (None if pending else len(t.columns)),
+            "allocated_under": meta.get("allocated_under", []),
+        }
+        if pending:
+            rec["pending"] = t.label
+        if spilled:
+            # a spilled leak holds host memory or a disk file, not device
+            # memory: say which tier
+            rec["residency"] = t.state
+            rec["approx_bytes"] = int(t.nbytes)
+        if meta.get("session"):
+            rec["session"] = meta["session"]
+        anchor = meta.get("age_anchor_ns")
+        if anchor is not None:
+            rec["age_s"] = round((now - anchor) / 1e9, 3)
+        if not pending and not spilled:
+            rec["approx_bytes"] = int(hbm.table_bytes(t))
+        out.append(rec)
+    return out
+
+
+def _leak_report_at_exit() -> None:  # pragma: no cover - atexit path
+    """WARN for every table a process left resident, when a telemetry
+    plane is on."""
+    if not _RESIDENT or not _provenance_on():
+        return
+    leaks = leak_report()
+    print(f"[srt][leak][WARN] {len(leaks)} device table(s) still resident "
+          "at exit:", file=sys.stderr, flush=True)
+    for rec in leaks:
+        under = "/".join(rec["allocated_under"]) or "<no span>"
+        print(f"[srt][leak][WARN]   table_id={rec['table_id']} "
+              f"logical_rows={rec['logical_rows']} cols={rec['columns']} "
+              f"bytes~{rec.get('approx_bytes', '?')} "
+              f"allocated_under={under}", file=sys.stderr, flush=True)
+
+
+atexit.register(_leak_report_at_exit)
+# the flight dump carries the same record, so a postmortem reads one file
+flight.register_exit_section("resident_leaks", leak_report)
 
 
 # the spill tier works under this registry's lock

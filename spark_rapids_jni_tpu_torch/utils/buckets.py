@@ -27,7 +27,10 @@ runners as CUDA graphs, a later step):
 Metrics (with ``METRICS`` on): ``bucket.pad_tables``,
 ``bucket.pad_waste_bytes``, the histograms ``bucket.size`` and
 ``bucket.pad_rows``, ``compile_cache.hit``/``miss`` and the gauge
-``compile_cache.size``.
+``compile_cache.size``. The profiler's segments get the cache hits and
+misses, a miss's first-call time (``profiler.time_first_call``) and the
+pad rows and waste; under ``FLIGHT`` a ``compile_cache.miss`` instant
+and a cumulative ``bucket.pad_waste_bytes`` counter track.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from . import config, lockcheck, log, metrics
+from . import config, flight, lockcheck, log, metrics, profiler, tracing
 
 # default ladder: 1024, 2048, ... 2^23 rows; sizes above it run exact
 DEFAULT_FLOOR = 1024
@@ -192,18 +195,33 @@ def pad_column(col, target: int):
                   _pad_tensor(col.lengths, target))
 
 
+# running pad-waste total for the flight counter track: kept locally so
+# the track survives flight-only mode and metrics resets
+_PAD_WASTE_LOCK = lockcheck.make_lock("buckets.pad_waste")
+_PAD_WASTE_TOTAL = 0
+
+
 def _record_pad_metrics(table, target: int, logical: int) -> None:
     """Pad accounting shared by :func:`pad_table` and the host-side wire
     padding (``runtime_bridge``): per-row bytes from the table's buffers
     over its physical rows, times the pad rows."""
-    if not metrics.enabled():
+    global _PAD_WASTE_TOTAL
+    if not (metrics.enabled() or flight.enabled()
+            or profiler.session_active()):
         return
     from . import hbm
 
     extra = target - logical
     if extra > 0 and table.columns:
         per_row = -(-hbm.table_bytes(table) // max(table.row_count, 1))
-        metrics.bytes_add("bucket.pad_waste_bytes", extra * per_row)
+        waste = extra * per_row
+        metrics.bytes_add("bucket.pad_waste_bytes", waste)
+        profiler.note_pad(extra, waste)
+        if flight.enabled():
+            with _PAD_WASTE_LOCK:
+                _PAD_WASTE_TOTAL += waste
+                total = _PAD_WASTE_TOTAL
+            flight.record("C", "bucket.pad_waste_bytes", total)
     metrics.counter_add("bucket.pad_tables")
     metrics.hist_observe("bucket.size", target)
     metrics.hist_observe("bucket.pad_rows", max(extra, 0))
@@ -292,6 +310,7 @@ def cached_jit(key: tuple, build: Callable[[], Callable], name: str):
             _CACHE.move_to_end(key)
     if fn is not None:
         metrics.counter_add("compile_cache.hit")
+        profiler.note_cache(True)
         return fn
     from . import faults
 
@@ -308,12 +327,22 @@ def cached_jit(key: tuple, build: Callable[[], Callable], name: str):
         size = len(_CACHE)
     if won:
         metrics.counter_add("compile_cache.miss")
+        profiler.note_cache(False)
         metrics.gauge_set("compile_cache.size", size)
+        if flight.enabled():
+            flight.record("I", "compile_cache.miss", name)
         if log.enabled("DEBUG", "buckets"):
             log.log("DEBUG", "buckets", "compile_cache_miss", name=name,
                     size=size)
+        if profiler.session_active() or tracing.context_enabled():
+            # the miss winner's first call: timed whole and attributed
+            # as compile_s to the active segment (a transient wrapper;
+            # the cache keeps the raw callable), under a trace-tagged
+            # `compile.jit` span
+            cur = profiler.time_first_call(cur, name)
     else:
         metrics.counter_add("compile_cache.hit")
+        profiler.note_cache(True)
     return cur
 
 

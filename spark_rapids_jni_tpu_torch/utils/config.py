@@ -9,7 +9,16 @@ taking precedence. Ported flags:
   only for tables whose tensors are on a CUDA device. Any other value
   raises :class:`ValueError`.
 * ``METRICS`` — the counters, timers, gauges and histograms of
-  ``utils/metrics.py``.
+  ``utils/metrics.py``; ``METRICS_DUMP`` — the path its snapshot is
+  written to at exit (a path implies ``METRICS``).
+* The observability tier: ``TRACE`` (``utils/tracing.py``: profiler and
+  NVTX ranges), ``TRACE_SLO_MS``, ``TRACE_TOPK`` (its slow-request log);
+  ``FLIGHT``, ``FLIGHT_DUMP`` (``utils/flight.py``); ``PROFILE``,
+  ``PROFILE_DUMP`` (``utils/profiler.py``); ``PLANSTATS``,
+  ``PLANSTATS_DIR``, ``PLANSTATS_ROTATE_MB``, ``DRIFT_ROWS_FACTOR``,
+  ``DRIFT_HBM_FACTOR`` (``utils/planstats.py``); ``LOCKCHECK``
+  (``utils/lockcheck.py``); ``REFCOUNT_DEBUG`` (the allocation sites of
+  ``runtime_bridge.leak_report``).
 * ``LOG_LEVEL`` / ``ALLOC_LOG_LEVEL`` — ``utils/log.py``.
 * ``PIPELINE`` — the pipelined dispatch plane (``pipeline.py``).
 * ``FAULTS``, ``RETRY_MAX``, ``RETRY_BASE_MS``, ``DEADLINE_DEFAULT_S``,
@@ -140,8 +149,17 @@ class Flag:
 _FLAGS = {
     f.name: f
     for f in [
+        Flag("TRACE", False, _as_bool,
+             "profiler ranges (utils/tracing.py): torch.profiler "
+             "record_function ranges, and NVTX ranges on a CUDA device"),
         Flag("METRICS", False, _as_bool,
              "op-level metrics counters (utils/metrics.py)"),
+        Flag("METRICS_DUMP", "", str,
+             "path to write metrics.snapshot() JSON at process exit; a "
+             "non-empty path implies METRICS"),
+        Flag("REFCOUNT_DEBUG", False, _as_bool,
+             "resident-table leak tracking with the allocating span stack "
+             "(runtime_bridge.leak_report)"),
         Flag("KERNELS", "auto", _parse_kernels,
              "kernel tier (kernels/registry.py): on | off | auto (the "
              "default: only for tables on a CUDA device)"),
@@ -209,6 +227,54 @@ _FLAGS = {
              "master switch of the adaptive skew split on the mesh "
              "shuffle path; off = capacity always from the raw "
              "per-destination counts"),
+        Flag("FLIGHT", "", str,
+             "flight recorder (utils/flight.py): off (default) | on = "
+             "ring of 8192 events | an integer ring capacity"),
+        Flag("FLIGHT_DUMP", "", str,
+             "path to write the flight-recorder tail JSON at process "
+             "exit; a non-empty path implies FLIGHT"),
+        Flag("PROFILE", "", str,
+             "query profiler (utils/profiler.py): on = a profile session "
+             "around every table_plan_wire / table_plan_resident / "
+             "table_stream_wire call, with per-segment compile/execute/"
+             "serde/stall splits; off (default)"),
+        Flag("PROFILE_DUMP", "", str,
+             "path to write finished profile sessions as JSON at process "
+             "exit; a non-empty path implies PROFILE"),
+        Flag("PLANSTATS", False, _as_bool,
+             "plan-statistics store (utils/planstats.py): every profile "
+             "session appends one CRC-framed record keyed by plan "
+             "fingerprint x schema x bucket, with drift findings against "
+             "plancheck's predictions (implies profile sessions and the "
+             "metrics plane)"),
+        Flag("PLANSTATS_DIR", "", str,
+             "directory of the plan-statistics files "
+             "(planstats-<host>-<pid>.wal); '' = <tempdir>/srt-planstats; "
+             "a non-empty path implies PLANSTATS; never swept at exit"),
+        Flag("PLANSTATS_ROTATE_MB", 64.0,
+             _parse_positive_float("PLANSTATS_ROTATE_MB"),
+             "stats-file rotation threshold in MiB (one old generation "
+             "kept as <name>.wal.1)"),
+        Flag("DRIFT_ROWS_FACTOR", 4.0,
+             _parse_positive_float("DRIFT_ROWS_FACTOR"),
+             "cardinality drift threshold against a segment's history "
+             "median of rows_out (either direction)"),
+        Flag("DRIFT_HBM_FACTOR", 2.0,
+             _parse_positive_float("DRIFT_HBM_FACTOR"),
+             "memory drift threshold: observed working-set proxy over "
+             "plancheck's est_hbm_bytes"),
+        Flag("TRACE_SLO_MS", 250.0, _parse_nonneg_float("TRACE_SLO_MS"),
+             "slow-request SLO in ms of the trace plane's tail sampling: "
+             "a request at or over it (or ending in a typed error) keeps "
+             "its span detail; 0 keeps detail for every request"),
+        Flag("TRACE_TOPK", 32, _parse_positive_int("TRACE_TOPK"),
+             "slow-request log depth (top-K finished requests by "
+             "duration)"),
+        Flag("LOCKCHECK", False, _as_bool,
+             "dynamic lock-order detector (utils/lockcheck.py): held "
+             "sets, the acquisition-order graph, cycles, inversions of "
+             "registry->session->scheduler->spill, and locks held across "
+             "a device dispatch or blocking IO; off by default"),
         Flag("MESH_PROBE_S", 5.0, _parse_positive_float("MESH_PROBE_S"),
              "deadline in seconds of one MeshHealth heartbeat "
              "(parallel/mesh.py): a mesh that has not answered by then is "

@@ -42,7 +42,7 @@ import threading
 import time
 from typing import Callable, Optional
 
-from . import config, lockcheck, log, metrics
+from . import config, flight, lockcheck, log, metrics
 
 # ---------------------------------------------------------------------------
 # typed error taxonomy
@@ -255,6 +255,8 @@ class FaultPlan:
             return
         metrics.counter_add("faults.injected")
         metrics.counter_add(f"faults.injected.{site}.{hit.kind}")
+        if flight.enabled():
+            flight.record("I", "fault.injected", f"{site}:{hit.kind}")
         raise _KIND_ERRORS[hit.kind](
             f"injected {hit.kind} fault at site {site!r} "
             f"(call {hit.calls - 1}, injection {hit.injected}"
@@ -411,6 +413,8 @@ def sleep_backoff(attempt: int, label: str, error=None) -> float:
     metrics.hist_observe(
         "retry.backoff_ms", ms, bounds=metrics.SPAN_MS_BOUNDS
     )
+    if flight.enabled():
+        flight.record("I", "retry", f"{label}:{attempt}")
     log.log(
         "WARN", "faults", "transient_retry", site=label,
         attempt=attempt, backoff_ms=round(ms, 2),
@@ -613,6 +617,8 @@ class CircuitBreaker:
 
     def _record(self, event: str) -> None:
         metrics.counter_add(f"breaker.{event}")
+        if flight.enabled():
+            flight.record("I", f"breaker.{event}", self.name)
         log.log("WARN", "faults", f"breaker_{event}",
                 name=self.name, failures=self._failures)
 
@@ -696,9 +702,12 @@ def default_probe(device="cuda") -> None:
 
 def note_error_class(exc: BaseException, where: str) -> None:
     """Meter one classified failure at a dispatch boundary
-    (``faults.class.<Class>`` counters) — the
-    classifier's presence at boundaries that do not retry (pipeline
-    workers, the serving command loop)."""
-    if not metrics.enabled():
+    (``faults.class.<Class>`` counters and a ``fault.classified``
+    flight instant) — the classifier's presence at boundaries that do
+    not retry (pipeline workers, the serving command loop)."""
+    if not (metrics.enabled() or flight.enabled()):
         return
-    metrics.counter_add(f"faults.class.{classify(exc).__name__}")
+    cls = classify(exc).__name__
+    metrics.counter_add(f"faults.class.{cls}")
+    if flight.enabled():
+        flight.record("I", "fault.classified", f"{where}:{cls}")

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from . import config, log, metrics
+from . import config, flight, lockcheck, log, metrics, profiler
 
 GIB = 1 << 30
 
@@ -103,6 +103,11 @@ def _table_device(table) -> Optional[torch.device]:
 # cheap and must not raise.
 _DONATION_LISTENERS: list = []
 
+# cumulative donated bytes for the flight counter track (kept here so
+# the track survives flight-only mode and metrics resets)
+_DONATED_LOCK = lockcheck.make_lock("hbm.donated")
+_DONATED_TOTAL = 0
+
 
 def register_donation_listener(fn) -> None:
     """Register ``fn(nbytes)`` to observe every buffer donation."""
@@ -114,13 +119,21 @@ def note_donation(nbytes: int) -> None:
     """Record one donation: ``nbytes`` of an input the plan consumed, so
     they were released as the op that read them returned instead of
     living beside the plan's output (``hbm.donations``,
-    ``hbm.donated_bytes``)."""
+    ``hbm.donated_bytes``; the profiler's segment and, under
+    ``FLIGHT``, a cumulative ``hbm.donated_bytes`` counter track)."""
+    global _DONATED_TOTAL
+    profiler.note_donation(int(nbytes))
     for fn in tuple(_DONATION_LISTENERS):
         fn(int(nbytes))
-    if not metrics.enabled():
+    if not (metrics.enabled() or flight.enabled()):
         return
     metrics.counter_add("hbm.donations")
     metrics.bytes_add("hbm.donated_bytes", int(nbytes))
+    if flight.enabled():
+        with _DONATED_LOCK:
+            _DONATED_TOTAL += int(nbytes)
+            total = _DONATED_TOTAL
+        flight.record("C", "hbm.donated_bytes", total)
 
 
 # Pressure listeners: the spill tier (utils/spill.py) registers one so a

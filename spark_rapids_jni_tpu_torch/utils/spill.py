@@ -27,7 +27,11 @@
   A repage resolves a pending write first.
 * Counters: ``spill.evictions``, ``spill.demotions``, ``spill.repages``,
   ``spill.errors``; bytes ``spill.bytes_out``/``bytes_in``/
-  ``disk_bytes_out``; tier gauges with high-water marks.
+  ``disk_bytes_out``; tier gauges with high-water marks; flight
+  instants ``spill.out``/``demote``/``in`` and counter tracks; repage
+  stalls go to the profiler's stall channel; a disk read is a blocking
+  point for ``utils/lockcheck.py``; :func:`stats_doc` rides every flight
+  dump.
 
 Flags: ``SPARK_RAPIDS_TPU_SPILL`` (off by default: one cached generation
 compare per registry access), ``SPILL_DIR``, ``HOST_SPILL_BUDGET_GB``.
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 
 from ..column import download_tensors, table_tensors
-from . import config, faults, hbm, lockcheck, log, metrics
+from . import config, faults, flight, hbm, lockcheck, log, metrics, profiler
 
 GIB = 1 << 30
 
@@ -445,6 +449,8 @@ def _evict_one_locked(tid: int, table) -> int:
     _HOST_HW = max(_HOST_HW, _HOST_BYTES)
     metrics.counter_add("spill.evictions")
     metrics.bytes_add("spill.bytes_out", nbytes)
+    if flight.enabled():
+        flight.record("I", "spill.out", nbytes)
     log.log("INFO", "spill", "evict", table_id=tid, bytes=nbytes,
             host_bytes=_HOST_BYTES)
     _queue_event("out", tid, nbytes)
@@ -496,6 +502,8 @@ def _demote_one_locked(entry: SpilledTable) -> None:
     _DISK_HW = max(_DISK_HW, _DISK_BYTES)
     metrics.counter_add("spill.demotions")
     metrics.bytes_add("spill.disk_bytes_out", entry.host_nbytes)
+    if flight.enabled():
+        flight.record("I", "spill.demote", entry.host_nbytes)
     log.log("INFO", "spill", "demote", table_id=entry.tid, path=path)
 
 
@@ -613,6 +621,9 @@ def repage_locked(tid: int):
     dt_s = _time.perf_counter() - t0
     metrics.counter_add("spill.repages")
     metrics.bytes_add("spill.bytes_in", entry.nbytes)
+    profiler.note_stall(dt_s)  # repage stalls show in the 4-way split
+    if flight.enabled():
+        flight.record("I", "spill.in", entry.nbytes)
     log.log("INFO", "spill", "repage", table_id=int(tid),
             bytes=entry.nbytes, tier=entry.state,
             stall_ms=round(dt_s * 1e3, 3))
@@ -702,6 +713,9 @@ def _tier_gauges(host: Optional[int] = None,
     metrics.gauge_set("spill.disk_bytes", disk)
     metrics.gauge_set("spill.host_bytes_hw", _HOST_HW)
     metrics.gauge_set("spill.disk_bytes_hw", _DISK_HW)
+    if flight.enabled():
+        flight.record("C", "spill.host_bytes", host)
+        flight.record("C", "spill.disk_bytes", disk)
 
 
 def stats_doc() -> dict:
@@ -762,6 +776,7 @@ def _sweep_at_exit() -> None:  # pragma: no cover - atexit path
 
 
 atexit.register(_sweep_at_exit)
+flight.register_exit_section("spill", stats_doc)
 
 
 def _on_hbm_pressure(deficit: int) -> None:

@@ -87,7 +87,8 @@ def test_scan_covers_the_package():
             "join_packed.py", "interop.py", "predicates.py", "parquet.py",
             "parquet_device.py", "orc.py", "csv.py", "json.py", "ipc.py",
             "avro.py", "mesh.py", "shuffle.py", "tolerant.py",
-            "distributed.py", "planmesh.py"} <= names
+            "distributed.py", "planmesh.py", "flight.py", "tracing.py",
+            "lockcheck.py", "profiler.py", "planstats.py"} <= names
     parallel_dir = ROOT / "spark_rapids_jni_tpu_torch" / "parallel"
     assert {p for p in PORT_FILES if p.parent == parallel_dir} == {
         parallel_dir / f for f in ("__init__.py", "mesh.py", "shuffle.py",

@@ -11,7 +11,7 @@ checkout sees the same rows), runs the named phases of it with their
 own checks (a phase the checkout does not have is skipped), and
 records each profiled window (``profile_plan``): the cell's tag, its
 device ms a run and its unprofiled median wall. Phases that time
-themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s)) print their
+themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s), (t)) print their
 own lines.
 
 Prints one line a cell and run, then one JSON line
@@ -48,6 +48,7 @@ _PHASES = {
                                                            D["seed"]),
     "io": lambda cs, rb, k, D: cs.phase_io(k, D["d"]),
     "mesh": lambda cs, rb, k, D: cs.phase_mesh(k, D["d"], D["dd"]),
+    "telemetry": lambda cs, rb, k, D: cs.phase_telemetry(rb, k, D["d"], {}),
 }
 
 
