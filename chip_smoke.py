@@ -244,6 +244,35 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     pairs, beside the card's name and power limit.
     Each operator's wall, device time, bytes through the all-to-all and
     host syncs are printed; K5 must have launched.
+(u) the serving daemon (``spark_rapids_jni_tpu_torch.serving``) on the
+    card, with Spark RAPIDS users' defaults: 2 scheduler workers
+    (spark.rapids.sql.concurrentGpuTasks=2), 4 sessions
+    (spark.executor.cores=4). (u1) one session, then four client threads
+    at once, each uploading (a)'s batch and item, running (a)'s plan with
+    donate, downloading and freeing, then streaming two of (m1)'s batches
+    with (h)'s plan at PIPELINE 2: every result equal to the in-process
+    bridge's bytes and (a)'s and (h)'s oracles; K1b, K2a, K2b, K1a; each
+    session's wall and p95 queue wait, the device busy share. (u2) typed
+    refusals (over budget under a small SERVE_SESSION_HBM_FRACTION, BUSY
+    at SERVE_QUEUE_DEPTH 1, a fifth hello past 4 sessions), each followed
+    by a served request; a client killed with a stream in flight leaves
+    the registry at its start count and the allocated memory falls back
+    by its tables' bytes. (u3) DURABLE in a child process
+    (``--serve-child``): the put of a donating [from_rows, filter] is
+    acknowledged, the child is killed with SIGKILL, a second child
+    restores (``restore.warm_compiles`` >= 1, K1b in its warm replay), the
+    client resumes with its token, reads the same bytes and runs the rest
+    of (a)'s plan (K2a, K2b, K1a); the checkpoint write's GB/s and the
+    restore's seconds. (u4) a ``mesh=4`` session streams [filter, cast,
+    partition hash 200] over (a)'s batch as columns: the single-device
+    session's bytes, through the mesh path, K5 launched.
+(v) the native shim — ``libspark_rapids_tpu_torch.so`` built with g++
+    (its seconds printed); ``native_demo_torch`` (HOST mode) and
+    ``jni_harness_torch`` on the card; then through ``utils/native.py``
+    (JOIN mode) (a)'s batch [from_rows, filter, to_rows] op by op and as
+    a resident chain (upload, ops, download, free), each equal to
+    ``table_op_wire`` on the card and to numpy, K1b and K1a launched; the
+    wall through the shim against the in-process calls.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -6617,6 +6646,628 @@ def phase_telemetry(rb, kernels, d: dict, ctx: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# (u) the serving tier and (v) the native shim
+# ---------------------------------------------------------------------------
+
+SERVE_WORKERS = 2  # spark.rapids.sql.concurrentGpuTasks=2
+SERVE_SESSIONS = 4  # spark.executor.cores=4: four tasks, one session each
+SERVE_STREAM_BATCHES = 2  # (m1)'s batches each session streams
+SERVE_SMALL_FRACTION = 0.005  # (u2): a session budget below one (a) batch
+SERVE_SMALL_ROWS = 1 << 16  # (u2): a batch that fits that budget
+SERVE_WAIT_S = 180.0  # the longest (u) waits for a child or a teardown
+UPSTREAM_PLAN = PLAN[:2]  # (u3): the donating plan before the crash
+DOWNSTREAM_PLAN = PLAN[2:]  # (u3): the rest of (a)'s plan after it
+NATIVE_PLAN = [FROM_FACT_ROWS, {"op": "filter", "mask": 4},
+               {"op": "to_rows"}]
+NATIVE_KERNELS = ("unpack_rows", "pack_rows")
+NATIVE_RUNS = 3
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))  # the shim's SRT_PYTHONPATH
+
+
+def fact_columns_wire(d: dict):
+    """(a)'s batch as a columnar wire table: ss_item_sk, ss_customer_sk
+    (nullable), ss_sold_date_sk, ss_quantity (INT32, nullable), keep."""
+    return ([4, 4, 4, 3, 11], [0] * 5,
+            [d["item_sk"].tobytes(), d["customer_sk"].tobytes(),
+             d["date_sk"].tobytes(), d["quantity"].tobytes(),
+             d["keep"].astype(np.uint8).tobytes()],
+            [None, d["customer_ok"].astype(np.uint8).tobytes(), None,
+             d["quantity_ok"].astype(np.uint8).tobytes(), None],
+            d["item_sk"].shape[0])
+
+
+def same_wire(got, want, what: str) -> None:
+    """Two wire 5-tuples must be equal byte for byte."""
+    def norm(w):
+        t, s, ds, vs, n = w
+        return ([int(x) for x in t], [int(x) for x in s],
+                [None if x is None else bytes(x) for x in ds],
+                [None if x is None else bytes(x) for x in vs], int(n))
+
+    if norm(got) != norm(want):
+        raise AssertionError(f"{what}: the 5-tuples differ")
+
+
+def serve_session(serving, port: int, name: str, d: dict, batches) -> dict:
+    """One tenant's work through the daemon: (a)'s batch and item
+    uploaded, (a)'s plan with donate, the result downloaded, the tables
+    freed; then ``batches`` streamed with (h)'s plan."""
+    t0 = time.perf_counter()
+    with serving.Client(port, name=name, timeout=SERVE_WAIT_S) as c:
+        fid = c.upload(d["fact_wire"])
+        iid = c.upload(d["item_wire"])
+        out = c.plan(PLAN, [fid, iid], donate=True)
+        got_a = c.download(out)
+        c.free(out)
+        c.free(iid)
+        got_h = c.stream(WIRE_PLAN, batches)
+        doc = [s for s in c.stats()["sessions"] if s["session"] == c.session]
+    return {"a": got_a, "h": got_h,
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "p95_wait_ms": doc[0]["queue_wait"]["p95_ms"]}
+
+
+def run_sessions(serving, port: int, d: dict, batches, n: int) -> list:
+    """``n`` client threads, one session each, all at once."""
+    import threading
+
+    out, errs = [None] * n, []
+
+    def one(i):
+        try:
+            out[i] = serve_session(serving, port, f"u1-{n}-{i}", d, batches)
+        except BaseException as e:  # raised again on the caller's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def phase_serving(rb, kernels, d: dict, ctx: dict) -> dict:
+    """(u): the serving daemon on the card (the launch counts set to 0
+    just before each part's first request and read just after it)."""
+    from spark_rapids_jni_tpu_torch import serving
+
+    if "batches" not in ctx:  # (m1) failed: make its first batches here
+        ctx["batches"] = [stream_batch(d, k)
+                          for k in range(SERVE_STREAM_BATCHES)]
+        ctx["ref"] = [tuple(rb.table_plan_wire(json.dumps(WIRE_PLAN), *b,
+                                               device=DEVICE))
+                      for b in ctx["batches"]]
+        ctx["want0"] = wire_plan_oracle(d, FACT_ROWS)
+    batches = ctx["batches"][:SERVE_STREAM_BATCHES]
+    ref_h = ctx["ref"][:SERVE_STREAM_BATCHES]
+    for k, r in enumerate(ref_h):
+        check_rows(r, stream_oracle(ctx["want0"], k))
+    start = rb.resident_table_count()
+    # the in-process bridge's answer to (a)'s plan with donate, on the card
+    fid = rb.table_upload_wire(*d["fact_wire"], device=DEVICE)
+    iid = rb.table_upload_wire(*d["item_wire"], device=DEVICE)
+    oid = rb.table_plan_resident(json.dumps(PLAN), [fid, iid], True)
+    ref_a = tuple(rb.table_download_wire(oid))
+    rb.table_free(oid)
+    rb.table_free(iid)
+    out = {"groups": check_query_result(ref_a, query_oracle(d))}
+    out["u1"] = serving_u1(kernels, serving, d, batches, ref_h, ref_a)
+    out["u2"] = serving_u2(rb, serving, d)
+    out["u3"] = serving_u3(rb, serving, d)
+    out["u4"] = serving_u4(rb, kernels, serving, d)
+    if rb.resident_table_count() != start:
+        raise AssertionError(f"(u) left {rb.resident_table_count() - start} "
+                             "resident tables behind")
+    return out
+
+
+def serving_u1(kernels, serving, d: dict, batches, ref_h, ref_a) -> dict:
+    """(u1): one session alone, then four at once, each uploading (a)'s
+    batch and item, running (a)'s plan with donate, downloading and
+    freeing, then streaming two of (m1)'s batches with (h)'s plan, at
+    PIPELINE 2; every result equal to the in-process bridge's bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_jni_tpu_torch.utils import config
+
+    config.set_flag("PIPELINE", "2")
+    try:
+        with serving.serve(device=DEVICE, port=0, workers=SERVE_WORKERS,
+                           max_sessions=SERVE_SESSIONS) as srv:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            one = run_sessions(serving, srv.port, d, batches, 1)
+            # the four at once under a trace of CUDA activity only (no
+            # CPU events recorded), its wall taken as the run's
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                four = run_sessions(serving, srv.port, d, batches,
+                                    SERVE_SESSIONS)
+                torch.cuda.synchronize()
+                wall4 = (time.perf_counter() - t0) * 1e3
+            launches = stream_launches(kernels)
+            device_ms = sum(e.self_device_time_total
+                            for e in device_events(prof)) / 1e3
+            for r in one + four:
+                same_wire(r["a"], ref_a, "(u1) (a)'s plan through the daemon")
+                for k, got in enumerate(r["h"]):
+                    same_wire(got, ref_h[k], f"(u1) stream batch {k}")
+            live = srv.stats()["sessions_live"]
+    finally:
+        clear_service_flags()
+    missing = [k for k in QUERY_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"(u1) never launched {missing}: {launches}")
+    if live:
+        raise AssertionError(f"(u1) {live} sessions still live after bye")
+    rec = {"wall_ms_1": one[0]["wall_ms"],
+           "wall_ms_4": [r["wall_ms"] for r in four], "run_ms_4": wall4,
+           "p95_wait_ms_1": one[0]["p95_wait_ms"],
+           "p95_wait_ms_4": [r["p95_wait_ms"] for r in four],
+           "device_ms_4": device_ms, "busy_share_4": device_ms / wall4,
+           "launches": {k: launches[k] for k in QUERY_KERNELS}}
+    log(f"(u1) daemon on {DEVICE}, {SERVE_WORKERS} workers: every session's "
+        f"(a) result and {SERVE_STREAM_BATCHES} (h) stream results equal the "
+        f"in-process bridge's bytes and the numpy oracles; wall a session "
+        f"{rec['wall_ms_1']:.1f} ms alone, "
+        f"{[round(w, 1) for w in rec['wall_ms_4']]} ms at "
+        f"{SERVE_SESSIONS} at once ({wall4:.1f} ms for the four); p95 queue "
+        f"wait {rec['p95_wait_ms_1']} ms alone, {rec['p95_wait_ms_4']} ms at "
+        f"{SERVE_SESSIONS}; device busy {device_ms:.1f} ms = "
+        f"{100 * rec['busy_share_4']:.1f} % of the four sessions' wall; "
+        f"launches {rec['launches']}")
+    return rec
+
+
+def serving_u2(rb, serving, d: dict) -> dict:
+    """(u2): an over-budget upload, BUSY at queue depth 1 and a fifth
+    hello past four sessions each get their typed error, and the daemon
+    serves after each; a client killed with a stream in flight leaves
+    the registry at its start count and the card's allocated memory
+    falls back by its tables' bytes."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.serving import frames
+
+    small = prefix_wire(d, SERVE_SMALL_ROWS)
+    refused = {}
+    with serving.serve(device=DEVICE, port=0, workers=SERVE_WORKERS,
+                       max_sessions=SERVE_SESSIONS, queue_depth=1,
+                       session_hbm_fraction=SERVE_SMALL_FRACTION) as srv:
+        with serving.Client(srv.port, name="u2", timeout=SERVE_WAIT_S) as c:
+            try:
+                c.upload(d["fact_wire"])
+                raise AssertionError("(u2) an over-budget upload was admitted")
+            except serving.ServingOverBudget as e:
+                refused["over_budget"] = e.type
+            c.free(c.upload(small))
+            sess = srv._sessions[c.session]
+            gate = threading.Event()
+            # every worker blocked and the queue full: the next request
+            held = [srv.scheduler.submit(sess, gate.wait, cost=1, shed=False)
+                    for _ in range(SERVE_WORKERS + 1)]
+            try:
+                c.stream(WIRE_PLAN, [small])
+                raise AssertionError("(u2) a request past the queue depth ran")
+            except serving.ServingBusy as e:
+                refused["busy"] = e.type
+            finally:
+                gate.set()
+                for t in held:
+                    t.result()
+            c.stream(WIRE_PLAN, [small])
+        clients = [serving.Client(srv.port, name=f"u2-{i}").connect()
+                   for i in range(SERVE_SESSIONS)]
+        try:
+            try:
+                serving.Client(srv.port, name="u2-fifth").connect()
+                raise AssertionError("(u2) a fifth session was admitted")
+            except serving.ServingSessionLimit as e:
+                refused["session_limit"] = e.type
+        finally:
+            for c in clients:
+                c.close()
+        with serving.Client(srv.port, name="u2-after") as c:
+            c.stream(WIRE_PLAN, [small])
+        count0 = rb.resident_table_count()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        c = serving.Client(srv.port, name="u2-killed",
+                           timeout=SERVE_WAIT_S).connect()
+        c.upload(d["item_wire"])
+        c.upload(small)
+        table_bytes = c.stats()["sessions"][0]["resident_bytes"]
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        metas, bufs = frames.batches_to_parts([small] * 4)
+        frames.send_frame(c._sock, {"cmd": "stream", "plan": WIRE_PLAN,
+                                    "batches": metas}, bufs)
+        c.kill()  # gone with the stream in flight
+        t0 = time.perf_counter()
+        while (rb.resident_table_count() != count0
+               or srv.stats()["sessions_live"]):
+            if time.perf_counter() - t0 > SERVE_WAIT_S:
+                raise AssertionError("(u2) the killed client's session was "
+                                     "not torn down")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+    if mem1 - mem2 < table_bytes:
+        raise AssertionError(f"(u2) allocated memory fell by {mem1 - mem2} "
+                             f"bytes, the tables held {table_bytes}")
+    if refused != {"over_budget": "over_budget", "busy": "busy",
+                   "session_limit": "session_limit"}:
+        raise AssertionError(f"(u2) refusals {refused}")
+    log(f"(u2) typed refusals {sorted(refused)}, each followed by a served "
+        f"request; a client killed with a stream in flight: registry back "
+        f"to {count0}, allocated memory {mem0} -> {mem1} -> {mem2} bytes "
+        f"(its tables held {table_bytes})")
+    return {"refused": refused, "mem": [mem0, mem1, mem2],
+            "table_bytes": table_bytes}
+
+
+def start_serve_child(tmp: str, env: dict):
+    """A durable daemon in a child process (``--serve-child DIR``) and
+    the JSON it prints once its listener is open."""
+    import select
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-child", tmp],
+        env=env, stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < SERVE_WAIT_S:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("SERVE "):
+                return proc, json.loads(line[len("SERVE "):])
+            if not line and proc.poll() is not None:
+                break
+    proc.kill()
+    proc.wait()
+    raise AssertionError(f"(u3) the serve child did not come up "
+                         f"(exit {proc.returncode})")
+
+
+def child_launches(tmp: str) -> dict:
+    """Ask a serve child for its kernel launch counts (a request file)."""
+    req = os.path.join(tmp, "report")
+    ans = os.path.join(tmp, "launches.json")
+    with open(req, "w"):
+        pass
+    t0 = time.perf_counter()
+    while not os.path.exists(ans):
+        if time.perf_counter() - t0 > SERVE_WAIT_S:
+            raise AssertionError("(u3) the serve child did not report")
+        time.sleep(0.02)
+    with open(ans) as f:
+        got = json.load(f)
+    os.unlink(ans)
+    return got
+
+
+def serve_child(tmp: str) -> int:
+    """The body of (u3)'s daemon (``--serve-child DIR``): a durable
+    server on the card (``DURABLE``/``CHECKPOINT_DIR`` from the
+    environment) that prints its port, its restore and the launch
+    counts of its warm start, then serves until it is killed, writing its
+    launch counts whenever ``DIR/report`` appears."""
+    from spark_rapids_jni_tpu_torch import kernels, serving
+
+    kernels.build_all()
+    srv = serving.Server(device=DEVICE, port=0, workers=SERVE_WORKERS).start()
+    torch.cuda.synchronize()
+    print("SERVE " + json.dumps({"port": srv.port,
+                                 "restore": srv._restore_doc,
+                                 "launches": stream_launches(kernels)}),
+          flush=True)
+    kernels.reset_launches()  # a report counts the requests after restore
+    req = os.path.join(tmp, "report")
+    while True:
+        if os.path.exists(req):
+            torch.cuda.synchronize()
+            part = os.path.join(tmp, "launches.part")
+            with open(part, "w") as f:
+                json.dump(stream_launches(kernels), f)
+            os.replace(part, os.path.join(tmp, "launches.json"))
+            os.unlink(req)
+        time.sleep(0.02)
+
+
+def serving_u3(rb, serving, d: dict) -> dict:
+    """(u3): a durable daemon in a child process takes (a)'s batch and
+    item and a donating [from_rows, filter]; once that put is
+    acknowledged the child is killed with SIGKILL; a second child
+    restores, the client resumes with its token, downloads the same
+    bytes and runs the rest of (a)'s plan on the restored tables."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.utils import spill
+
+    tmp = tempfile.mkdtemp(prefix="srt-u3-")
+    env = dict(os.environ, SPARK_RAPIDS_TPU_DURABLE="on",
+               SPARK_RAPIDS_TPU_CHECKPOINT_DIR=os.path.join(tmp, "ckpt"))
+    children = []
+    try:
+        # the checkpoint write alone: the serde the daemon runs, on the
+        # same table, in this process
+        fid = rb.table_upload_wire(*d["fact_wire"], device=DEVICE)
+        t0 = time.perf_counter()
+        nbytes = spill.save_table_npz(os.path.join(tmp, "write.npz"),
+                                      rb._resident_get(fid))
+        write_s = time.perf_counter() - t0
+        rb.table_free(fid)
+        os.unlink(os.path.join(tmp, "write.npz"))
+        proc, info = start_serve_child(tmp, env)
+        children.append(proc)
+        c = serving.Client(info["port"], name="u3",
+                           timeout=SERVE_WAIT_S).connect()
+        fid = c.upload(d["fact_wire"])
+        iid = c.upload(d["item_wire"])
+        tid = c.plan(UPSTREAM_PLAN, [fid], donate=True)  # the put, acked
+        want = c.download(tid)
+        durability = c.stats()["durability"]
+        sid, token = c.session, c.resume_token
+        proc.kill()  # SIGKILL: no bye, no exit handler
+        proc.wait()
+        c.kill()
+        t0 = time.perf_counter()
+        proc, info = start_serve_child(tmp, env)
+        children.append(proc)
+        up_s = time.perf_counter() - t0
+        restore = info["restore"]
+        if (restore["sessions"] != 1 or restore["quarantined"]
+                or restore["warm_compiles"] < 1):
+            raise AssertionError(f"(u3) restore {restore}")
+        with serving.Client(info["port"], session=sid, resume=token,
+                            timeout=SERVE_WAIT_S) as c:
+            same_wire(c.download(tid), want, "(u3) the restored table")
+            out = c.plan(DOWNSTREAM_PLAN, [tid, iid], donate=True)
+            groups = check_query_result(c.download(out), query_oracle(d))
+            launches = child_launches(tmp)
+            c.free(out)
+            c.free(iid)
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in QUERY_KERNELS[1:] if launches[k] == 0]
+    if missing or info["launches"]["unpack_rows"] == 0:
+        raise AssertionError(f"(u3) the restored plans never launched "
+                             f"{missing}: warm start {info['launches']}, "
+                             f"after {launches}")
+    rec = {"write_bytes": nbytes, "write_s": write_s,
+           "write_gb_s": nbytes / write_s / 1e9,
+           "checkpoint_bytes": durability.get("checkpoint.bytes", 0),
+           "restore": restore, "restart_s": up_s, "groups": groups,
+           "warm_launches": info["launches"],
+           "launches": {k: launches[k] for k in QUERY_KERNELS[1:]}}
+    log(f"(u3) durable daemon killed with SIGKILL after the acknowledged "
+        f"put ({rec['checkpoint_bytes']} checkpoint bytes); the second "
+        f"child restored {restore['sessions']} session in "
+        f"{restore['took_ms'] / 1e3:.2f} s ({restore['warm_compiles']} warm "
+        f"replays; {up_s:.1f} s from its start to its listener), the "
+        f"resumed client read the same bytes and ran the rest of (a)'s plan "
+        f"({groups} groups, exact); checkpoint write {nbytes} bytes in "
+        f"{write_s:.3f} s = {rec['write_gb_s']:.2f} GB/s (save_table_npz, "
+        f"warm page cache); launches warm start {info['launches']}, after "
+        f"{rec['launches']}")
+    return rec
+
+
+def serving_u4(rb, kernels, serving, d: dict) -> dict:
+    """(u4): a session with ``mesh=4`` streams [filter, cast, partition
+    hash 200] over (a)'s batch as columns: the same bytes as a
+    single-device session's stream and the in-process bridge's, through
+    the mesh path, with K5 launched."""
+    from spark_rapids_jni_tpu_torch.kernels import hashing
+    from spark_rapids_jni_tpu_torch.utils import config, metrics
+
+    wire = fact_columns_wire(d)
+    ref = rb.table_plan_wire(json.dumps(MESH_PLAN), *wire, device=DEVICE)
+    config.set_flag("METRICS", True)
+    try:
+        with serving.serve(device=DEVICE, port=0,
+                           workers=SERVE_WORKERS) as srv:
+            with serving.Client(srv.port, name="u4-single",
+                                timeout=SERVE_WAIT_S) as c:
+                single = c.stream(MESH_PLAN, [wire])[0]
+            metrics.reset()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with serving.Client(srv.port, name="u4-mesh", mesh=MESH_SHARDS,
+                                timeout=SERVE_WAIT_S) as c:
+                meshed = c.stream(MESH_PLAN, [wire])[0]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = kernels.KERNELS[hashing.MURMUR3.name].launches
+            counters = metrics.snapshot()["counters"]
+            mesh_docs = srv.stats()["mesh"]
+    finally:
+        config.clear_flag("METRICS")
+    same_wire(single, ref, "(u4) the single-device session")
+    same_wire(meshed, single, "(u4) the mesh-backed session")
+    if counters.get("plan.mesh_segments", 0) < 1 or launches == 0:
+        raise AssertionError(f"(u4) mesh segments "
+                             f"{counters.get('plan.mesh_segments', 0)}, K5 "
+                             f"launches {launches}")
+    picked = {k: counters.get(k, 0) for k in MESH_COUNTERS}
+    log(f"(u4) a mesh={MESH_SHARDS} session's stream equals the "
+        f"single-device session's and the bridge's bytes ({wire[4]} rows); "
+        f"{wall:.1f} ms with the hello; K5 launches {launches}; counters "
+        f"{picked}; runner {mesh_docs}")
+    return {"wall_ms": wall, "launches": launches, "counters": picked}
+
+
+def shim_op(native, op: dict, wire):
+    """One op through the shim's C ABI (JOIN mode), its output handles
+    read back and released."""
+    ids, scales, datas, valids, n = wire
+    hd = [native.buffer_create(bytes(x)) for x in datas]
+    hv = [None if v is None else native.buffer_create(bytes(v))
+          for v in valids]
+    try:
+        oids, oscales, od, ov, on = native.jax_table_op(
+            json.dumps(op), ids, scales, hd, hv, n)
+    finally:
+        for h in hd + [h for h in hv if h]:
+            native.buffer_release(h)
+    try:
+        return (oids, oscales, [native.buffer_bytes(h) for h in od],
+                [None if h is None else native.buffer_bytes(h) for h in ov],
+                on)
+    finally:
+        for h in od + [h for h in ov if h]:
+            native.buffer_release(h)
+
+
+def shim_resident(native, ops, wire):
+    """upload -> one resident op per step -> download -> free."""
+    ids, scales, datas, valids, n = wire
+    hd = [native.buffer_create(bytes(x)) for x in datas]
+    hv = [None if v is None else native.buffer_create(bytes(v))
+          for v in valids]
+    try:
+        tabs = [native.jax_table_upload(ids, scales, hd, hv, n)]
+    finally:
+        for h in hd + [h for h in hv if h]:
+            native.buffer_release(h)
+    try:
+        for op in ops:
+            tabs.append(native.jax_table_op_resident(json.dumps(op),
+                                                     [tabs[-1]]))
+        oids, oscales, od, ov, on = native.jax_table_download(tabs[-1])
+        got = (oids, oscales, [native.buffer_bytes(h) for h in od],
+               [None if h is None else native.buffer_bytes(h) for h in ov],
+               on)
+        for h in od + [h for h in ov if h]:
+            native.buffer_release(h)
+        return got
+    finally:
+        for t in tabs:
+            native.jax_table_free(t)
+
+
+def native_oracle(d: dict) -> np.ndarray:
+    """(v)'s rows in numpy: the kept rows without the mask column, four
+    columns (28 bytes) and their validity byte, 32 bytes a row."""
+    m = d["keep"]
+    rows = np.zeros((int(m.sum()), 32), np.uint8)
+    rows[:, :28] = d["rows"][m][:, :28]
+    rows[:, 28] = (1 | 4 | (d["customer_ok"][m].astype(np.uint8) << 1)
+                   | (d["quantity_ok"][m].astype(np.uint8) << 3))
+    return rows
+
+
+def phase_native(rb, kernels, d: dict) -> dict:
+    """(v): the native shim built with g++; ``native_demo_torch`` (HOST
+    mode) and ``jni_harness_torch`` on the card; then, through
+    ``utils/native.py`` (JOIN mode), (a)'s batch [from_rows, filter,
+    to_rows] op by op and as a resident chain, each equal to
+    ``table_op_wire`` on the card, K1b and K1a launched."""
+    from spark_rapids_jni_tpu_torch.utils import native
+
+    kind = torch.device(DEVICE).type  # the shim's device variable
+    platform = "gpu" if kind == "cuda" else "cpu"
+    built_now = not (native.build_dir() / native.LIB_NAME).exists()
+    t0 = time.perf_counter()
+    paths = native.build()
+    build_s = time.perf_counter() - t0
+    env = dict(os.environ, SPARK_RAPIDS_TPU_DEVICE=kind,
+               SRT_PYTHONPATH=ROOT_DIR)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([str(paths[name])], env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in ("native_demo", "jni_harness")}
+    outs = {}
+    for name, p in procs.items():
+        try:
+            outs[name] = p.communicate(timeout=SERVE_WAIT_S)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lines = outs[name].rstrip().splitlines()
+        if (p.returncode != 0 or f"platform = {platform}" not in outs[name]
+                or not lines[-1].endswith(": ok")):
+            raise AssertionError(f"(v) {name}_torch exited {p.returncode}:\n"
+                                 + outs[name][-4000:])
+    programs_s = time.perf_counter() - t0
+    os.environ["SPARK_RAPIDS_TPU_DEVICE"] = kind
+    native.jax_init()
+    if native.jax_platform() != platform or \
+            native.runtime_package() != "spark_rapids_jni_tpu_torch":
+        raise AssertionError("(v) the shim does not embed the port on the card")
+    wire = d["fact_wire"]
+    want = native_oracle(d)
+    walls = {"bridge": [], "shim": []}
+    for run in range(NATIVE_RUNS):
+        t0 = time.perf_counter()
+        ref = [wire]
+        for op in NATIVE_PLAN:
+            ref.append(rb.table_op_wire(json.dumps(op), *ref[-1],
+                                        device=DEVICE))
+        walls["bridge"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if run == 0:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = [wire]
+        for op in NATIVE_PLAN:
+            got.append(shim_op(native, op, got[-1]))
+        walls["shim"].append((time.perf_counter() - t0) * 1e3)
+        if run == 0:
+            torch.cuda.synchronize()
+            launches = stream_launches(kernels)
+        for k in range(1, len(got)):
+            same_wire(got[k], ref[k], f"(v) shim op {NATIVE_PLAN[k - 1]['op']}")
+    check_rows(ref[-1], want)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    before = native.jax_resident_table_count()
+    t0 = time.perf_counter()
+    chain = shim_resident(native, NATIVE_PLAN, wire)
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    chain_launches = stream_launches(kernels)
+    same_wire(chain, ref[-1], "(v) the shim's resident chain")
+    if native.jax_resident_table_count() != before:
+        raise AssertionError("(v) the resident chain left tables behind")
+    if native.live_handle_count() != 0:
+        raise AssertionError("(v) the shim's handle registry is not empty")
+    missing = [k for k in NATIVE_KERNELS
+               if launches[k] == 0 or chain_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"(v) never launched {missing}: op by op "
+                             f"{launches}, chain {chain_launches}")
+    rec = {"build_s": build_s, "built_now": built_now,
+           "programs_s": programs_s,
+           "bridge_ms": statistics.median(walls["bridge"]),
+           "shim_ms": statistics.median(walls["shim"]),
+           "walls_ms": walls, "chain_ms": chain_ms,
+           "launches": {k: launches[k] for k in NATIVE_KERNELS},
+           "chain_launches": {k: chain_launches[k] for k in NATIVE_KERNELS}}
+    log(f"(v) shim built in {build_s:.1f} s "
+        f"({'built now' if rec['built_now'] else 'already built'}); "
+        f"native_demo_torch and jni_harness_torch passed on the card "
+        f"({programs_s:.1f} s, both at once); (a)'s batch [from_rows, "
+        f"filter, to_rows] op by op through the shim equals table_op_wire's "
+        f"bytes: {rec['shim_ms']:.1f} ms through the shim against "
+        f"{rec['bridge_ms']:.1f} ms in process (medians of {NATIVE_RUNS}); "
+        f"the resident chain {chain_ms:.1f} ms, equal; launches "
+        f"{rec['launches']}, chain {rec['chain_launches']}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6625,6 +7276,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--telemetry-dump-child", metavar="IN",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--serve-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.k5_cpu_reference:
         return k5_cpu_reference(*args.k5_cpu_reference)
@@ -6634,6 +7286,8 @@ def main(argv=None) -> int:
         return 2
     if args.telemetry_dump_child:
         return telemetry_dump_child(args.telemetry_dump_child)
+    if args.serve_child:
+        return serve_child(args.serve_child)
     return run_all(args)
 
 
@@ -6702,6 +7356,8 @@ def run_all(args) -> int:
         "io": lambda: phase_io(kernels, d),
         "mesh": lambda: phase_mesh(kernels, d, dd),
         "telemetry": lambda: phase_telemetry(rb, kernels, d, mctx),
+        "serving": lambda: phase_serving(rb, kernels, d, mctx),
+        "native": lambda: phase_native(rb, kernels, d),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -6799,7 +7455,8 @@ def run_all(args) -> int:
         "oplib": res["oplib"], "buckets": res["buckets"],
         "formulations": res["formulations"], "fusion": res["fusion"],
         "io": res["io"], "mesh": res["mesh"],
-        "telemetry": res["telemetry"], **hard}))
+        "telemetry": res["telemetry"], "serving": res["serving"],
+        "native": res["native"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,13 @@ taking precedence. Ported flags:
   skew split (``parallel/shuffle.py``, ``parallel/distributed.py``);
   ``MESH_PROBE_S`` — the mesh heartbeat's deadline
   (``parallel/mesh.py``).
+* ``SERVE_PORT``, ``SERVE_MAX_SESSIONS``, ``SERVE_SESSION_HBM_FRACTION``,
+  ``SERVE_QUEUE_DEPTH`` — the serving daemon (``serving/``); ``DURABLE``,
+  ``CHECKPOINT_DIR`` — its checkpoints (``serving/durable.py``; the spill
+  sweep never removes a file under ``CHECKPOINT_DIR``).
+* ``NATIVE_LIB`` — an explicit path of the native shim
+  (``utils/native.py``); the loader refuses a library that is not the
+  port's.
 
 Defaults and parsers are the JAX package's; an invalid value raises
 :class:`ValueError` naming the flag when it is read.
@@ -120,6 +127,45 @@ def _parse_positive_float(name: str):
         return got
 
     return parse
+
+
+def _parse_port(v: str) -> int:
+    try:
+        got = int(v.strip())
+    except ValueError:
+        raise ValueError(f"SERVE_PORT must be an integer, got {v!r}")
+    if not (0 <= got <= 65535):
+        raise ValueError(f"SERVE_PORT must be in [0, 65535], got {v!r}")
+    return got
+
+
+def _parse_fraction(name: str):
+    def parse(v: str) -> float:
+        try:
+            got = float(v.strip())
+        except ValueError:
+            raise ValueError(f"{name} must be a float, got {v!r}")
+        if not (0.0 < got <= 1.0):
+            raise ValueError(f"{name} must be in (0, 1], got {v!r}")
+        return got
+
+    return parse
+
+
+def _parse_checkpoint_dir(v: str) -> str:
+    """A whitespace-only value, or a path that exists and is not a
+    directory, is refused when read (the directory itself is made at the
+    first checkpoint)."""
+    if v and not v.strip():
+        raise ValueError(
+            "SPARK_RAPIDS_TPU_CHECKPOINT_DIR must be a directory path, "
+            f"got whitespace {v!r}")
+    path = v.strip()
+    if path and os.path.exists(path) and not os.path.isdir(path):
+        raise ValueError(
+            f"SPARK_RAPIDS_TPU_CHECKPOINT_DIR={path!r} exists and is "
+            "not a directory")
+    return path
 
 
 def _parse_fault_spec(v: str) -> str:
@@ -275,6 +321,35 @@ _FLAGS = {
              "sets, the acquisition-order graph, cycles, inversions of "
              "registry->session->scheduler->spill, and locks held across "
              "a device dispatch or blocking IO; off by default"),
+        Flag("SERVE_PORT", 0, _parse_port,
+             "serving daemon (serving/server.py) localhost TCP port; 0 "
+             "(default) = an OS-assigned port, read back from Server.port"),
+        Flag("SERVE_MAX_SESSIONS", 8,
+             _parse_positive_int("SERVE_MAX_SESSIONS"),
+             "serving daemon session cap: a hello past this many live "
+             "sessions gets a typed session_limit rejection"),
+        Flag("SERVE_SESSION_HBM_FRACTION", 0.25,
+             _parse_fraction("SERVE_SESSION_HBM_FRACTION"),
+             "per-session device memory budget as a fraction of "
+             "hbm.budget_bytes(); admission rejects (or queues behind "
+             "in-flight work) a request whose estimate exceeds the rest"),
+        Flag("SERVE_QUEUE_DEPTH", 16,
+             _parse_positive_int("SERVE_QUEUE_DEPTH"),
+             "serving daemon per-session scheduler queue depth; a request "
+             "past it is shed with a typed BUSY response"),
+        Flag("DURABLE", False, _as_bool,
+             "durable serving (serving/durable.py): a per-session "
+             "write-ahead journal of namespace mutations, table payloads "
+             "checkpointed through the spill .npz serde, restore and a "
+             "warm-start replay before the listener accepts; off by "
+             "default"),
+        Flag("CHECKPOINT_DIR", "", _parse_checkpoint_dir,
+             "directory of durable serving checkpoints (journals, "
+             "payloads, warm-start manifest); '' = <tempdir>/"
+             "srt-checkpoint; never swept at exit"),
+        Flag("NATIVE_LIB", "", str,
+             "explicit path of the port's native shim "
+             "(libspark_rapids_tpu_torch.so, utils/native.py)"),
         Flag("MESH_PROBE_S", 5.0, _parse_positive_float("MESH_PROBE_S"),
              "deadline in seconds of one MeshHealth heartbeat "
              "(parallel/mesh.py): a mesh that has not answered by then is "

@@ -689,15 +689,16 @@ class CircuitBreaker:
 
 
 def default_probe(device="cuda") -> None:
-    """The background half-open trial: one small CUDA op and a
-    ``torch.cuda.synchronize()`` through the serve_accept injection site
-    — succeeds iff the device answers AND the armed fault plan lets
-    it."""
+    """The background half-open trial: one small op on ``device`` (and a
+    ``torch.cuda.synchronize()`` on a CUDA device) through the
+    serve_accept injection site — succeeds iff the device answers AND the
+    armed fault plan lets it."""
     import torch
 
     inject("serve_accept")
     torch.ones(8, dtype=torch.int32, device=device).add_(1)
-    torch.cuda.synchronize(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def note_error_class(exc: BaseException, where: str) -> None:

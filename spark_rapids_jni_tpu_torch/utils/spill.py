@@ -457,6 +457,16 @@ def _evict_one_locked(tid: int, table) -> int:
     return nbytes
 
 
+def u64_on_disk(type_id: int) -> bool:
+    """FLOAT64 and DECIMAL128 storage is int64 in the port and uint64 in
+    the JAX package; on disk it is uint64 (the same bytes), so either
+    package reads the other's file."""
+    from .. import dtype as dt
+
+    return int(type_id) in (int(dt.TypeId.FLOAT64),
+                            int(dt.TypeId.DECIMAL128))
+
+
 def _npz_arrays(cols, names, logical_rows) -> dict:
     meta = {
         "type_ids": [c[0] for c in cols],
@@ -465,8 +475,10 @@ def _npz_arrays(cols, names, logical_rows) -> dict:
         "logical_rows": logical_rows,
     }
     arrays = {"meta": np.frombuffer(json.dumps(meta).encode(), np.uint8)}
-    for i, (_, _, data, validity, lengths) in enumerate(cols):
-        arrays[f"d{i}"] = _as_numpy(data)
+    for i, (ti, _, data, validity, lengths) in enumerate(cols):
+        data = _as_numpy(data)
+        arrays[f"d{i}"] = (data.view(np.uint64) if u64_on_disk(ti)
+                           else data)
         if validity is not None:
             arrays[f"v{i}"] = _as_numpy(validity)
         if lengths is not None:
@@ -571,7 +583,8 @@ def _read_npz(path: str):
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["meta"]).decode())
         cols = [
-            (ti, sc, z[f"d{i}"],
+            (ti, sc, z[f"d{i}"].view(np.int64) if u64_on_disk(ti)
+             else z[f"d{i}"],
              z[f"v{i}"] if f"v{i}" in z else None,
              z[f"l{i}"] if f"l{i}" in z else None)
             for i, (ti, sc) in enumerate(zip(meta["type_ids"],
@@ -739,6 +752,17 @@ def spill_file_count() -> int:
     return len(_FILES)
 
 
+def _checkpoint_prefix() -> str:
+    """Absolute prefix (trailing separator) of the checkpoint directory
+    (``CHECKPOINT_DIR``, default ``<tmp>/srt-checkpoint``). Spill files are
+    the process's own and are swept; a checkpoint exists to outlive the
+    process, so a path under this prefix is never removed, even when it
+    was registered for sweeping."""
+    d = config.get_flag("CHECKPOINT_DIR") or os.path.join(
+        tempfile.gettempdir(), "srt-checkpoint")
+    return os.path.abspath(d) + os.sep
+
+
 def reset() -> None:
     """Test hook: drop all tracking and remove every spill file."""
     global _DEVICE_BYTES, _HOST_BYTES, _DISK_BYTES, _HOST_HW, _DISK_HW
@@ -751,22 +775,27 @@ def reset() -> None:
             _HOST_HW = _DISK_HW = 0
     with _EVENTS_LOCK:
         _EVENTS.clear()
+    keep = _checkpoint_prefix()
     for path in list(_FILES):
-        try:
-            os.unlink(path)
-        except OSError:
-            pass
+        if not os.path.abspath(path).startswith(keep):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
         _FILES.discard(path)
 
 
 def _sweep_at_exit() -> None:  # pragma: no cover - atexit path
     """No orphaned spill files: remove what this process wrote, and the
-    per-process default directory when it is left empty."""
+    per-process default directory when it is left empty; a checkpoint
+    stays, since the durable serving restore reads it after the exit."""
+    keep = _checkpoint_prefix()
     for path in list(_FILES):
-        try:
-            os.unlink(path)
-        except OSError:
-            pass
+        if not os.path.abspath(path).startswith(keep):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
         _FILES.discard(path)
     try:
         os.rmdir(os.path.join(tempfile.gettempdir(),

@@ -88,7 +88,9 @@ def test_scan_covers_the_package():
             "parquet_device.py", "orc.py", "csv.py", "json.py", "ipc.py",
             "avro.py", "mesh.py", "shuffle.py", "tolerant.py",
             "distributed.py", "planmesh.py", "flight.py", "tracing.py",
-            "lockcheck.py", "profiler.py", "planstats.py"} <= names
+            "lockcheck.py", "profiler.py", "planstats.py", "frames.py",
+            "client.py", "session.py", "scheduler.py", "durable.py",
+            "server.py", "native.py", "ieee754.py"} <= names
     parallel_dir = ROOT / "spark_rapids_jni_tpu_torch" / "parallel"
     assert {p for p in PORT_FILES if p.parent == parallel_dir} == {
         parallel_dir / f for f in ("__init__.py", "mesh.py", "shuffle.py",
@@ -180,6 +182,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     rb.table_free(tid)
     assert len(rb.table_plan_wire(plan, *_fact_wire(), device="cpu")) == 5
     assert graft_entry.entry("cpu")[1][0].row_count == 256
+
+
+def test_native_shim_embeds_the_port():
+    """``src/cpp/torch_runtime.cpp`` imports the port's bridge, names no
+    module of the JAX package, and carries the loader's marker."""
+    src = (ROOT / "src" / "cpp" / "torch_runtime.cpp").read_text()
+    assert '"spark_rapids_jni_tpu_torch.runtime_bridge"' in src
+    assert "spark_rapids_jni_tpu." not in src
+    assert 'return "spark_rapids_jni_tpu_torch";' in src
+
+
+def test_server_raises_without_cuda(monkeypatch):
+    from spark_rapids_jni_tpu_torch import serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    srv = serving.Server(port=0)
+    assert srv.device.type == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        srv.start()
+    assert srv.port is None
 
 
 @pytest.mark.parametrize("fn", [rb.table_plan_wire, rb.table_op_wire,

@@ -19,9 +19,10 @@ import numpy as np
 import pytest
 
 from spark_rapids_jni_tpu.utils import config as jconfig
+from spark_rapids_jni_tpu.utils import metrics as jmetrics
 from spark_rapids_jni_tpu.utils import planstats as jplanstats
 from spark_rapids_jni_tpu_torch import runtime_bridge as rb
-from spark_rapids_jni_tpu_torch.utils import config, planstats, profiler
+from spark_rapids_jni_tpu_torch.utils import config, metrics, planstats, profiler
 
 from test_torch_wire_plan import QTY_BY_DATE, _fact_rows, _list_wire
 
@@ -33,6 +34,10 @@ FLAGS = ("PLANSTATS", "PLANSTATS_DIR", "PLANSTATS_ROTATE_MB",
 def _isolated(tmp_path, monkeypatch):
     for f in FLAGS:
         monkeypatch.delenv("SPARK_RAPIDS_TPU_" + f, raising=False)
+    # A session record diffs the metrics registry against its base, so
+    # counters left by an earlier test file on the worker must not reach it.
+    metrics.reset()
+    jmetrics.reset()
     planstats.reset()
     jplanstats.reset()
     profiler.reset()
@@ -42,6 +47,8 @@ def _isolated(tmp_path, monkeypatch):
     for f in FLAGS:
         config.clear_flag(f)
         jconfig.clear_flag(f)
+    metrics.reset()
+    jmetrics.reset()
     planstats.reset()
     jplanstats.reset()
     profiler.reset()
@@ -94,6 +101,30 @@ def _docs(seed: int, n: int = 14) -> list:
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_records_and_reports_match_jax(seed):
+    _records_and_reports_match_jax(seed)
+
+
+@pytest.mark.parametrize("step", ["leave", "parity"])
+def test_parity_after_counters_left_behind(step):
+    """An earlier test on the worker that ran with ``METRICS`` on leaves
+    counters in both registries (``leave``); the parity body that runs
+    after it (``parity``, the next case in file order) must not see them."""
+    if step == "leave":
+        config.set_flag("METRICS", True)
+        jconfig.set_flag("METRICS", True)
+        # Different counters in each: the two records would differ.
+        jmetrics.counter_add("mesh.degraded", 11)
+        jmetrics.counter_add("shuffle.exchanges", 6)
+        metrics.counter_add("retry.attempts", 2)
+        assert jmetrics.counter_values(["mesh.degraded"]) == {
+            "mesh.degraded": 11}
+        assert metrics.counter_values(["retry.attempts"]) == {
+            "retry.attempts": 2}
+        return
+    _records_and_reports_match_jax(0)
+
+
+def _records_and_reports_match_jax(seed):
     config.set_flag("PLANSTATS", True)
     jconfig.set_flag("PLANSTATS", True)
     planstats.note_skew({"site": "distributed.groupby", "action": "split",

@@ -11,8 +11,8 @@ checkout sees the same rows), runs the named phases of it with their
 own checks (a phase the checkout does not have is skipped), and
 records each profiled window (``profile_plan``): the cell's tag, its
 device ms a run and its unprofiled median wall. Phases that time
-themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s), (t)) print their
-own lines.
+themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s), (t), (u),
+(v)) print their own lines.
 
 Prints one line a cell and run, then one JSON line
 ``{"runs": [{"tree": ..., "cells": {tag: {"device_ms", "wall_ms"}}}]}``
@@ -49,6 +49,8 @@ _PHASES = {
     "io": lambda cs, rb, k, D: cs.phase_io(k, D["d"]),
     "mesh": lambda cs, rb, k, D: cs.phase_mesh(k, D["d"], D["dd"]),
     "telemetry": lambda cs, rb, k, D: cs.phase_telemetry(rb, k, D["d"], {}),
+    "serving": lambda cs, rb, k, D: cs.phase_serving(rb, k, D["d"], {}),
+    "native": lambda cs, rb, k, D: cs.phase_native(rb, k, D["d"]),
 }
 
 
