@@ -153,7 +153,10 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     Every output equals the port's own CPU run byte for byte and a
     numpy oracle (integers exact, floats within 1e-9); each part's wall,
     host syncs and profile, the MIN window's peak memory and
-    ``_lex_searchsorted`` alone under the profiler.
+    ``_lex_searchsorted`` alone under the profiler. That CPU run is a
+    child process of this script (``--oplib-cpu-reference``) that runs
+    while (n)'s calls run on the card; it sends back the SHA-256 of every
+    output buffer.
 (o) the shape-bucket plane — a Spark task's ragged stream of 8 batches
     of (a)'s rows (8,388,608, 4,194,305, 3,000,000, 1,048,577,
     1,048,575, 200,001, 1,025 and 1 rows: a full batch, a file's last
@@ -221,7 +224,8 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     for byte the single-device plan, then under a seeded collective fault
     that degrades the mesh to 2, and the batch's halves through
     ``run_plan_mesh_stream`` at PIPELINE 2; (s7)
-    ``graft_entry.dryrun_multichip(4)``.
+    ``graft_entry.dryrun_multichip(4)``, its TPC-DS q5 step last (the
+    line it prints must say ``tpcds q5 cats=N ok``).
 (t) the observability tier — (h)'s plan over (a)'s 2^23-row batch with
     TRACE, FLIGHT, PROFILE, PLANSTATS, LOCKCHECK and REFCOUNT_DEBUG all
     on, against the same call with all of them off: equal bytes, equal
@@ -273,6 +277,21 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     a resident chain (upload, ops, download, free), each equal to
     ``table_op_wire`` on the card and to numpy, K1b and K1a launched; the
     wall through the shim against the in-process calls.
+(w) the TPC-DS query tier (``spark_rapids_jni_tpu_torch.tpcds``): (w1)
+    ``datagen.generate`` at one task's 2^23 store_sales rows (from
+    ``--seed``): q5, q23 and q64 on one device and on ``MESH_SHARDS``
+    logical shards (``q*_distributed``, unpadded), each exact against
+    pandas over the same host arrays (counts and cents sums), the mesh's
+    results equal to the single device's, K5 launched in the mesh runs;
+    (w2) ``streams.generate_parquet`` at SF1 (2,880,000 store_sales rows in
+    6 row groups, 720,000 web_sales, 100,000 customers, 18,000 items)
+    and the three streams at prefetch 2 (Parquet scan with pushdown,
+    broadcast join, two-level groupby), every verdict of the JAX
+    runner's oracle comparisons true (``stream_verdicts``); (w3)
+    ``streams.load_tables`` of the same files through the three mesh
+    queries, equal to the single-device DAGs. Each query's wall, device
+    time, busy share and host syncs, K5's launches, and the host seconds
+    of the generation and the oracles.
 (c) kernels — each kernel against its plain version on the card, at the
     shapes of (a), (b), (d), (e) and (f), by exact equality (tolerance 0:
     every kernel computes integers and bytes), with CUDA-event times, the
@@ -3335,25 +3354,24 @@ def k5_cpu_reference(in_path: str, out_path: str) -> int:
     out = {what: interop.table_to_buffers(fn(table))
            for what, fn in k5_cases().items()}
     out["_cpu_s"] = time.perf_counter() - t0
-    with open(out_path + ".part", "wb") as f:
-        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(out_path + ".part", out_path)
+    write_reference(out_path, out)
     return 0
 
 
-class K5Reference:
-    """(k5)'s CPU run as a child process, started with (k5) so that it
-    runs beside (k5)'s calls on the card: it writes the input wire table
-    to ``build/k5_reference/``, runs this script with
-    ``--k5-cpu-reference`` there (``K5_REF_THREADS`` torch threads, its
-    output in ``child.log``), and :meth:`result` waits for its buffers.
-    :meth:`stop` ends it and removes the files."""
+class CpuReference:
+    """A phase's CPU run as a child process, started with the phase so
+    that it runs beside the phase's calls on the card: it pickles the
+    phase's input to ``build/<tag>_reference/``, runs this script with
+    ``flag IN OUT`` there (``K5_REF_THREADS`` torch threads, its output
+    in ``child.log``), and :meth:`result` waits for the child's pickled
+    buffers. :meth:`stop` ends it and removes the files."""
 
-    def __init__(self, sd: dict, seed: int):
+    def __init__(self, tag: str, flag: str, payload):
         import pickle
 
+        self.tag = tag
         self.dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "build", "k5_reference")
+                                "build", f"{tag}_reference")
         os.makedirs(self.dir, exist_ok=True)
         self.inp = os.path.join(self.dir, "in.pkl")
         self.out = os.path.join(self.dir, "out.pkl")
@@ -3361,13 +3379,12 @@ class K5Reference:
             if os.path.exists(path):
                 os.remove(path)
         with open(self.inp, "wb") as f:
-            pickle.dump(k5_wire(sd, seed), f, protocol=pickle.HIGHEST_PROTOCOL)
+            pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
         self.log = open(os.path.join(self.dir, "child.log"), "w")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__),
-             "--k5-cpu-reference", self.inp, self.out],
-            stdout=self.log, stderr=subprocess.STDOUT)
+            [sys.executable, os.path.abspath(__file__), flag, self.inp,
+             self.out], stdout=self.log, stderr=subprocess.STDOUT)
 
     def result(self, timeout: float = 900.0) -> dict:
         import pickle
@@ -3378,12 +3395,14 @@ class K5Reference:
             self.log.flush()
             with open(os.path.join(self.dir, "child.log")) as f:
                 tail = f.read()[-3000:]
-            raise RuntimeError(f"(k5) CPU reference child exited {rc}:\n{tail}")
+            raise RuntimeError(
+                f"({self.tag}) CPU reference child exited {rc}:\n{tail}")
         with open(self.out, "rb") as f:
             ref = pickle.load(f)
-        log(f"(k5) CPU reference child: {ref['_cpu_s']:.1f} s of CPU run "
-            f"({K5_REF_THREADS} torch threads), done {waited:.1f} s after "
-            "its start")
+        log(f"({self.tag}) CPU reference child: {ref['_cpu_s']:.1f} s of CPU "
+            f"run ({K5_REF_THREADS} torch threads), done {waited:.1f} s "
+            "after its start")
+        ref["_waited_s"] = waited
         return ref
 
     def stop(self) -> None:
@@ -3396,6 +3415,16 @@ class K5Reference:
                 os.remove(path)
 
 
+def write_reference(out_path: str, out: dict) -> None:
+    """A CPU reference child's result, pickled to ``out_path`` at once
+    (the parent reads only a whole file)."""
+    import pickle
+
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(out_path + ".part", out_path)
+
+
 def phase_string_lib(rb, sd: dict, seed: int) -> dict:
     """(k5): every function of the string library (``string_lib``, then
     ``concat_ws`` of the customer table's c_first_name and c_last_name
@@ -3403,13 +3432,13 @@ def phase_string_lib(rb, sd: dict, seed: int) -> dict:
     ``substring_column``, the width-changing ``replace`` and
     ``split_explode``) on the card over the UTF-8 column, byte for byte
     against the port's own CPU run of the same function on the same
-    input, which a :class:`K5Reference` child computes while the calls
+    input, which a :class:`CpuReference` child computes while the calls
     run on the card; each function's device time and launches from the
     profiler."""
     from spark_rapids_jni_tpu_torch import interop
 
     n = CUSTOMER_ROWS
-    reference = K5Reference(sd, seed)
+    reference = CpuReference("k5", "--k5-cpu-reference", k5_wire(sd, seed))
     try:
         table = rb._table_from_wire(*k5_wire(sd, seed), torch.device(DEVICE))
         out, got = {}, {}
@@ -4521,6 +4550,15 @@ def column_bytes(c) -> tuple:
                  for x in (c.data, c.validity, c.lengths))
 
 
+def column_digest(c) -> tuple:
+    """The SHA-256 of each buffer of :func:`column_bytes` (what (n)'s CPU
+    reference child sends back instead of the bytes)."""
+    import hashlib
+
+    return tuple(None if b is None else hashlib.sha256(b).hexdigest()
+                 for b in column_bytes(c))
+
+
 def host_values(c):
     """(values, valid) on the host: FLOAT64 as float64."""
     if isinstance(c, torch.Tensor):
@@ -4794,11 +4832,41 @@ OPLIB_ORACLES = {"n1": oracle_n1, "n2": oracle_n2, "n3": oracle_n3,
                  "n4": oracle_n4}
 
 
+OPLIB_FACT_KEYS = ("item_sk", "customer_sk", "customer_ok", "quantity",
+                   "quantity_ok", "keep")  # what oplib_table reads of (a)
+
+
+def oplib_cpu_reference(in_path: str, out_path: str) -> int:
+    """The body of (n)'s CPU reference child (``--oplib-cpu-reference IN
+    OUT``): every part of ``OPLIB_PARTS`` on the CPU over the pickled
+    (d, od) columns, each output's digest (:func:`column_digest`) and the
+    part's CPU seconds pickled to ``out_path``. Needs no GPU."""
+    import pickle
+
+    torch.set_num_threads(K5_REF_THREADS)
+    with open(in_path, "rb") as f:
+        d, od = pickle.load(f)
+    t0 = time.perf_counter()
+    cpu = oplib_table(d, od, "cpu")
+    cin = oplib_inputs(cpu, od, "cpu")
+    out = {}
+    for part, fn in OPLIB_PARTS.items():
+        t1 = time.perf_counter()
+        want = fn(cpu, *cin)
+        out[part] = {k: column_digest(v) for k, v in want.items()}
+        out[part + "_s"] = time.perf_counter() - t1
+        del want
+    out["_cpu_s"] = time.perf_counter() - t0
+    write_reference(out_path, out)
+    return 0
+
+
 def phase_oplib(kernels, d: dict, od: dict) -> dict:
     """(n): each part on the card once with the launch counts set to 0
     just before and read just after (S1 must be launched in (n1)), every
     output byte for byte against the port's own CPU run of the same
-    inputs and against numpy; then the wall (median of 5 runs after the
+    inputs (a :class:`CpuReference` child that runs beside the card's
+    calls; the SHA-256 of every buffer compared) and against numpy; then the wall (median of 5 runs after the
     checked run), the host syncs of one run, a profiled window (device
     time, busy share, top kernels), and for (n1) the peak device memory
     of the MIN window (its sparse table) and ``_lex_searchsorted`` alone
@@ -4807,41 +4875,51 @@ def phase_oplib(kernels, d: dict, od: dict) -> dict:
     from spark_rapids_jni_tpu_torch.ops import keys as pkeys
     from spark_rapids_jni_tpu_torch.ops import window as pw
 
-    gpu = oplib_table(d, od, DEVICE)
-    cpu = oplib_table(d, od, "cpu")
-    gin, cin = oplib_inputs(gpu, od, DEVICE), oplib_inputs(cpu, od, "cpu")
-    out = {}
-    for part, fn in OPLIB_PARTS.items():
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        got = fn(gpu, *gin)
-        torch.cuda.synchronize()
-        launches = {k: v.launches for k, v in kernels.KERNELS.items()}
-        t0 = time.perf_counter()
-        want = fn(cpu, *cin)
-        cpu_s = time.perf_counter() - t0
-        differ = [k for k in got if column_bytes(got[k]) != column_bytes(want[k])]
+    reference = CpuReference(
+        "oplib", "--oplib-cpu-reference",
+        ({k: d[k] for k in OPLIB_FACT_KEYS}, od))
+    try:
+        gpu = oplib_table(d, od, DEVICE)
+        gin = oplib_inputs(gpu, od, DEVICE)
+        out, got_digests = {}, {}
+        for part, fn in OPLIB_PARTS.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            got = fn(gpu, *gin)
+            torch.cuda.synchronize()
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            got_digests[part] = {k: column_digest(v) for k, v in got.items()}
+            OPLIB_ORACLES[part](d, od, got)
+            runner = oplib_runner(fn, gpu, gin)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                runner()
+                times.append((time.perf_counter() - t0) * 1e3)
+            median = statistics.median(times)
+            syncs = count_syncs(runner)
+            log(f"({part}) {len(got)} outputs equal numpy; wall median "
+                f"{median:.2f} ms over 5 runs (all: "
+                f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
+                f"launches {launches}")
+            profile = profile_plan(runner, median, f"({part})")
+            out[part] = {"outputs": len(got), "wall_ms": median,
+                         "syncs": syncs, "launches": launches,
+                         "profile": profile}
+            del got
+        ref = reference.result()
+    finally:
+        reference.stop()
+    for part in OPLIB_PARTS:
+        want = ref[part]
+        differ = [k for k in got_digests[part] if got_digests[part][k] != want[k]]
         if differ:
             raise AssertionError(f"({part}) differs from the CPU run: {differ}")
-        OPLIB_ORACLES[part](d, od, got)
-        del want
-        runner = oplib_runner(fn, gpu, gin)
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            runner()
-            times.append((time.perf_counter() - t0) * 1e3)
-        median = statistics.median(times)
-        syncs = count_syncs(runner)
-        log(f"({part}) {len(got)} outputs equal the CPU run's bytes and "
-            f"numpy; wall median {median:.2f} ms over 5 runs (all: "
-            f"{[round(t, 2) for t in times]}); host syncs a run {syncs}; "
-            f"launches {launches}; CPU run {cpu_s:.1f} s")
-        profile = profile_plan(runner, median, f"({part})")
-        out[part] = {"outputs": len(got), "wall_ms": median, "syncs": syncs,
-                     "launches": launches, "cpu_run_s": cpu_s,
-                     "profile": profile}
-        del got
+        out[part]["cpu_run_s"] = ref[part + "_s"]
+        log(f"({part}) {len(want)} outputs equal the CPU run's bytes (CPU run "
+            f"{ref[part + '_s']:.1f} s in the child)")
+    out["cpu_reference_wait_s"] = ref["_waited_s"]
+    del got_digests, ref
     if out["n1"]["launches"]["scan16"] == 0:
         raise AssertionError("(n1) never launched scan16")
     # the MIN window's peak: the sparse table of 24 levels at 2^23 rows
@@ -6283,15 +6361,24 @@ def phase_mesh(kernels, d: dict, dd: dict) -> dict:
                      "PIPELINE"):
             config.clear_flag(name)
 
-    # (s7) the dry run
+    # (s7) the dry run, its TPC-DS q5 step included
+    import contextlib
+    import io
+
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    graft_entry.dryrun_multichip(MESH_SHARDS, device=DEVICE)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        graft_entry.dryrun_multichip(MESH_SHARDS, device=DEVICE)
     torch.cuda.synchronize()
     res["dryrun_s"] = time.perf_counter() - t0
     res["dryrun_launches"] = {k: v.launches
                               for k, v in kernels.KERNELS.items()}
+    said = said.getvalue().strip()
+    if not re.search(r"tpcds q5 cats=\d+ ok", said):
+        raise AssertionError(f"(s7) the dry run's q5 step said {said!r}")
+    log(f"(s7) {said}")
     log(f"(s7) dryrun_multichip({MESH_SHARDS}): {res['dryrun_s']:.1f} s, "
         f"launches {res['dryrun_launches']}")
     res["k5_shard_rows"] = fact.row_count // size
@@ -7268,11 +7355,319 @@ def phase_native(rb, kernels, d: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# (w) the TPC-DS query tier: q5/q23/q64 in memory and on a mesh, the
+# Parquet streams against their pandas oracles
+# ---------------------------------------------------------------------------
+
+TPCDS_ROWS = 1 << 23  # (w1): one task's batch, as (a)
+TPCDS_SCALE = 1.0  # (w2)/(w3): bench.py's SF1, 2,880,000 store_sales rows
+TPCDS_PREFETCH = 2
+TPCDS_RUNS = 3  # timed calls a query after the checked one
+# (w1)'s queries: (name, group keys); q64's result is one table, the
+# others' a sharded result to unpad
+TPCDS_KEYS = {"q5": ["category_id"], "q23": ["customer_sk"],
+              "q64": ["brand_id", "state_id", "year"]}
+
+
+def tpcds_frame(t, keys):
+    """A result table as a pandas DataFrame on the host (integers and
+    decimals' unscaled values as int64, a null as NA), sorted by
+    ``keys``."""
+    import pandas as pd
+
+    cols = {}
+    for name, c in zip(t.names, t.columns):
+        v = c.to_numpy()
+        if v.dtype.kind in "iub":
+            v = v.astype(np.int64)
+        if c.validity is not None:
+            v = pd.array(v, dtype="Int64" if v.dtype.kind == "i" else None)
+            v[~c.validity.cpu().numpy()] = pd.NA
+        cols[name] = v
+    return (pd.DataFrame(cols).sort_values(keys, kind="stable")
+            .reset_index(drop=True))
+
+
+def same_frames(got, want, what: str) -> None:
+    """Two integer results as DataFrames: the same columns, rows and
+    values (nulls in the same places)."""
+    if (list(got.columns) != list(want.columns) or len(got) != len(want)
+            or not got.astype("Int64").equals(want.astype("Int64"))):
+        raise AssertionError(f"{what}: {len(got)} rows {list(got.columns)} "
+                             f"!= {len(want)} rows {list(want.columns)}\n"
+                             f"{got.head()}\n{want.head()}")
+
+
+def tpcds_host(tables: dict) -> dict:
+    """Every table of (w1) as a host DataFrame of its values (decimals
+    as unscaled cents)."""
+    import pandas as pd
+
+    return {name: pd.DataFrame({n: c.to_numpy()
+                                for n, c in zip(t.names, t.columns)
+                                if not c.dtype.is_string})
+            for name, t in tables.items()}
+
+
+def tpcds_oracles(h: dict) -> dict:
+    """q5/q23/q64 of ``spark_rapids_jni_tpu_torch.tpcds.queries`` in
+    pandas over (w1)'s host tables, exact in int64 (money in cents; the
+    revenue quantity x cents), each sorted by its group keys."""
+    import pandas as pd
+
+    def window(df):
+        return df[(df.date_sk >= 100) & (df.date_sk < 200)]
+
+    sales = pd.concat([window(h["store_sales"]), window(h["web_sales"])])
+    j = sales.merge(h["item"], on="item_sk")
+    j = j.assign(revenue=j.quantity * j.sales_price)
+    q5 = j.groupby("category_id").agg(
+        sum_revenue=("revenue", "sum"), sum_net_profit=("net_profit", "sum"),
+        count_revenue=("revenue", "count")).reset_index()
+    ss = h["store_sales"]
+    freq = ss.item_sk.value_counts()
+    hot = ss[ss.item_sk.isin(freq[freq >= 4].index)]
+    q23 = (hot.assign(spend=hot.quantity * hot.sales_price)
+           .groupby("customer_sk").agg(sum_spend=("spend", "sum"))
+           .reset_index())
+    item = h["item"]
+    cheap = item[item.current_price <= 15_000]
+    j = (ss.merge(cheap, on="item_sk").merge(h["customer"], on="customer_sk")
+         .merge(h["date_dim"], on="date_sk"))
+    j = j.assign(revenue=j.quantity * j.sales_price)
+    q64 = j.groupby(TPCDS_KEYS["q64"]).agg(
+        sum_revenue=("revenue", "sum"),
+        count_revenue=("revenue", "count")).reset_index()
+    out = {}
+    for name, df in (("q5", q5), ("q23", q23), ("q64", q64)):
+        out[name] = (df.astype("int64").sort_values(TPCDS_KEYS[name])
+                     .reset_index(drop=True))
+    return out
+
+
+def tpcds_measure(tag: str, run) -> dict:
+    """Wall (the median of ``TPCDS_RUNS`` calls, each CUDA-synchronised),
+    device time (profiler), busy share and host syncs of one call."""
+    def once():
+        run()
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(TPCDS_RUNS):
+        t0 = time.perf_counter()
+        once()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_window_ms(once, runs=1)
+    syncs = count_syncs(once)
+    wall = statistics.median(walls)
+    out = {"wall_ms": wall, "walls_ms": walls, "device_ms": dev_ms,
+           "busy": dev_ms / wall, "host_syncs": syncs}
+    log(f"(w) {tag}: wall {wall:.2f} ms (median of "
+        f"{[round(w, 2) for w in walls]}), device {dev_ms:.3f} ms, busy "
+        f"{100 * dev_ms / wall:.1f} %, {syncs} host syncs")
+    return out
+
+
+def stream_verdicts(data_dir: str, q5, q23, q64) -> dict:
+    """The oracle comparisons of the JAX runner (``benchmarks/tpcds.py``
+    ``run_all``) on the port's three stream results: q5's categories,
+    sales (float64) and counts (exact); q23's non-null customers' count
+    and totals and its one null-key group's total; q64's group count and
+    sales total."""
+    from spark_rapids_jni_tpu_torch.tpcds import streams
+
+    o5 = streams.oracle_q5(data_dir)
+    order = np.argsort(np.asarray(q5["i_category_id"].to_numpy()))
+    ok5 = (
+        q5.row_count == len(o5)
+        and np.allclose(
+            streams._dec_to_float(q5["sales"])[order],
+            o5.sort_values("i_category_id")["sales"].to_numpy(np.float64))
+        and np.array_equal(
+            np.asarray(q5["n"].to_numpy())[order],
+            o5.sort_values("i_category_id")["n"].to_numpy(np.int64)))
+    o23, null_sum = streams.oracle_q23(data_dir)
+    kk = q23["customer_sk"]
+    nonnull = (np.ones(q23.row_count, bool) if kk.validity is None
+               else kk.validity.cpu().numpy())
+    totals = streams._dec_to_float(q23["total"])
+    ok23 = (
+        int(nonnull.sum()) == len(o23)
+        and int((~nonnull).sum()) <= 1
+        and np.isclose(totals[nonnull].sum(), o23.sales_price.sum())
+        and np.isclose(totals[~nonnull].sum(), null_sum))
+    o64 = streams.oracle_q64(data_dir)
+    ok64 = q64.row_count == len(o64) and np.isclose(
+        streams._dec_to_float(q64["sales"]).sum(), o64.sales.sum())
+    return {"q5": bool(ok5), "q23": bool(ok23), "q64": bool(ok64)}
+
+
+def phase_tpcds(kernels, seed: int) -> dict:
+    """(w): the TPC-DS query tier on the card. (w1) ``datagen.generate``
+    at one task's 2^23 store_sales rows: q5, q23 and q64 on one device
+    and on ``MESH_SHARDS`` logical shards, each exact against pandas over
+    the same host arrays, the mesh's unpadded results equal to the
+    single device's, K5 launched in the mesh runs. (w2)
+    ``generate_parquet`` at SF1 and the three streams at prefetch 2, with
+    every verdict of the JAX runner's oracle comparisons true. (w3)
+    ``load_tables`` of the same files through the three mesh queries,
+    equal to the single-device DAGs. Each query's wall, device time,
+    busy share and host syncs; the host seconds of the generation and
+    the oracles."""
+    import shutil
+
+    from spark_rapids_jni_tpu_torch import parallel
+    from spark_rapids_jni_tpu_torch.tpcds import datagen, queries, streams
+
+    res = {"w1": {}, "w2": {}, "w3": {}, "card": nvidia_smi_line()}
+    log(f"(w) on {res['card']}")
+    mesh = parallel.make_mesh(MESH_SHARDS, devices=mesh_pool(MESH_SHARDS))
+
+    def unpadded(r):
+        return r if not isinstance(r, tuple) else (
+            queries.unpad_groupby(r[0], r[1]))
+
+    def mesh_runs(calls, tag):
+        """The single-device and mesh form of each query: checked equal,
+        then measured; the mesh forms' launches."""
+        out, got = {}, {}
+        for name, (one, many) in calls.items():
+            keys = TPCDS_KEYS[name]
+            single = tpcds_frame(one(), keys)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            r = many()
+            torch.cuda.synchronize()
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            if isinstance(r, tuple) and int(r[2].max()) > 0:
+                raise AssertionError(f"({tag}) {name} mesh overflow")
+            same_frames(tpcds_frame(unpadded(r), keys), single,
+                        f"({tag}) {name} mesh against one device")
+            got[name] = single
+            out[name] = {"rows": len(single), "launches": launches,
+                         "single": tpcds_measure(f"({tag}) {name}, one "
+                                                 "device", one),
+                         "mesh": tpcds_measure(
+                             f"({tag}) {name}, {MESH_SHARDS} shards", many)}
+            if launches["murmur3_table_fused"] == 0:
+                raise AssertionError(f"({tag}) {name}: the mesh run never "
+                                     "launched K5")
+            log(f"({tag}) {name}: {len(single)} groups, mesh equal to one "
+                f"device; launches in the mesh run {launches}")
+        return out, got
+
+    # (w1) in memory, one task's batch
+    t0 = time.perf_counter()
+    tables = datagen.generate(TPCDS_ROWS, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    res["w1"]["datagen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = tpcds_oracles(tpcds_host(tables))
+    res["w1"]["oracle_s"] = time.perf_counter() - t0
+    log(f"(w1) datagen.generate({TPCDS_ROWS}): "
+        f"{res['w1']['datagen_s']:.1f} s; pandas oracles "
+        f"{res['w1']['oracle_s']:.1f} s")
+    calls = {
+        "q5": (lambda: queries.q5(tables),
+               lambda: queries.q5_distributed(tables, mesh)),
+        "q23": (lambda: queries.q23(tables),
+                lambda: queries.q23_distributed(tables, mesh)),
+        "q64": (lambda: queries.q64(tables),
+                lambda: queries.q64_distributed(tables, mesh)),
+    }
+    out, got = mesh_runs(calls, "w1")
+    for name in calls:
+        same_frames(got[name], want[name], f"(w1) {name} against pandas")
+    res["w1"].update(out)
+    res["k5_shard_rows"] = tables["store_sales"].row_count // MESH_SHARDS
+    res["k5_launches"] = sum(
+        out[q]["launches"]["murmur3_table_fused"] for q in out)
+    del tables, calls
+
+    # (w2) the Parquet star schema at SF1, streamed
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "tpcds_sf1")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        manifest = streams.generate_parquet(root, scale=TPCDS_SCALE, seed=seed)
+        res["w2"]["generate_s"] = time.perf_counter() - t0
+        res["w2"]["manifest"] = {k: v for k, v in manifest.items()
+                                 if k != "dir"}
+        log(f"(w2) generate_parquet(scale={TPCDS_SCALE}): "
+            f"{res['w2']['generate_s']:.1f} s, {res['w2']['manifest']}")
+        runs = {"q5": lambda: streams.q5_stream(root, TPCDS_PREFETCH, DEVICE),
+                "q23": lambda: streams.q23_stream(
+                    root, prefetch=TPCDS_PREFETCH, device=DEVICE),
+                "q64": lambda: streams.q64_stream(
+                    root, prefetch=TPCDS_PREFETCH, device=DEVICE)}
+        results = {name: fn() for name, fn in runs.items()}
+        t0 = time.perf_counter()
+        verdicts = stream_verdicts(root, results["q5"], results["q23"],
+                                   results["q64"])
+        res["w2"]["oracle_s"] = time.perf_counter() - t0
+        res["w2"]["verdicts"] = verdicts
+        log(f"(w2) oracle verdicts {verdicts} (pandas "
+            f"{res['w2']['oracle_s']:.1f} s); groups "
+            f"{ {k: v.row_count for k, v in results.items()} }")
+        if not all(verdicts.values()):
+            raise AssertionError(f"(w2) oracle verdicts {verdicts}")
+        for name, fn in runs.items():
+            res["w2"][name] = tpcds_measure(f"(w2) {name}_stream", fn)
+            res["w2"][name]["groups"] = results[name].row_count
+        del results
+
+        # (w3) the same files through the mesh DAGs
+        t0 = time.perf_counter()
+        sf1 = streams.load_tables(root, device=DEVICE)
+        torch.cuda.synchronize()
+        res["w3"]["load_s"] = time.perf_counter() - t0
+        lo, hi = streams._DATE_LO, streams._DATE_HI
+        calls = {
+            "q5": (lambda: queries.q5(sf1, lo, hi),
+                   lambda: queries.q5_distributed(sf1, mesh, lo, hi)),
+            "q23": (lambda: queries.q23(sf1, 50),
+                    lambda: queries.q23_distributed(sf1, mesh, 50)),
+            "q64": (lambda: queries.q64(sf1),
+                    lambda: queries.q64_distributed(sf1, mesh)),
+        }
+        out, _ = mesh_runs(calls, "w3")
+        res["w3"].update(out)
+        log(f"(w3) load_tables: {res['w3']['load_s']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def tpcds_kernel_records(qw: dict) -> list:
+    """K5 at (w)'s shape: one shard's store_sales customer_sk keys, as
+    q23's exchanges hash a shard of (w1)'s batch, with (w)'s mesh
+    launches."""
+    from spark_rapids_jni_tpu_torch import dtype as dt
+    from spark_rapids_jni_tpu_torch.column import Column
+    from spark_rapids_jni_tpu_torch.kernels import hashing as kh
+
+    n = qw["k5_shard_rows"]
+    rng = np.random.default_rng(0)
+    keys = [Column(torch.from_numpy(rng.integers(
+        0, TPCDS_ROWS // 20, n, dtype=np.int64)).to(DEVICE), dt.INT64)]
+    return [kernel_record(
+        kh.MURMUR3, "tpcds", f"{n} rows x 1 INT64 key (one of "
+        f"{MESH_SHARDS} shards)", qw["k5_launches"],
+        lambda: [kh.murmur3_columns(keys)], lambda: [kh.murmur3_plain(keys)],
+        n * (8 + 4), n * (2 * 11 + 10),
+        note="(w1): the q5/q23/q64 mesh runs' launches")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    # the script's own child processes ((k5)'s CPU reference, (t)'s dumps)
+    # the script's own child processes ((k5)'s and (n)'s CPU references,
+    # (t)'s dumps, (u)'s daemon)
     ap.add_argument("--k5-cpu-reference", nargs=2, metavar=("IN", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--oplib-cpu-reference", nargs=2, metavar=("IN", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--telemetry-dump-child", metavar="IN",
                     help=argparse.SUPPRESS)
@@ -7280,6 +7675,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.k5_cpu_reference:
         return k5_cpu_reference(*args.k5_cpu_reference)
+    if args.oplib_cpu_reference:
+        return oplib_cpu_reference(*args.oplib_cpu_reference)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -7358,6 +7755,7 @@ def run_all(args) -> int:
         "telemetry": lambda: phase_telemetry(rb, kernels, d, mctx),
         "serving": lambda: phase_serving(rb, kernels, d, mctx),
         "native": lambda: phase_native(rb, kernels, d),
+        "tpcds": lambda: phase_tpcds(kernels, args.seed),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
     res = {}
@@ -7431,6 +7829,12 @@ def run_all(args) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("mesh kernels")
+    if "tpcds" in res:
+        try:
+            recs += tpcds_kernel_records(res["tpcds"])
+        except Exception:
+            traceback.print_exc()
+            failed.append("tpcds kernels")
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -7456,7 +7860,7 @@ def run_all(args) -> int:
         "formulations": res["formulations"], "fusion": res["fusion"],
         "io": res["io"], "mesh": res["mesh"],
         "telemetry": res["telemetry"], "serving": res["serving"],
-        "native": res["native"], **hard}))
+        "native": res["native"], "tpcds": res["tpcds"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,5 +13,23 @@ device.
 
 from . import dtype
 from .column import Column, Table
+from .dtype import DType, TypeId
 
-__all__ = ["dtype", "Column", "Table"]
+__version__ = "0.1.0"
+
+_SUBPACKAGES = ("io", "ops", "parallel", "utils", "interop", "rows",
+                "factories", "struct", "tpcds")
+
+
+def __getattr__(name):
+    # subpackages load on first access, as the JAX package's do: an
+    # import of the package stays light and free of import cycles
+    if name in _SUBPACKAGES:
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["dtype", "DType", "TypeId", "Column", "Table", "io",
+           "__version__"]

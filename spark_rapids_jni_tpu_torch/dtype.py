@@ -283,6 +283,15 @@ LIST = DType(TypeId.LIST)
 STRING = DType(TypeId.STRING)
 STRUCT = DType(TypeId.STRUCT)
 TIMESTAMP_DAYS = DType(TypeId.TIMESTAMP_DAYS)
+TIMESTAMP_SECONDS = DType(TypeId.TIMESTAMP_SECONDS)
+TIMESTAMP_MILLISECONDS = DType(TypeId.TIMESTAMP_MILLISECONDS)
+TIMESTAMP_MICROSECONDS = DType(TypeId.TIMESTAMP_MICROSECONDS)
+TIMESTAMP_NANOSECONDS = DType(TypeId.TIMESTAMP_NANOSECONDS)
+DURATION_DAYS = DType(TypeId.DURATION_DAYS)
+DURATION_SECONDS = DType(TypeId.DURATION_SECONDS)
+DURATION_MILLISECONDS = DType(TypeId.DURATION_MILLISECONDS)
+DURATION_MICROSECONDS = DType(TypeId.DURATION_MICROSECONDS)
+DURATION_NANOSECONDS = DType(TypeId.DURATION_NANOSECONDS)
 
 
 def decimal32(scale: int) -> DType:
@@ -291,6 +300,10 @@ def decimal32(scale: int) -> DType:
 
 def decimal64(scale: int) -> DType:
     return DType(TypeId.DECIMAL64, scale)
+
+
+def decimal128(scale: int) -> DType:
+    return DType(TypeId.DECIMAL128, scale)
 
 
 _NP_TO_TYPEID = {

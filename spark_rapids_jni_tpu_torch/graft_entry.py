@@ -10,7 +10,8 @@ runs on the device of its inputs; ``entry`` builds the example tables on
 
 ``dryrun_multichip`` (port of ``__graft_entry__.py:72``) runs the
 distributed tier once over a mesh of ``n_devices`` shards and checks
-each result against its oracle.
+each result against its oracle, TPC-DS q5 on the mesh against q5 on one
+device last.
 """
 
 from __future__ import annotations
@@ -101,7 +102,9 @@ def dryrun_multichip(n_devices: int,
     and check every result: the shuffle join, the groupby against its
     oracle, the sort's total order, the broadcast join's pair count, the
     string-key join, the chunked and packed groupbys, the packed join and
-    sort, and the FLOAT64 -> STRING -> FLOAT64 cast round trip."""
+    sort, the FLOAT64 -> STRING -> FLOAT64 cast round trip, and TPC-DS q5
+    on the mesh against q5 on one device (``__graft_entry__.py:303-326``:
+    no overflow, the same categories, revenue within 1e-6 relative)."""
     from . import parallel
     from .ops import strings as strings_mod
     from .ops.groupby_chunked import groupby_aggregate_capped_chunked
@@ -233,6 +236,26 @@ def dryrun_multichip(n_devices: int,
                           fvals.view(np.uint64)), (
         "ryu/eisel-lemire cast round-trip not bit-exact")
 
+    # one mesh TPC-DS query step: q5 (scan -> join -> agg DAG) over the
+    # mesh against its single-device result
+    from .tpcds import datagen, queries
+
+    tpcds_tables = datagen.generate(400, seed=3, device=dev)
+    single = queries.q5(tpcds_tables)
+    padded, q5_counts, q5_ov = queries.q5_distributed(tpcds_tables, mesh)
+    assert int(q5_ov.max()) <= 0, "q5 mesh overflow"
+    dist = queries.unpad_groupby(padded, q5_counts)
+
+    def q5_to_dict(t):
+        return dict(zip(t["category_id"].to_pylist(),
+                        t["sum_revenue"].to_pylist()))
+
+    sd, dd = q5_to_dict(single), q5_to_dict(dist)
+    assert sd.keys() == dd.keys(), "q5 mesh category set mismatch"
+    for c in sd:
+        assert abs(sd[c] - dd[c]) <= 1e-6 * max(1.0, abs(sd[c])), (
+            f"q5 mesh revenue mismatch cat {c}")
+
     print(
         f"dryrun_multichip({n_devices}) on {gpus} GPU(s)"
         f"{'' if gpus else ' (CPU shards)'}: join pairs={total}, "
@@ -240,4 +263,5 @@ def dryrun_multichip(n_devices: int,
         f"broadcast pairs={int(bj_counts.sum())}, "
         f"string-key pairs={s_total}, chunked groups={int(cgroups)}, "
         f"packed groups={int(pgroups)}, packed join pairs={pj.row_count}, "
-        "K4a/K4b engines ok, flat gather ok, ryu roundtrip ok")
+        "K4a/K4b engines ok, flat gather ok, ryu roundtrip ok, "
+        f"tpcds q5 cats={len(sd)} ok")

@@ -185,6 +185,13 @@ def _murmur3_cuda(cols: Sequence[Column], seed: int) -> torch.Tensor:
     return out
 
 
+def supports(cols) -> bool:
+    """True when every key column has a kernel word format
+    (``kernels/hashing.py:169``: STRING keys take the op library's
+    chain)."""
+    return all(not c.dtype.is_string for c in cols)
+
+
 def murmur3_columns(cols: Sequence[Column], seed: int = DEFAULT_SEED):
     """The chained Murmur3 of one or more fixed-width key columns, as an
     (n,) int32 tensor on their device."""

@@ -534,6 +534,11 @@ for _spec in _REGISTRY.values():
         _BY_OP.setdefault(_op_name, []).append(_spec)
 
 
+def kernel_for_op(name: str):
+    """The KernelSpecs covering a dispatch-plane op name (may be [])."""
+    return list(_BY_OP.get(name, ()))
+
+
 def decline_reason(kernel: str, op: dict, table: Table,
                    rest: Sequence[Table]) -> Optional[str]:
     """Why ``kernel`` declines this op, or None."""

@@ -109,6 +109,31 @@ def table_order_keys(cols: list[Column]) -> list[torch.Tensor]:
     return out
 
 
+def composite_compare_le(a_keys: list[torch.Tensor], a_idx,
+                         b_keys: list[torch.Tensor], b_idx) -> torch.Tensor:
+    """Lexicographic ``a[a_idx] <= b[b_idx]`` over parallel carrier key
+    lists (signed carrier order is the u64 words' order)."""
+    shape = torch.as_tensor(a_idx).shape
+    dev = a_keys[0].device
+    lt = torch.zeros(shape, dtype=torch.bool, device=dev)
+    eq = torch.ones(shape, dtype=torch.bool, device=dev)
+    for ak, bk in zip(a_keys, b_keys):
+        av, bv = ak[a_idx], bk[b_idx]
+        lt = lt | (eq & (av < bv))
+        eq = eq & (av == bv)
+    return lt | eq
+
+
+def rows_equal(a_keys: list[torch.Tensor], a_idx,
+               b_keys: list[torch.Tensor], b_idx) -> torch.Tensor:
+    """Row ``a[a_idx]`` equals row ``b[b_idx]`` in every key word."""
+    eq = torch.ones(torch.as_tensor(a_idx).shape, dtype=torch.bool,
+                    device=a_keys[0].device)
+    for ak, bk in zip(a_keys, b_keys):
+        eq = eq & (ak[a_idx] == bk[b_idx])
+    return eq
+
+
 def minmax_host(kw: torch.Tensor) -> tuple[int, int]:
     """Host (int, int) min/max of a carrier word — the eager range probe
     of the packed-key routers. ``hi - lo`` of the two carriers is the span

@@ -14,12 +14,13 @@ Both directions run through the hand-written kernels of
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from . import dtype as dt
-from .column import Column, Table
+from .column import Column, Table, resolve_device
 from .kernels import row_transpose as rt
 
 INT_MAX = 2**31 - 1
@@ -83,6 +84,25 @@ class PackedRows:
     @property
     def row_count(self) -> int:
         return int(self.data.shape[0])
+
+
+def packed_rows_from_numpy(
+    data: np.ndarray, dtypes: Sequence[dt.DType],
+    device: Union[str, torch.device] = "cuda",
+) -> PackedRows:
+    """Host row bytes ``(n, row_size)`` (or flat) as a PackedRows batch on
+    ``device`` (``rows.py:414``)."""
+    layout = compute_fixed_width_layout(dtypes)
+    data = np.asarray(data, dtype=np.uint8)
+    if data.ndim == 1:
+        if data.size % layout.row_size:
+            raise ValueError("flat row buffer not a multiple of row_size")
+        data = data.reshape(-1, layout.row_size)
+    if data.shape[1] != layout.row_size:
+        raise ValueError(
+            f"row width {data.shape[1]} != layout row_size {layout.row_size}")
+    return PackedRows(torch.from_numpy(np.ascontiguousarray(data)).to(
+        resolve_device(device)), layout)
 
 
 def column_bytes(col: Column) -> torch.Tensor:

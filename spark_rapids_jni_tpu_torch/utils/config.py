@@ -388,6 +388,12 @@ def flag_default(name: str):
     return _FLAGS[name].default
 
 
+def describe_flags() -> str:
+    """Human-readable flag table (the CONTRIBUTING.md:57-70 analog)."""
+    return "\n".join(f"{f.env_var:<40} default={f.default!r:<10} {f.doc}"
+                     for f in _FLAGS.values())
+
+
 def set_flag(name: str, value) -> None:
     global _generation
     if name not in _FLAGS:

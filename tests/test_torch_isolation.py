@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and hides no fallback.
 
 * No module of ``spark_rapids_jni_tpu_torch`` and not ``chip_smoke.py``
-  imports ``jax`` or the JAX package.
+  imports ``jax``, the JAX package or the JAX repository's
+  ``benchmarks``.
 * Entry points build on CUDA unless asked for the CPU, and raise when
   CUDA is absent.
 * A kernel wrapper takes its plain version only for CPU tensors: other
@@ -63,7 +64,7 @@ def _imported_modules(path: pathlib.Path) -> set:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "spark_rapids_jni_tpu")
+    return top in ("jax", "jaxlib", "spark_rapids_jni_tpu", "benchmarks")
 
 
 @pytest.mark.parametrize(
@@ -90,12 +91,17 @@ def test_scan_covers_the_package():
             "distributed.py", "planmesh.py", "flight.py", "tracing.py",
             "lockcheck.py", "profiler.py", "planstats.py", "frames.py",
             "client.py", "session.py", "scheduler.py", "durable.py",
-            "server.py", "native.py", "ieee754.py"} <= names
+            "server.py", "native.py", "ieee754.py", "datagen.py",
+            "queries.py", "streams.py"} <= names
     parallel_dir = ROOT / "spark_rapids_jni_tpu_torch" / "parallel"
     assert {p for p in PORT_FILES if p.parent == parallel_dir} == {
         parallel_dir / f for f in ("__init__.py", "mesh.py", "shuffle.py",
                                    "tolerant.py", "distributed.py",
                                    "planmesh.py")}
+    tpcds_dir = ROOT / "spark_rapids_jni_tpu_torch" / "tpcds"
+    assert {p for p in PORT_FILES if p.parent == tpcds_dir} == {
+        tpcds_dir / f for f in ("__init__.py", "datagen.py", "queries.py",
+                                "streams.py")}
 
 
 def test_every_tpu_kernel_has_one_registered_counterpart():

@@ -506,4 +506,6 @@ def test_prepare_exchange():
 
 def test_dryrun_multichip_on_cpu(capsys):
     graft_entry.dryrun_multichip(4, device="cpu")
-    assert "dryrun_multichip(4) on 0 GPU(s)" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "dryrun_multichip(4) on 0 GPU(s)" in out
+    assert "tpcds q5 cats=4 ok" in out

@@ -51,6 +51,7 @@ _PHASES = {
     "telemetry": lambda cs, rb, k, D: cs.phase_telemetry(rb, k, D["d"], {}),
     "serving": lambda cs, rb, k, D: cs.phase_serving(rb, k, D["d"], {}),
     "native": lambda cs, rb, k, D: cs.phase_native(rb, k, D["d"]),
+    "tpcds": lambda cs, rb, k, D: cs.phase_tpcds(k, D["seed"]),
 }
 
 
