@@ -277,6 +277,19 @@ The kernels are built from ``spark_rapids_jni_tpu_torch/csrc`` with
     a resident chain (upload, ops, download, free), each equal to
     ``table_op_wire`` on the card and to numpy, K1b and K1a launched; the
     wall through the shim against the in-process calls.
+(x) the artifact — the ``cuda12`` jar's tree, laid out by
+    ``spark-rapids-tpu-runtime/stage_cuda.py`` in a temporary directory
+    from a shim built now (CMake with ``SRT_RUNTIME=torch``, the jar's
+    build) and the kernels (c) built, then run alone: the staged
+    ``native_demo`` and ``jni_harness`` on the card, and a child process
+    (``--artifact-child``) whose ``sys.path`` holds the staged
+    ``python/`` and site-packages but not this checkout, which runs (v)'s
+    plan op by op and as a resident chain and (a)'s plan as a resident
+    chain through the staged library. Its bytes must equal (v)'s and
+    the numpy oracles, K1b, K1a, K2a and K2b must launch, the package
+    must come from the staged tree, no JAX module may load, and the
+    staged kernel directory must be unchanged (nothing compiled); the
+    phase fails past ``ARTIFACT_BUDGET_S``.
 (w) the TPC-DS query tier (``spark_rapids_jni_tpu_torch.tpcds``): (w1)
     ``datagen.generate`` at one task's 2^23 store_sales rows (from
     ``--seed``): q5, q23 and q64 on one device and on ``MESH_SHARDS``
@@ -326,12 +339,16 @@ without the result line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -7194,6 +7211,45 @@ def serving_u4(rb, kernels, serving, d: dict) -> dict:
     return {"wall_ms": wall, "launches": launches, "counters": picked}
 
 
+def wire_digest(wire) -> str:
+    """SHA-256 of a wire 5-tuple: its schema, row count and buffers."""
+    t, s, ds, vs, n = wire
+    h = hashlib.sha256(json.dumps(
+        [[int(x) for x in t], [int(x) for x in s], int(n),
+         [x is None for x in ds], [x is None for x in vs]]).encode())
+    for x in (*ds, *vs):
+        if x is not None:
+            b = memoryview(x).cast("B")
+            h.update(b.nbytes.to_bytes(8, "little"))
+            h.update(b)
+    return h.hexdigest()
+
+
+def run_native_programs(paths: dict, env: dict, platform: str, tag: str,
+                        cwd=None) -> float:
+    """Start the shim's two native programs together (HOST mode); each
+    must exit 0, name ``platform`` and end in ``: ok``. -> seconds."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([str(paths[name])], env=env, cwd=cwd,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in ("native_demo", "jni_harness")}
+    for name, p in procs.items():
+        try:
+            out = p.communicate(timeout=SERVE_WAIT_S)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lines = out.rstrip().splitlines()
+        if (p.returncode != 0 or f"platform = {platform}" not in out
+                or not lines or not lines[-1].endswith(": ok")):
+            raise AssertionError(
+                f"{tag} {os.path.basename(str(paths[name]))} exited "
+                f"{p.returncode}:\n" + out[-4000:])
+    return time.perf_counter() - t0
+
+
 def shim_op(native, op: dict, wire):
     """One op through the shim's C ABI (JOIN mode), its output handles
     read back and released."""
@@ -7216,21 +7272,30 @@ def shim_op(native, op: dict, wire):
             native.buffer_release(h)
 
 
-def shim_resident(native, ops, wire):
-    """upload -> one resident op per step -> download -> free."""
+def shim_upload(native, wire) -> int:
+    """A wire table through the shim's handles into a resident table."""
     ids, scales, datas, valids, n = wire
     hd = [native.buffer_create(bytes(x)) for x in datas]
     hv = [None if v is None else native.buffer_create(bytes(v))
           for v in valids]
     try:
-        tabs = [native.jax_table_upload(ids, scales, hd, hv, n)]
+        return native.jax_table_upload(ids, scales, hd, hv, n)
     finally:
         for h in hd + [h for h in hv if h]:
             native.buffer_release(h)
+
+
+def shim_resident(native, ops, wire, rest=None):
+    """upload -> one resident op per step -> download -> free. ``rest``
+    maps an op's index to the wire tables it takes besides the previous
+    result (a join's build side), uploaded first."""
+    extra = {k: [shim_upload(native, w) for w in ws]
+             for k, ws in (rest or {}).items()}
+    tabs = [shim_upload(native, wire)]
     try:
-        for op in ops:
-            tabs.append(native.jax_table_op_resident(json.dumps(op),
-                                                     [tabs[-1]]))
+        for k, op in enumerate(ops):
+            tabs.append(native.jax_table_op_resident(
+                json.dumps(op), [tabs[-1], *extra.get(k, ())]))
         oids, oscales, od, ov, on = native.jax_table_download(tabs[-1])
         got = (oids, oscales, [native.buffer_bytes(h) for h in od],
                [None if h is None else native.buffer_bytes(h) for h in ov],
@@ -7239,7 +7304,7 @@ def shim_resident(native, ops, wire):
             native.buffer_release(h)
         return got
     finally:
-        for t in tabs:
+        for t in tabs + [t for ts in extra.values() for t in ts]:
             native.jax_table_free(t)
 
 
@@ -7270,25 +7335,7 @@ def phase_native(rb, kernels, d: dict) -> dict:
     build_s = time.perf_counter() - t0
     env = dict(os.environ, SPARK_RAPIDS_TPU_DEVICE=kind,
                SRT_PYTHONPATH=ROOT_DIR)
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen([str(paths[name])], env=env,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for name in ("native_demo", "jni_harness")}
-    outs = {}
-    for name, p in procs.items():
-        try:
-            outs[name] = p.communicate(timeout=SERVE_WAIT_S)[0]
-        finally:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        lines = outs[name].rstrip().splitlines()
-        if (p.returncode != 0 or f"platform = {platform}" not in outs[name]
-                or not lines[-1].endswith(": ok")):
-            raise AssertionError(f"(v) {name}_torch exited {p.returncode}:\n"
-                                 + outs[name][-4000:])
-    programs_s = time.perf_counter() - t0
+    programs_s = run_native_programs(paths, env, platform, "(v)")
     os.environ["SPARK_RAPIDS_TPU_DEVICE"] = kind
     native.jax_init()
     if native.jax_platform() != platform or \
@@ -7342,7 +7389,8 @@ def phase_native(rb, kernels, d: dict) -> dict:
            "shim_ms": statistics.median(walls["shim"]),
            "walls_ms": walls, "chain_ms": chain_ms,
            "launches": {k: launches[k] for k in NATIVE_KERNELS},
-           "chain_launches": {k: chain_launches[k] for k in NATIVE_KERNELS}}
+           "chain_launches": {k: chain_launches[k] for k in NATIVE_KERNELS},
+           "digests": [wire_digest(w) for w in ref[1:]]}
     log(f"(v) shim built in {build_s:.1f} s "
         f"({'built now' if rec['built_now'] else 'already built'}); "
         f"native_demo_torch and jni_harness_torch passed on the card "
@@ -7352,6 +7400,291 @@ def phase_native(rb, kernels, d: dict) -> dict:
         f"{rec['bridge_ms']:.1f} ms in process (medians of {NATIVE_RUNS}); "
         f"the resident chain {chain_ms:.1f} ms, equal; launches "
         f"{rec['launches']}, chain {rec['chain_launches']}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# (x) the artifact: the cuda12 jar's tree, staged and run on its own
+# ---------------------------------------------------------------------------
+
+STAGE_SCRIPT = os.path.join(ROOT_DIR, "spark-rapids-tpu-runtime",
+                            "stage_cuda.py")
+JAR_LIB = "libspark_rapids_tpu.so"  # the name the Java loader asks for
+# K1b and K1a from (v)'s plan, K2a and K2b from (a)'s join
+ARTIFACT_KERNELS = ("unpack_rows", "pack_rows", "build_table", "probe_table")
+ARTIFACT_BUDGET_S = 60.0
+JAX_ROOTS = ("jax", "jaxlib", "spark_rapids_jni_tpu")
+
+
+def artifact_shim(out: str) -> dict:
+    """The port's shim and its two programs, built now into ``out`` as the
+    jar's are: CMake with ``SRT_RUNTIME=torch``."""
+    cmake = shutil.which("cmake")
+    if cmake is None:
+        raise AssertionError("(x) no cmake: the jar's shim is built with "
+                             "CMake (SRT_RUNTIME=torch)")
+    for cmd in ([cmake, "-S", os.path.join(ROOT_DIR, "src"), "-B", out,
+                 "-DSRT_RUNTIME=torch", f"-DPython3_EXECUTABLE={sys.executable}"],
+                [cmake, "--build", out, "--parallel",
+                 str(os.cpu_count() or 4)]):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"(x) {' '.join(cmd)} failed:\n"
+                                 + (proc.stdout + proc.stderr)[-4000:])
+    return {"lib": os.path.join(out, JAR_LIB),
+            "native_demo": os.path.join(out, "native_demo"),
+            "jni_harness": os.path.join(out, "jni_harness"),
+            "built_by": f"cmake (SRT_RUNTIME=torch, {cmake})"}
+
+
+def stage_artifact(shim: dict, kernels_root: str, out: str) -> dict:
+    """The jar's tree through the staging script; -> its JSON record."""
+    proc = subprocess.run(
+        [sys.executable, STAGE_SCRIPT, "--lib", str(shim["lib"]),
+         "--kernels", kernels_root, "--out", out,
+         "--native-demo", str(shim["native_demo"]),
+         "--jni-harness", str(shim["jni_harness"])],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError("(x) staging failed:\n"
+                             + (proc.stdout + proc.stderr)[-4000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def tree_listing(root: str) -> dict:
+    """Every file and directory under ``root``: (size, mtime in ns)."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        for name in dirnames + filenames:
+            p = os.path.join(dirpath, name)
+            st = os.stat(p)
+            out[os.path.relpath(p, root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def artifact_env(python_dir: str, kind: str) -> dict:
+    """This environment without any path to this checkout's package, the
+    shim's device and its ``SRT_PYTHONPATH`` set to the staged tree."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PYTHONHOME", "SRT_PYTHONPATH")}
+    env.update(SPARK_RAPIDS_TPU_DEVICE=kind, SRT_PYTHONPATH=python_dir)
+    return env
+
+
+def artifact_jobs(d: dict, query: bool = True) -> list:
+    """The child's runs: (v)'s plan op by op (``NATIVE_RUNS`` times) and as
+    a resident chain, then (a)'s plan as a resident chain."""
+    jobs = [{"name": "ops", "mode": "ops", "ops": NATIVE_PLAN,
+             "wire": d["fact_wire"], "runs": NATIVE_RUNS},
+            {"name": "chain", "mode": "chain", "ops": NATIVE_PLAN,
+             "wire": d["fact_wire"]}]
+    if query:
+        jobs.append({"name": "query", "mode": "chain", "ops": PLAN,
+                     "wire": d["fact_wire"], "rest": {2: [d["item_wire"]]},
+                     "keep": True})
+    return jobs
+
+
+def run_artifact_child(stage_out: str, lib: str, kind: str, jobs: list,
+                       tmp: str) -> dict:
+    """Run ``jobs`` in a child on the staged tree alone
+    (:func:`artifact_child`); -> its record."""
+    python_dir = os.path.join(stage_out, "python")
+    in_path = os.path.join(tmp, "artifact_in.pkl")
+    out_path = os.path.join(tmp, "artifact_out.pkl")
+    with open(in_path, "wb") as f:
+        pickle.dump({"device": kind, "jobs": jobs}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    env = artifact_env(python_dir, kind)
+    env.update(PYTHONPATH=python_dir, SPARK_RAPIDS_TPU_NATIVE_LIB=lib)
+    # -P: the script's directory (this checkout) stays off sys.path
+    proc = subprocess.run(
+        [sys.executable, "-P", os.path.abspath(__file__), "--artifact-child",
+         in_path, out_path], cwd=stage_out, env=env, capture_output=True,
+        text=True, timeout=SERVE_WAIT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"(x) the staged child exited {proc.returncode}"
+                             f":\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    log(f"(x) child: {proc.stdout.strip().splitlines()[-1]}")
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
+
+
+def artifact_child(in_path: str, out_path: str) -> int:
+    """(x)'s child: ``import spark_rapids_jni_tpu_torch`` resolves to the
+    staged tree and ``SPARK_RAPIDS_TPU_NATIVE_LIB`` names the staged
+    library; runs each job through the shim's C ABI (JOIN mode) and
+    writes its digests, launches, walls and loaded modules."""
+    import spark_rapids_jni_tpu_torch as port
+    from spark_rapids_jni_tpu_torch import kernels
+    from spark_rapids_jni_tpu_torch.utils import native
+
+    with open(in_path, "rb") as f:
+        spec = pickle.load(f)
+    cuda = spec["device"] == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    native.jax_init()
+    rec = {"package": native.runtime_package(),
+           "platform": native.jax_platform(), "lib": native.load()._name,
+           "file": port.__file__, "sys_path": list(sys.path), "jobs": {}}
+    for job in spec["jobs"]:
+        walls, launches = [], {}
+        for run in range(job.get("runs", 1)):
+            sync()
+            if run == 0:
+                kernels.reset_launches()
+            t0 = time.perf_counter()
+            if job["mode"] == "ops":
+                got = [job["wire"]]
+                for op in job["ops"]:
+                    got.append(shim_op(native, op, got[-1]))
+                got = got[1:]
+            else:
+                got = [shim_resident(native, job["ops"], job["wire"],
+                                     job.get("rest"))]
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if run == 0:
+                launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        rec["jobs"][job["name"]] = {
+            "walls_ms": walls, "launches": launches,
+            "digests": [wire_digest(w) for w in got],
+            **({"wire": got[-1]} if job.get("keep") else {})}
+    rec["live_handles"] = native.live_handle_count()
+    rec["resident_tables"] = native.jax_resident_table_count()
+    rec["jax_modules"] = sorted(m for m in sys.modules
+                                if m.split(".")[0] in JAX_ROOTS)
+    with open(out_path, "wb") as f:
+        pickle.dump(rec, f, protocol=pickle.HIGHEST_PROTOCOL)
+    print(json.dumps({
+        "file": rec["file"], "lib": rec["lib"], "platform": rec["platform"],
+        "jax_modules": rec["jax_modules"],
+        "jobs": {k: {"walls_ms": j["walls_ms"], "digests": j["digests"],
+                     "launches": {n: c for n, c in j["launches"].items()
+                                  if c}}
+                 for k, j in rec["jobs"].items()}}))
+    return 0
+
+
+def check_artifact_child(rec: dict, python_dir: str, lib: str,
+                         platform: str) -> None:
+    """What the child says of where it ran: the port's package from the
+    staged tree, the staged library, no path to this checkout, no JAX
+    module, nothing left registered."""
+    real = os.path.realpath
+    bad = []
+    if rec["package"] != "spark_rapids_jni_tpu_torch" or \
+            rec["platform"] != platform:
+        bad.append(f"shim embeds {rec['package']} on {rec['platform']}")
+    if real(rec["lib"]) != real(lib):
+        bad.append(f"loaded {rec['lib']}, not the staged {lib}")
+    if not real(rec["file"]).startswith(real(python_dir) + os.sep):
+        bad.append(f"imported the package from {rec['file']}")
+    if any(p and real(p) == real(ROOT_DIR) for p in rec["sys_path"]):
+        bad.append("this checkout is on the child's sys.path")
+    if rec["jax_modules"]:
+        bad.append(f"loaded {rec['jax_modules'][:5]}")
+    if rec["live_handles"] or rec["resident_tables"]:
+        bad.append(f"{rec['live_handles']} handles and "
+                   f"{rec['resident_tables']} tables left")
+    if bad:
+        raise AssertionError("(x) the staged child: " + "; ".join(bad))
+
+
+def phase_artifact(rb, kernels, d: dict, native_rec=None) -> dict:
+    """(x): the ``cuda12`` jar's tree staged from a shim built now and the
+    kernels already built, then run on its own (see the module
+    docstring); ``native_rec`` is (v)'s record (its in-tree digests),
+    else (v)'s plan runs in process here."""
+    kind = torch.device(DEVICE).type
+    platform = "gpu" if kind == "cuda" else "cpu"
+    t_all = time.perf_counter()
+    if native_rec is None:
+        ref = [d["fact_wire"]]
+        for op in NATIVE_PLAN:
+            ref.append(rb.table_op_wire(json.dumps(op), *ref[-1],
+                                        device=DEVICE))
+        check_rows(ref[-1], native_oracle(d))
+        want = [wire_digest(w) for w in ref[1:]]
+    else:
+        want = native_rec["digests"]
+    kernels.build_all()
+    kernels_root = os.path.dirname(os.path.dirname(str(kernels.CSRC)))
+    build_root = os.path.join(ROOT_DIR, "build")
+    os.makedirs(build_root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="artifact-", dir=build_root)
+    try:
+        t0 = time.perf_counter()
+        shim = artifact_shim(os.path.join(tmp, "shim"))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        staged = stage_artifact(shim, kernels_root, os.path.join(tmp, "jar"))
+        stage_s = time.perf_counter() - t0
+        jar = staged["out"]
+        python_dir = os.path.join(jar, "python")
+        lib = os.path.join(jar, staged["lib"])
+        lib_dir = os.path.dirname(lib)
+        kernel_files = sorted(os.listdir(os.path.join(
+            jar, staged["kernels_dir"])))
+        listing = tree_listing(os.path.join(python_dir, "build"))
+        programs_s = run_native_programs(
+            {n: os.path.join(lib_dir, n) for n in ("native_demo",
+                                                   "jni_harness")},
+            artifact_env(python_dir, kind), platform, "(x) staged", cwd=jar)
+        t0 = time.perf_counter()
+        child = run_artifact_child(jar, lib, kind, artifact_jobs(d), tmp)
+        child_s = time.perf_counter() - t0
+        after = tree_listing(os.path.join(python_dir, "build"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_artifact_child(child, python_dir, lib, platform)
+    if after != listing:
+        changed = sorted(set(after.items()) ^ set(listing.items()))
+        raise AssertionError(f"(x) the staged kernel tree changed: "
+                             f"{changed[:6]}")
+    jobs = child["jobs"]
+    if jobs["ops"]["digests"] != want:
+        raise AssertionError("(x) op by op through the staged shim differs "
+                             "from (v)'s in-tree bytes")
+    if jobs["chain"]["digests"] != want[-1:]:
+        raise AssertionError("(x) the staged resident chain differs from "
+                             "(v)'s in-tree bytes")
+    groups = check_query_result(jobs["query"]["wire"], query_oracle(d))
+    launches = {k: {name: j["launches"].get(k, 0) for name, j in jobs.items()}
+                for k in ARTIFACT_KERNELS}
+    missing = [k for k, by in launches.items() if not any(by.values())]
+    if missing:
+        raise AssertionError(f"(x) the staged child never launched "
+                             f"{missing}: {launches}")
+    total_s = time.perf_counter() - t_all
+    if total_s > ARTIFACT_BUDGET_S:
+        raise AssertionError(f"(x) took {total_s:.1f} s, over its budget of "
+                             f"{ARTIFACT_BUDGET_S:.0f} s")
+    rec = {"built_by": shim["built_by"], "build_s": build_s,
+           "stage_s": stage_s, "staged_files": staged["files"],
+           "staged_bytes": staged["bytes"],
+           "kernel_files": kernel_files,
+           "programs_s": programs_s, "child_s": child_s,
+           "ops_ms": statistics.median(jobs["ops"]["walls_ms"]),
+           "walls_ms": {k: j["walls_ms"] for k, j in jobs.items()},
+           "query_groups": groups, "launches": launches,
+           "total_s": total_s}
+    log(f"(x) artifact: shim by {shim['built_by']} in {build_s:.1f} s; "
+        f"staged {staged['files']} files, {staged['bytes']} bytes in "
+        f"{stage_s:.1f} s; staged native_demo and jni_harness passed "
+        f"({programs_s:.1f} s); the child on the staged tree alone "
+        f"({child_s:.1f} s, no JAX module, package from the stage, "
+        f"nothing compiled): (v)'s plan op by op "
+        f"{rec['ops_ms']:.1f} ms (median of {NATIVE_RUNS}; all "
+        f"{[round(w, 1) for w in jobs['ops']['walls_ms']]}), chain "
+        f"{jobs['chain']['walls_ms'][0]:.1f} ms, equal to (v)'s bytes; "
+        f"(a)'s plan as a chain {jobs['query']['walls_ms'][0]:.1f} ms, "
+        f"{groups} groups equal to the oracle; launches {launches}; "
+        f"{total_s:.1f} s in all (budget {ARTIFACT_BUDGET_S:.0f} s)")
     return rec
 
 
@@ -7664,7 +7997,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     # the script's own child processes ((k5)'s and (n)'s CPU references,
-    # (t)'s dumps, (u)'s daemon)
+    # (t)'s dumps, (u)'s daemon, (x)'s run on the staged tree)
     ap.add_argument("--k5-cpu-reference", nargs=2, metavar=("IN", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--oplib-cpu-reference", nargs=2, metavar=("IN", "OUT"),
@@ -7672,11 +8005,15 @@ def main(argv=None) -> int:
     ap.add_argument("--telemetry-dump-child", metavar="IN",
                     help=argparse.SUPPRESS)
     ap.add_argument("--serve-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--artifact-child", nargs=2, metavar=("IN", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.k5_cpu_reference:
         return k5_cpu_reference(*args.k5_cpu_reference)
     if args.oplib_cpu_reference:
         return oplib_cpu_reference(*args.oplib_cpu_reference)
+    if args.artifact_child:  # its device is in its input
+        return artifact_child(*args.artifact_child)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -7755,6 +8092,7 @@ def run_all(args) -> int:
         "telemetry": lambda: phase_telemetry(rb, kernels, d, mctx),
         "serving": lambda: phase_serving(rb, kernels, d, mctx),
         "native": lambda: phase_native(rb, kernels, d),
+        "artifact": lambda: phase_artifact(rb, kernels, d, res.get("native")),
         "tpcds": lambda: phase_tpcds(kernels, args.seed),
     }
     mctx = {}  # (m1)'s batches and answers, for (m2)-(m4)
@@ -7860,7 +8198,8 @@ def run_all(args) -> int:
         "formulations": res["formulations"], "fusion": res["fusion"],
         "io": res["io"], "mesh": res["mesh"],
         "telemetry": res["telemetry"], "serving": res["serving"],
-        "native": res["native"], "tpcds": res["tpcds"], **hard}))
+        "native": res["native"], "artifact": res["artifact"],
+        "tpcds": res["tpcds"], **hard}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

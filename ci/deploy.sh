@@ -2,7 +2,10 @@
 # Deploy artifacts — the ci/deploy.sh analog (ci/deploy.sh:32-76):
 # package the per-platform jar + python wheel, optionally GPG-sign, and
 # publish to the configured repository. Platform classifiers replace the
-# reference's per-CUDA classifiers (cuda11 -> v5e/v5p/v4).
+# reference's per-CUDA classifiers (cuda11 -> v5e/v5p/v4); cuda12 is the
+# PyTorch/CUDA port's jar for an NVIDIA H100 (`mvn -P cuda package`).
+# Each listed jar is copied (and signed) into dist/; the publish step
+# deploys the default build only.
 #
 # Args:    SIGN_FILE (true|false)
 # Env:     CLASSIFIERS (default "v5e"), SERVER_ID, SERVER_URL,

@@ -8,8 +8,16 @@ through PyTorch's extension headers takes minutes.
 
 The build runs at the first CUDA use, never at import: every source is
 compiled by its own ``nvcc``, all started together, into
-``build/torch_kernels/<hash of the sources and flags>/``. Nothing is
-downloaded and nothing outside the repository is used.
+``build/torch_kernels/<hash of the sources and flags>/`` beside the
+package. Nothing is downloaded and nothing outside the repository is
+used. Where that directory already holds every library (the ``cuda12``
+jar ships it prebuilt), nothing is compiled and no ``nvcc`` is needed:
+
+    python -m spark_rapids_jni_tpu_torch.kernels build --out DIR
+
+builds them into ``DIR/build/torch_kernels/<hash>/``, where they load
+once the package sits in ``DIR/`` with ``csrc/`` unchanged, and
+``... kernels layout`` prints that directory and the libraries' names.
 
 Beside every kernel its module keeps a plain PyTorch version of the same
 function. A wrapper runs the plain version only for tensors on the CPU;
@@ -23,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -96,15 +105,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_all() -> dict:
+def build_dir(root=None) -> Path:
+    """``<root>/<hash of csrc/ and NVCC_FLAGS>``; ``root`` defaults to
+    :data:`BUILD_ROOT`, the one the wrappers load from."""
+    return Path(root if root is not None else BUILD_ROOT) / _digest()
+
+
+def build_all(root=None) -> dict:
     """Compile every source that is not built yet (one ``nvcc`` each, all
-    started together); returns ``{name: path of its .so}``."""
-    out_dir = BUILD_ROOT / _digest()
-    out_dir.mkdir(parents=True, exist_ok=True)
+    started together) into :func:`build_dir`; returns ``{name: path of
+    its .so}``. Where every library is there it writes nothing and never
+    looks for ``nvcc``."""
+    out_dir = build_dir(root)
     paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [n for n in SOURCES if not paths[n].exists()]
     if not todo:
         return paths
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for name in todo:
@@ -129,7 +146,7 @@ def build_all() -> dict:
 def ptxas_info(name: str) -> str:
     """What ``nvcc -Xptxas -v`` reported when it built ``csrc/<name>.cu``
     (each kernel's registers, shared memory and spills); build_all first."""
-    return (BUILD_ROOT / _digest() / f"lib{name}.ptxas.txt").read_text()
+    return (build_dir() / f"lib{name}.ptxas.txt").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -169,3 +186,35 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def layout() -> dict:
+    """Where the libraries load from, relative to the package's parent
+    directory, and their file names."""
+    return {"dir": str(build_dir().relative_to(_PKG.parent)),
+            "libraries": [f"lib{name}.so" for name in SOURCES]}
+
+
+def main(argv=None) -> int:
+    """``build --out DIR``: build every library into
+    ``DIR/build/torch_kernels/<hash>/``; ``layout``: print
+    :func:`layout`. Each prints one JSON line."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m spark_rapids_jni_tpu_torch.kernels",
+        description="Build the port's CUDA kernels ahead of their use.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    b = sub.add_parser("build", help="compile csrc/ with nvcc into "
+                       "OUT/build/torch_kernels/<hash>/")
+    b.add_argument("--out", required=True, type=Path)
+    sub.add_parser("layout", help="print the library directory and names")
+    args = ap.parse_args(argv)
+    if args.cmd == "layout":
+        print(json.dumps(layout()))
+        return 0
+    root = args.out.resolve() / BUILD_ROOT.relative_to(_PKG.parent)
+    paths = build_all(root)
+    print(json.dumps({"dir": str(build_dir(root)),
+                      "libraries": sorted(p.name for p in paths.values())}))
+    return 0

@@ -126,6 +126,10 @@ def build(out_dir=None) -> dict:
     (default :func:`build_dir`) unless they are there; returns
     ``{"lib", "native_demo", "jni_harness": path}``. Never writes
     ``build/libspark_rapids_tpu.so`` (the JAX package's library)."""
+    if not _SRC.is_dir():
+        raise NativeBuildError(
+            f"no shim sources at {_SRC}: point SPARK_RAPIDS_TPU_NATIVE_LIB "
+            "at a built library")
     out = Path(out_dir) if out_dir is not None else build_dir()
     paths = {"lib": out / LIB_NAME,
              "native_demo": out / "native_demo_torch",
@@ -163,7 +167,8 @@ def _candidate_paths() -> list:
     if flag:
         out.append(str(flag))
     out.append(str(here / "_native" / LIB_NAME))
-    out.append(str(build_dir() / LIB_NAME))
+    if _SRC.is_dir():  # a jar's tree holds the library, not its sources
+        out.append(str(build_dir() / LIB_NAME))
     return out
 
 

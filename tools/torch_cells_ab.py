@@ -12,7 +12,7 @@ own checks (a phase the checkout does not have is skipped), and
 records each profiled window (``profile_plan``): the cell's tag, its
 device ms a run and its unprofiled median wall. Phases that time
 themselves otherwise ((m1), (o), (p), (q), (k5), (r), (s), (t), (u),
-(v)) print their own lines.
+(v), (x)) print their own lines.
 
 Prints one line a cell and run, then one JSON line
 ``{"runs": [{"tree": ..., "cells": {tag: {"device_ms", "wall_ms"}}}]}``
@@ -50,7 +50,11 @@ _PHASES = {
     "mesh": lambda cs, rb, k, D: cs.phase_mesh(k, D["d"], D["dd"]),
     "telemetry": lambda cs, rb, k, D: cs.phase_telemetry(rb, k, D["d"], {}),
     "serving": lambda cs, rb, k, D: cs.phase_serving(rb, k, D["d"], {}),
-    "native": lambda cs, rb, k, D: cs.phase_native(rb, k, D["d"]),
+    # (x) compares with (v)'s in-tree bytes where (v) ran first
+    "native": lambda cs, rb, k, D: D.setdefault(
+        "native", cs.phase_native(rb, k, D["d"])),
+    "artifact": lambda cs, rb, k, D: cs.phase_artifact(rb, k, D["d"],
+                                                       D.get("native")),
     "tpcds": lambda cs, rb, k, D: cs.phase_tpcds(k, D["seed"]),
 }
 
